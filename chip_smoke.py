@@ -13,8 +13,14 @@ Phases, each of which exits non-zero on failure:
    sources at once) and print the build seconds;
 3. every kernel against its plain PyTorch version on the card, over a
    sweep of shapes and at the shapes the main path gives it, with kernel,
-   plain, library-call and lower-bound times; ``spmv_pallas`` as a whole
-   at the main path's shapes, against ``torch.sparse_csr_tensor @ w``;
+   plain, library-call and lower-bound times: the fused ``spmv`` kernel in
+   float32 and float64, unweighted and weighted, on edge-case graphs (E
+   around the scan's tile, empty leading and trailing rows, one hub row
+   over more than 32 tiles), the 300-node power-law graph and the main
+   path's graph, timed at the main path's shapes against the plain
+   version, the composite around ``cumsum`` and
+   ``torch.sparse_csr_tensor @ w``; two calls of ``cumsum`` and of
+   ``spmv`` on one input must agree bit for bit;
 3b. the gather kernel of the SpMV cost probe against its plain version,
    bit for bit, in every mode of the probe at its default shapes and at
    edge shapes;
@@ -22,7 +28,8 @@ Phases, each of which exits non-zero on failure:
    edges, 20 iterations), through the ``segment``, ``pallas`` and
    ``hybrid`` SpMV impls, checked against an f64 run and counting kernel
    launches; every impl is also held against a dense f64 power iteration
-   on a small graph;
+   on a small graph; the ``pallas`` loop's profile must show no index
+   widening, ``cat`` or index kernel;
 5. the port's CLI once, at the same scale, with its output file checked;
 6a. the three SpMV cost probes (``tools/gather_micro``, ``xla_cost_micro``,
    ``spmv_breakdown``) through their ``main`` at default sizes, each
@@ -65,6 +72,9 @@ CUMSUM_RTOL = {torch.float32: 2e-4, torch.float64: 1e-12}
 ROWSUM_RTOL = {torch.float32: 1e-6, torch.float64: 1e-12}
 
 N_NODES, N_EDGES, SEED, ITERS = 875_000, 5_100_000, 7, 20
+# Kernels of the composite SpMV around cumsum (int32 index widening, the leading-zero
+# cat, the index gathers) that the fused spmv kernel removes from the loop.
+WIDENING_KERNELS = ("direct_copy_kernel", "CatArrayBatchedCopy", "index_elementwise_kernel")
 MAIN_IMPLS = ("segment", "pallas", "hybrid")
 
 # What the JAX package's probes print (tools/gather_micro.py:174-178,
@@ -97,9 +107,11 @@ def check(ok: bool, msg: str) -> None:
 
 def measure_cumsum(pk, x: torch.Tensor, label: str) -> dict:
     got = pk.cumsum_kernel(x)
+    again = pk.cumsum_kernel(x)
     want = pk.cumsum_plain(x)
     torch.cuda.synchronize()
     check(got.shape == x.shape and got.dtype == x.dtype, f"cumsum {label} shape/dtype")
+    check(torch.equal(got, again), f"cumsum {label}: two calls differ")
     err_abs = float((got - want).abs().max()) if x.numel() else 0.0
     scale = torch.cumsum(x.abs(), 0).clamp_min(torch.finfo(x.dtype).tiny)
     err_rel = float(((got - want).abs() / scale).max()) if x.numel() else 0.0
@@ -164,14 +176,71 @@ def measure_gather(gk, mode, x: torch.Tensor, idx: torch.Tensor, label: str) -> 
     return row
 
 
-def measure_spmv_pallas(pk, ops, src, indptr, w) -> None:
-    """``spmv_pallas`` as a whole (gather, cumsum kernel, CSR difference) at
-    the main path's shapes, against the plain composite (``torch.cumsum``),
-    the one library call that computes the same function (a CSR sparse
-    matrix-vector product) and its byte bound: src, w, indptr read once
-    and the output written once."""
+def check_spmv(pk, src, indptr, w, ew, label: str) -> float:
+    """The fused ``spmv`` kernel against ``spmv_pallas_plain`` on one input,
+    within the prefix-sum class of the per-edge Σ|x|, and two calls bit for
+    bit.  Returns the max abs difference from the plain version."""
+    n = w.shape[0]
+    got = pk.spmv_pallas(src, indptr, w, n=n, edge_weight=ew)
+    again = pk.spmv_pallas(src, indptr, w, n=n, edge_weight=ew)
+    want = pk.spmv_pallas_plain(src, indptr, w, n=n, edge_weight=ew)
+    torch.cuda.synchronize()
+    check(got.shape == (n,) and got.dtype == w.dtype, f"spmv {label}: shape/dtype")
+    check(bool(torch.isfinite(got).all()), f"spmv {label}: not finite")
+    check(torch.equal(got, again), f"spmv {label}: two calls differ")
+    per_edge = w.double()[src]
+    if ew is not None:
+        per_edge = per_edge * ew.double()
+    tol = CUMSUM_RTOL[w.dtype] * float(per_edge.abs().sum())
+    err = float((got - want).abs().max())
+    check(err <= tol, f"spmv {label}: max abs diff {err} from plain > {tol}")
+    return err
+
+
+def spmv_cases(rng, tile: int) -> dict:
+    """Edge-case CSR graphs ``{name: (src, indptr)}`` as numpy arrays: E
+    around the scan's tile, empty leading and trailing rows, one hub row
+    holding every edge across more than 32 tiles."""
+    def csr(n, e, lead=0, tail=0):
+        dst = np.sort(rng.integers(lead, n - tail, e))
+        return rng.integers(0, n, e), np.searchsorted(dst, np.arange(n + 1))
+
+    cases = {f"E={e}": csr(1000, e) for e in (1, 31, tile - 1, tile, tile + 1, 5 * tile + 7)}
+    cases["empty rows 0-9 and last 10"] = csr(1000, 3 * tile + 5, lead=10, tail=10)
+    e_hub = 40 * tile
+    cases[f"hub row of {e_hub} edges"] = (rng.integers(0, 100, e_hub),
+                                         np.r_[np.zeros(58), np.full(43, e_hub)])
+    return cases
+
+
+def sweep_spmv(pk, graphs: dict, rng) -> None:
+    """:func:`check_spmv` on each ``{name: (src, indptr, w)}`` in float32 and
+    float64, unweighted and weighted; ``w`` None means uniform random."""
+    for name, (src_np, indptr_np, w_np) in graphs.items():
+        src = torch.from_numpy(np.asarray(src_np, np.int32)).to("cuda")
+        indptr = torch.from_numpy(np.asarray(indptr_np, np.int32)).to("cuda")
+        n, e = indptr.shape[0] - 1, src.shape[0]
+        w64 = rng.random(n) if w_np is None else w_np
+        ew64 = rng.uniform(0.5, 2.0, e)
+        errs = []
+        for dtype in (torch.float32, torch.float64):
+            w = torch.from_numpy(w64).to("cuda", dtype)
+            for ew in (None, torch.from_numpy(ew64).to("cuda", dtype)):
+                errs.append(check_spmv(pk, src, indptr, w, ew,
+                                       f"{name} {dtype} {'weighted' if ew is not None else 'unweighted'}"))
+        print(f"spmv {name} (N={n}, E={e}): max abs diff from plain, f32 unweighted/weighted "
+              f"{errs[0]:.3g}/{errs[1]:.3g}, f64 {errs[2]:.3g}/{errs[3]:.3g}; two calls equal")
+
+
+def measure_spmv_pallas(pk, ops, src, indptr, w) -> dict:
+    """The fused ``spmv`` kernel at the main path's shapes, against its
+    plain version (``torch.cumsum``), the composite around the
+    ``cumsum`` kernel, the one library call that computes the same function
+    (a CSR sparse matrix-vector product) and its byte bound: src, w, indptr
+    read once and the output written once."""
     n, e = w.shape[0], src.shape[0]
     got = pk.spmv_pallas(src, indptr, w, n=n)
+    plain = pk.spmv_pallas_plain(src, indptr, w, n=n)
     mat = torch.sparse_csr_tensor(indptr, src, torch.ones(e, dtype=w.dtype, device=w.device),
                                   size=(n, n), check_invariants=False)
     want = ops.cumsum_diff_spmv(w.double()[src], indptr)
@@ -179,12 +248,16 @@ def measure_spmv_pallas(pk, ops, src, indptr, w) -> None:
     tol = CUMSUM_RTOL[w.dtype] * float(want.abs().sum())  # prefix-sum class
     check(err <= tol, f"spmv_pallas: max abs error {err} vs float64 > {tol}")
     b, by = bound_ms(src.nbytes + w.nbytes + indptr.nbytes + got.nbytes)
-    ms = time_ms(lambda: pk.spmv_pallas(src, indptr, w, n=n))
-    plain = time_ms(lambda: ops.cumsum_diff_spmv(w[src], indptr))
-    lib = time_ms(lambda: mat @ w)
-    print(f"spmv_pallas E={e} N={n}: composite {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"library (sparse CSR @ w) {lib:.4f} ms, bound {b:.4f} ms ({by}), "
-          f"max abs err vs float64 {err:.3g} (tol {tol:.3g})")
+    row = {"ms": time_ms(lambda: pk.spmv_pallas(src, indptr, w, n=n)),
+           "plain_ms": time_ms(lambda: pk.spmv_pallas_plain(src, indptr, w, n=n)),
+           "library_ms": time_ms(lambda: mat @ w),
+           "bound_ms": b, "bound_by": by, "max_abs_err": float((got - plain).abs().max())}
+    composite = time_ms(lambda: ops.cumsum_diff_spmv(w[src], indptr, pk.cumsum_kernel))
+    print(f"spmv E={e} N={n}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"composite around cumsum {composite:.4f} ms, library (sparse CSR @ w) "
+          f"{row['library_ms']:.4f} ms, bound {b:.4f} ms ({by}), max abs err vs float64 "
+          f"{err:.3g} (tol {tol:.3g}), vs plain {row['max_abs_err']:.3g}")
+    return row
 
 
 def profile_calls(fn, calls: int = 1) -> list:
@@ -336,11 +409,17 @@ def main() -> int:
           f"({hl.head_edges} edges); host build {time.perf_counter() - t0:.2f} s")
 
     # 3. kernels against their plain versions on the card
+    # (E around the scan's tile and past its 128-tile look-back window; an
+    # input one element off 16-byte alignment takes the unvectorised path)
+    reset_counts()
     rng = np.random.default_rng(SEED)
+    tile = _build.library("spmv").spmv_tile_len()
     for dtype in (torch.float32, torch.float64):
-        for e in (0, 1, 31, 1024, 1025, N_EDGES):
+        for e in (0, 1, 31, 1024, 1025, tile - 1, tile, tile + 1, 128 * tile + 1, N_EDGES):
             x = torch.from_numpy(rng.standard_normal(e)).to("cuda", dtype)
             measure_cumsum(pk, x, f"E={e} {dtype}")
+        x = torch.from_numpy(rng.standard_normal(N_EDGES + 1)).to("cuda", dtype)[1:]
+        measure_cumsum(pk, x, f"E={N_EDGES} unaligned {dtype}")
         for w in (8, 16, 32, 64, 128):
             for r in (1, 1023, 1025, hl.head_src.shape[0]):
                 rows = torch.from_numpy(rng.random((r, w))).to("cuda", dtype)
@@ -360,7 +439,15 @@ def main() -> int:
                                                 f"W={head_rows.shape[1]}"),
     }
     indptr = torch.from_numpy(graph.csr_indptr().astype(np.int32)).to("cuda")
-    measure_spmv_pallas(pk, ops, src, indptr, weighted)
+    small = synthetic_powerlaw(300, 1500, seed=3)
+    graphs = {name: (s, ip, None) for name, (s, ip) in spmv_cases(rng, tile).items()}
+    graphs["power-law 300 nodes"] = (small.src, small.csr_indptr(), None)
+    graphs["main path"] = (graph.src, graph.csr_indptr(), weighted.double().cpu().numpy())
+    sweep_spmv(pk, graphs, rng)
+    main_rows["spmv"] = measure_spmv_pallas(pk, ops, src, indptr, weighted)
+    cumsum_sweep = pk.LAUNCHES["cumsum"]
+    print(f"cumsum launches in phase 3 (its sweep, the main path's input and their "
+          f"timing): {cumsum_sweep}; the pallas path runs its scan inside spmv")
 
     # 3b. the probe's gather kernel against its plain version: every mode at
     # the probe's default shapes, then one block of 8 rows, and W = 4
@@ -380,7 +467,6 @@ def main() -> int:
     main_rows["gather"] = gather_rows["lane_w109184"]
 
     # 4a. every impl against a dense f64 power iteration on a small graph
-    small = synthetic_powerlaw(300, 1500, seed=3)
     want = dense_pagerank(small, ITERS)
     for impl in SPMV_IMPLS:
         got = run_pagerank(small, PageRankConfig(
@@ -423,8 +509,8 @@ def main() -> int:
         check(l1 <= 1e-3, f"{impl}: L1 {l1} vs f64 segment > 1e-3")
         launches[impl] = launched
         loop_ms[impl] = ITERS / float(np.median(rates)) * 1e3
-    check(launches["pallas"]["cumsum"] >= ITERS,
-          f"pallas run launched cumsum {launches['pallas']['cumsum']} times")
+    check(launches["pallas"]["spmv"] >= ITERS,
+          f"pallas run launched spmv {launches['pallas']['spmv']} times")
     check(launches["hybrid"]["rowsum"] >= ITERS,
           f"hybrid run launched rowsum {launches['hybrid']['rowsum']} times")
 
@@ -437,8 +523,12 @@ def main() -> int:
         r0 = torch.from_numpy(ops.init_ranks(graph.n_nodes, cfg)).to("cuda")
         device_ms, rows = profile_loop(ops.make_pagerank_runner(graph.n_nodes, cfg), dg, r0, e)
         print(f"profile {impl}: device {device_ms:.3f} ms of a {loop_ms[impl]:.3f} ms loop "
-              f"(busy {device_ms / loop_ms[impl]:.3f}); top kernels, ms per run: "
+              f"(busy {device_ms / loop_ms[impl]:.3f}), {sum(r[2] for r in rows) / ITERS:g} "
+              f"device ops per step; top kernels, ms per run: "
               + "; ".join(f"{k[:60]} {t:.3f} x{c}" for k, t, c in rows[:8]))
+        if impl == "pallas":
+            bad = [r[0] for r in rows if any(s in r[0] for s in WIDENING_KERNELS)]
+            check(not bad, f"pallas loop still runs {bad}")
 
     # 5. the CLI once, at the same scale
     with tempfile.TemporaryDirectory() as tmp:
@@ -496,9 +586,13 @@ def main() -> int:
 
     # 7. the kernels line, then the result line
     meta = {
+        "spmv": ("page_rank_and_tfidf_using_apache_spark_tpu_torch/csrc/spmv.cu",
+                 "page_rank_and_tfidf_using_apache_spark_tpu/ops/pallas_kernels.py:144",
+                 launches["pallas"]["spmv"]),
+        # the main path scans inside spmv: cumsum's count is its phase-3 sweep
         "cumsum": ("page_rank_and_tfidf_using_apache_spark_tpu_torch/csrc/cumsum.cu",
                    "page_rank_and_tfidf_using_apache_spark_tpu/ops/pallas_kernels.py:78",
-                   launches["pallas"]["cumsum"]),
+                   cumsum_sweep),
         "rowsum": ("page_rank_and_tfidf_using_apache_spark_tpu_torch/csrc/rowsum.cu",
                    "page_rank_and_tfidf_using_apache_spark_tpu/ops/pallas_kernels.py:118",
                    launches["hybrid"]["rowsum"]),

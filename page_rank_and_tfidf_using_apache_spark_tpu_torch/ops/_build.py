@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, on first use, into
 ``_build/`` beside ``csrc/`` (listed in ``.gitignore``), and loaded with
 ``ctypes``.  Missing libraries are built together, one ``nvcc`` process per
-source, all started at once.  A library older than its source is rebuilt.
+source, all started at once.  A library older than its source, or than any
+shared header ``csrc/*.cuh``, is rebuilt.
 Nothing here runs at import time: this module imports on a machine with no
 CUDA toolkit, and only a launch on a CUDA tensor reaches :func:`library`.
 """
@@ -34,6 +35,13 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "cumsum_f32": (_I, [_P, _P, _P, _LL, _P]),
         "cumsum_f64": (_I, [_P, _P, _P, _LL, _P]),
         "cumsum_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "spmv": {
+        "spmv_scratch_len": (_LL, [_LL, _LL, _I]),
+        "spmv_tile_len": (_I, []),
+        "spmv_f32": (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL, _P]),
+        "spmv_f64": (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL, _P]),
+        "spmv_error_string": (ctypes.c_char_p, [_I]),
     },
     "rowsum": {
         "rowsum_f32": (_I, [_P, _P, _LL, _I, _P]),
@@ -68,8 +76,13 @@ def lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """Whether ``lib<name>.so`` is missing or older than ``<name>.cu`` or any
+    ``csrc/*.cuh`` (a source may include any of them)."""
     lib = lib_path(name)
-    return not lib.exists() or lib.stat().st_mtime < (SRC_DIR / f"{name}.cu").stat().st_mtime
+    if not lib.exists():
+        return True
+    sources = [SRC_DIR / f"{name}.cu", *SRC_DIR.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def build(names=tuple(SIGNATURES), *, force: bool = False) -> dict[str, dict]:
@@ -105,6 +118,16 @@ def build(names=tuple(SIGNATURES), *, force: bool = False) -> dict[str, dict]:
     return out
 
 
+def load(path: Path, name: str) -> ctypes.CDLL:
+    """The shared library at ``path``, built from ``<name>.cu``, with the
+    C signatures of ``name`` set."""
+    lib = ctypes.CDLL(str(path))
+    for fn, (restype, argtypes) in SIGNATURES[name].items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    return lib
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library ``lib<name>.so``, built first if needed (with
     every other stale library, in parallel), with its C signatures set."""
@@ -113,9 +136,5 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             if _stale(name):
                 build(tuple(n for n in SIGNATURES if _stale(n)))
-            lib = ctypes.CDLL(str(lib_path(name)))
-            for fn, (restype, argtypes) in SIGNATURES[name].items():
-                getattr(lib, fn).restype = restype
-                getattr(lib, fn).argtypes = argtypes
-            _libs[name] = lib
+            lib = _libs[name] = load(lib_path(name), name)
         return lib

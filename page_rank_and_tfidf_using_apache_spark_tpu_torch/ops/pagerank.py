@@ -355,7 +355,8 @@ def cumsum_diff_spmv(per_edge, indptr, cumsum_fn=pk.cumsum_plain) -> torch.Tenso
     """Prefix-sum segmented reduction: ``out[v] = c[indptr[v+1]] -
     c[indptr[v]]`` with ``c`` the prefix sum of ``per_edge`` behind a
     leading zero.  ``cumsum_fn`` is the prefix-sum primitive (plain
-    ``torch.cumsum``, or the hand-written kernel for spmv_impl='pallas')."""
+    ``torch.cumsum`` by default); ``spmv_impl='pallas'`` runs all of this
+    in one fused kernel, with this composite as its plain version."""
     c0 = torch.cat([per_edge.new_zeros(1), cumsum_fn(per_edge)])
     return c0[indptr[1:]] - c0[indptr[:-1]]
 

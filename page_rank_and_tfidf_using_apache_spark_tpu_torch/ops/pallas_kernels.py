@@ -1,21 +1,24 @@
 """Hand-written CUDA kernels of the PageRank SpMV, with their plain versions.
 
-Counterpart of the JAX package's ``ops/pallas_kernels.py``.  Its two TPU
-kernels are CUDA C++ here (``csrc/cumsum.cu``, ``csrc/rowsum.cu``), built
-for ``sm_90a`` on first use (``ops/_build.py``):
+Counterpart of the JAX package's ``ops/pallas_kernels.py``.  Its TPU kernels
+are CUDA C++ here, built for ``sm_90a`` on first use (``ops/_build.py``):
 
-- :func:`cumsum_kernel` replaces ``cumsum_pallas``: the inclusive prefix
-  sum under ``spmv_impl='pallas'``; :func:`spmv_pallas` composes it with
-  the gather and the CSR difference, which stay plain PyTorch as the JAX
-  package leaves them to XLA.
+- :func:`spmv_pallas` replaces ``spmv_pallas``, the SpMV under
+  ``spmv_impl='pallas'``: gather, prefix sum and CSR-row difference fused
+  into one scan kernel plus a difference kernel (``csrc/spmv.cu``), reading
+  the int32 ``src`` and ``indptr`` as they are.
+- :func:`cumsum_kernel` replaces ``cumsum_pallas``: the same single-pass,
+  deterministic scan on its own (``csrc/cumsum.cu``; both share
+  ``csrc/scan.cuh``).  On the main path its scan runs inside the fused
+  kernel, so the main path launches it no more.
 - :func:`rowsum_kernel` replaces ``rowsum_pallas``: the row sums of the
-  ``spmv_impl='hybrid'`` dense head.
+  ``spmv_impl='hybrid'`` dense head (``csrc/rowsum.cu``).
 
 Each wrapper checks its input, takes a CPU tensor to the plain PyTorch
-version beside it (``cumsum_plain``, ``rowsum_plain``), and launches the
-kernel on a CUDA tensor or raises: there is no fallback on the card.
-``LAUNCHES`` counts kernel launches per wrapper, so a run can show that it
-went through the kernels.
+version beside it (``spmv_pallas_plain``, ``cumsum_plain``,
+``rowsum_plain``), and launches the kernel on a CUDA tensor or raises: there
+is no fallback on the card.  ``LAUNCHES`` counts kernel launches per
+wrapper, so a run can show that it went through the kernels.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import _build
 
 # Kernel launches per wrapper since the last reset_launches().
-LAUNCHES: dict[str, int] = {"cumsum": 0, "rowsum": 0}
+LAUNCHES: dict[str, int] = {"cumsum": 0, "rowsum": 0, "spmv": 0}
 
 
 def reset_launches() -> None:
@@ -67,18 +70,24 @@ def cumsum_kernel(x: torch.Tensor) -> torch.Tensor:
     _check(x, 1, "cumsum")
     if x.device.type == "cpu":
         return cumsum_plain(x)
-    n = x.shape[0]
-    if n == 0:
+    if x.shape[0] == 0:
         return x
-    lib = _build.library("cumsum")
+    out = launch_cumsum(_build.library("cumsum"), x)
+    LAUNCHES["cumsum"] += 1
+    return out
+
+
+def launch_cumsum(lib, x: torch.Tensor) -> torch.Tensor:
+    """One call of ``lib`` (a loaded ``cumsum`` library) on a non-empty,
+    checked CUDA tensor; uncounted."""
+    n = x.shape[0]
     out = torch.empty_like(x)
-    scratch = torch.empty(lib.cumsum_scratch_len(n), dtype=x.dtype, device=x.device)
+    scratch = torch.empty(lib.cumsum_scratch_len(n), dtype=torch.uint8, device=x.device)
     launch = lib.cumsum_f32 if x.dtype == torch.float32 else lib.cumsum_f64
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = launch(x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, stream)
     _raise_on(rc, lib, "cumsum_error_string", "cumsum")
-    LAUNCHES["cumsum"] += 1
     return out
 
 
@@ -107,7 +116,33 @@ def rowsum_kernel(rows: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def spmv_pallas(
+def _check_spmv(src, indptr, w, n: int, edge_weight) -> None:
+    for name, idx in (("src", src), ("indptr", indptr)):
+        if not isinstance(idx, torch.Tensor):
+            raise TypeError(f"spmv_pallas {name} takes a torch.Tensor, got {type(idx).__name__}")
+        if idx.dtype != torch.int32:
+            raise TypeError(f"spmv_pallas {name} takes int32, got {idx.dtype}")
+        if idx.dim() != 1 or not idx.is_contiguous():
+            raise ValueError(f"spmv_pallas {name} takes a contiguous 1-D tensor")
+    if indptr.shape[0] != n + 1:
+        raise ValueError(f"spmv_pallas indptr has {indptr.shape[0]} entries, wanted n+1 = {n + 1}")
+    _check(w, 1, "spmv_pallas w")
+    if w.shape[0] != n:
+        raise ValueError(f"spmv_pallas w has {w.shape[0]} entries, wanted n = {n}")
+    tensors = [src, indptr, w]
+    if edge_weight is not None:
+        _check(edge_weight, 1, "spmv_pallas edge_weight")
+        if edge_weight.dtype != w.dtype:
+            raise TypeError(f"spmv_pallas edge_weight is {edge_weight.dtype}, w is {w.dtype}")
+        if edge_weight.shape[0] != src.shape[0]:
+            raise ValueError(f"spmv_pallas edge_weight has {edge_weight.shape[0]} entries, "
+                             f"src has {src.shape[0]}")
+        tensors.append(edge_weight)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("spmv_pallas takes all its tensors on one device")
+
+
+def spmv_pallas_plain(
     src: torch.Tensor,
     indptr: torch.Tensor,
     w: torch.Tensor,
@@ -115,16 +150,8 @@ def spmv_pallas(
     n: int,
     edge_weight: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """``contribs[v] = Σ_{e: dst-sorted, dst[e]=v} w[src[e]] (· edge_weight[e])``
-    with the prefix sum in :func:`cumsum_kernel` (gather and CSR-row
-    difference in PyTorch).
-
-    Args:
-      src: int32 [E] edge sources in dst-sorted order.
-      indptr: int32 [N+1] CSR row pointers into the dst-sorted edge list.
-      w: f[N] per-node values (already divided by out-degree).
-      n: number of nodes.
-    """
+    """:func:`spmv_pallas` in plain PyTorch: the gather, ``torch.cumsum``
+    and the CSR-row difference (``cumsum_diff_spmv``)."""
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops.pagerank import (
         cumsum_diff_spmv,
     )
@@ -134,4 +161,51 @@ def spmv_pallas(
     per_edge = w[src]
     if edge_weight is not None:  # weighted PageRank: w(u,v)·rank[u]/s[u]
         per_edge = per_edge * edge_weight
-    return cumsum_diff_spmv(per_edge, indptr, cumsum_kernel)
+    return cumsum_diff_spmv(per_edge, indptr, cumsum_plain)
+
+
+def spmv_pallas(
+    src: torch.Tensor,
+    indptr: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    n: int,
+    edge_weight: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``contribs[v] = Σ_{e: dst-sorted, dst[e]=v} w[src[e]] (· edge_weight[e])``:
+    ``csrc/spmv.cu`` on CUDA (one memset and two kernels), and
+    :func:`spmv_pallas_plain` on the CPU.  With no edges it returns zeros.
+
+    Args:
+      src: int32 [E] edge sources in dst-sorted order.
+      indptr: int32 [N+1] CSR row pointers into the dst-sorted edge list.
+      w: f[N] per-node values (already divided by out-degree), float32 or
+        float64.
+      n: number of nodes.
+      edge_weight: optional f[E] of ``w``'s type.
+    """
+    _check_spmv(src, indptr, w, n, edge_weight)
+    if w.device.type == "cpu":
+        return spmv_pallas_plain(src, indptr, w, n=n, edge_weight=edge_weight)
+    if src.shape[0] == 0 or n == 0:
+        return torch.zeros(n, dtype=w.dtype, device=w.device)
+    out = launch_spmv(_build.library("spmv"), src, indptr, w, edge_weight)
+    LAUNCHES["spmv"] += 1
+    return out
+
+
+def launch_spmv(lib, src, indptr, w, edge_weight=None) -> torch.Tensor:
+    """One call of ``lib`` (a loaded ``spmv`` library) on checked CUDA
+    tensors with at least one edge and one node; uncounted."""
+    e, n = src.shape[0], w.shape[0]
+    out = torch.empty(n, dtype=w.dtype, device=w.device)
+    scratch = torch.empty(lib.spmv_scratch_len(e, n, w.element_size()), dtype=torch.uint8,
+                          device=w.device)
+    launch = lib.spmv_f32 if w.dtype == torch.float32 else lib.spmv_f64
+    ew = None if edge_weight is None else edge_weight.data_ptr()
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = launch(src.data_ptr(), indptr.data_ptr(), w.data_ptr(), ew, out.data_ptr(),
+                    scratch.data_ptr(), e, n, stream)
+    _raise_on(rc, lib, "spmv_error_string", "spmv")
+    return out

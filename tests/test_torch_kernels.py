@@ -7,6 +7,10 @@ card by ``chip_smoke.py``.  Inputs come from a numpy seed; tolerances are
 float64 at 1e-12 (summation order differs between the two).
 """
 
+import os
+import shutil
+import time
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,8 +20,10 @@ from page_rank_and_tfidf_using_apache_spark_tpu.io.graph import from_edges, synt
 from page_rank_and_tfidf_using_apache_spark_tpu.ops import pagerank as jops
 from page_rank_and_tfidf_using_apache_spark_tpu.ops import pallas_kernels as jpk
 from page_rank_and_tfidf_using_apache_spark_tpu_torch import convert
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import _build
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pagerank as tops
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pallas_kernels as tpk
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import scan_variants
 
 RTOL = ATOL = 1e-12
 
@@ -64,6 +70,53 @@ def test_spmv_pallas_matches_jax(weighted):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+# Edges per tile of csrc/spmv.cu's scan (spmv_tile_len()).
+SCAN_TILE = 4096
+
+
+def _edge_graph(kind: str):
+    """Node ids 0..n-1 kept as they are (``compact_ids=False``); the largest
+    id appears as a source, so every empty row stays in the graph."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "empty_lead_and_tail_rows":  # rows 0-9 and 190-199 receive nothing
+        n, e = 200, 3 * SCAN_TILE + 5
+        dst = rng.integers(10, n - 10, e)
+    elif kind == "hub_row":  # every edge lands on row 7
+        n, e = 50, 2 * SCAN_TILE + 1
+        dst = np.full(e, 7)
+    else:  # "ragged_tiles": E not a multiple of the tile
+        n, e = 1000, 2 * SCAN_TILE + 7
+        dst = rng.integers(0, n, e)
+    src = rng.integers(0, n, e)
+    src[0] = n - 1
+    return from_edges(src, dst, dedup=False, compact_ids=False), rng
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("kind", ["empty_lead_and_tail_rows", "hub_row", "ragged_tiles"])
+def test_spmv_pallas_plain_matches_jax_edge_graphs(kind, weighted):
+    """The fused kernel's plain version against the JAX ``spmv_pallas`` with
+    ``cumsum_pallas`` in interpret mode, on the graphs the card's sweep
+    covers: empty rows at both ends, one hub row, E off the tile."""
+    g, rng = _edge_graph(kind)
+    if weighted:
+        g = from_edges(g.src, g.dst, weight=rng.uniform(0.5, 2.0, g.n_edges), dedup=False,
+                       compact_ids=False)
+    jdg = jops.put_graph(g, "float64")
+    tdg = convert.device_graph(jdg, device="cpu")
+    indptr = np.asarray(jdg.indptr)
+    if kind == "empty_lead_and_tail_rows":
+        assert indptr[10] == 0 and indptr[-11] == g.n_edges
+    w = rng.random(g.n_nodes)
+    want = np.asarray(jpk.spmv_pallas(jdg.src, jdg.indptr, jnp.asarray(w), n=g.n_nodes,
+                                      edge_weight=jdg.edge_weight, interpret=True))
+    args = (tdg.src, tdg.indptr, convert.ranks_tensor(w, device="cpu"))
+    got = tpk.spmv_pallas_plain(*args, n=g.n_nodes, edge_weight=tdg.edge_weight).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(
+        tpk.spmv_pallas(*args, n=g.n_nodes, edge_weight=tdg.edge_weight).numpy(), got)
+
+
 def test_spmv_pallas_empty_graph():
     got = tpk.spmv_pallas(torch.zeros(0, dtype=torch.int32), torch.zeros(4, dtype=torch.int32),
                           torch.ones(3, dtype=torch.float64), n=3)
@@ -90,9 +143,27 @@ def test_cumsum_blocked_matches_jax(n):
     ("rowsum", torch.zeros(2, 2, 2), ValueError),
     ("rowsum", torch.zeros(4, 8).t(), ValueError),
     ("rowsum", torch.zeros(4, 8, device="meta"), ValueError),
+    ("spmv", {"src": torch.zeros(6, dtype=torch.int64)}, TypeError),
+    ("spmv", {"w": torch.ones(4, dtype=torch.float16)}, TypeError),
+    ("spmv", {"indptr": torch.zeros(4, dtype=torch.int32)}, ValueError),
+    ("spmv", {"src": torch.zeros(12, dtype=torch.int32)[::2]}, ValueError),
+    ("spmv", {"edge_weight": torch.ones(5, dtype=torch.float64)}, ValueError),
+    ("spmv", {"edge_weight": torch.ones(6, dtype=torch.float32)}, TypeError),
+    ("spmv", {"w": torch.ones(5, dtype=torch.float64)}, ValueError),
 ])
 def test_wrappers_reject_bad_input(wrapper, bad, error):
-    fn = tpk.cumsum_kernel if wrapper == "cumsum" else tpk.rowsum_kernel
+    if wrapper == "spmv":  # bad replaces arguments of a valid 4-node, 6-edge call
+        args = dict(src=torch.tensor([0, 1, 2, 3, 0, 1], dtype=torch.int32),
+                    indptr=torch.tensor([0, 2, 3, 5, 6], dtype=torch.int32),
+                    w=torch.ones(4, dtype=torch.float64), edge_weight=None)
+        tpk.spmv_pallas(args["src"], args["indptr"], args["w"], n=4)
+        args.update(bad)
+
+        def fn(_):
+            return tpk.spmv_pallas(args["src"], args["indptr"], args["w"], n=4,
+                                   edge_weight=args["edge_weight"])
+    else:
+        fn = tpk.cumsum_kernel if wrapper == "cumsum" else tpk.rowsum_kernel
     with pytest.raises(error):
         fn(bad)
 
@@ -103,7 +174,9 @@ def test_cpu_calls_count_no_launch():
     tpk.reset_launches()
     tpk.cumsum_kernel(torch.ones(10))
     tpk.rowsum_kernel(torch.ones(3, 8))
-    assert tpk.LAUNCHES == {"cumsum": 0, "rowsum": 0}
+    tpk.spmv_pallas(torch.zeros(2, dtype=torch.int32), torch.tensor([0, 2], dtype=torch.int32),
+                    torch.ones(1), n=1)
+    assert tpk.LAUNCHES == {"cumsum": 0, "rowsum": 0, "spmv": 0}
 
 
 def test_convert_checks_field_names():
@@ -114,3 +187,55 @@ def test_convert_checks_field_names():
     assert dg.src.dtype == torch.int32 and dg.inv_outdeg.dtype == torch.float64
     with pytest.raises(ValueError, match="no fields"):
         convert.device_graph({**fields, "bogus": np.zeros(1)}, device="cpu")
+
+
+@pytest.fixture
+def csrc_copy(tmp_path, monkeypatch):
+    """``_build`` pointed at a copy of ``csrc/`` whose libraries (empty
+    files) are newer than every source."""
+    src, build = tmp_path / "csrc", tmp_path / "_build"
+    shutil.copytree(_build.SRC_DIR, src)
+    build.mkdir()
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    now = time.time()
+    for p in src.iterdir():
+        os.utime(p, (now - 100, now - 100))
+    for name in _build.SIGNATURES:
+        assert _build._stale(name)  # not built yet
+        _build.lib_path(name).write_bytes(b"")
+        os.utime(_build.lib_path(name), (now - 50, now - 50))
+        assert not _build._stale(name)
+    return src, now
+
+
+def test_stale_follows_a_shared_header(csrc_copy):
+    """A library that includes ``scan.cuh`` is rebuilt once the header is
+    newer, though its own ``.cu`` is not."""
+    src, now = csrc_copy
+    os.utime(src / "scan.cuh", (now, now))
+    assert _build._stale("cumsum") and _build._stale("spmv")
+
+
+def test_stale_follows_its_own_source(csrc_copy):
+    src, now = csrc_copy
+    os.utime(src / "spmv.cu", (now, now))
+    assert _build._stale("spmv")
+    assert not _build._stale("cumsum")
+
+
+@pytest.mark.parametrize("name", sorted(scan_variants.VARIANTS))
+def test_scan_variants_edit_the_current_sources(name):
+    """Each variant's edits still find their text in ``csrc/``, so the
+    tool builds what its name says."""
+    edited = scan_variants.variant_sources(name)
+    committed = {f: (_build.SRC_DIR / f).read_text() for f in scan_variants.SOURCES}
+    assert (edited == committed) == (name == "committed")
+
+
+def test_scan_variants_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        scan_variants.main(["--variants", "committed"])
+    with pytest.raises(SystemExit):
+        scan_variants.main(["--variants", "bogus"])
