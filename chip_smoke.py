@@ -20,7 +20,8 @@ Phases, each of which exits non-zero on failure:
    path's graph, timed at the main path's shapes against the plain
    version, the composite around ``cumsum`` and
    ``torch.sparse_csr_tensor @ w``; two calls of ``cumsum`` and of
-   ``spmv`` on one input must agree bit for bit;
+   ``spmv`` on one input must agree bit for bit, and so must kernel and
+   plain version on small integers, whose sums are exact;
 3b. the gather kernel of the SpMV cost probe against its plain version,
    bit for bit, in every mode of the probe at its default shapes and at
    edge shapes;
@@ -70,6 +71,17 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.timing import (  # n
 # rowsum: |kernel - plain| <= rtol * (row sum of |x|).
 CUMSUM_RTOL = {torch.float32: 2e-4, torch.float64: 1e-12}
 ROWSUM_RTOL = {torch.float32: 1e-6, torch.float64: 1e-12}
+# spmv: out[v] is a difference of two prefix sums, each rounded along its own
+# association tree (kernel and torch.cumsum), so |kernel - plain| at row v is
+# held to SPMV_ULPS units u of the running sums of |per-edge| at the row's
+# two ends, C[indptr[v]] + C[indptr[v+1]], with u the unit roundoff; the
+# sum over rows of |kernel - plain| to SPMV_L1_ULPS units of the sum of those
+# scales.  A row set to zero or moved can hide under that at the end of a
+# long array, so every graph is also run on small integers, whose prefix sums
+# are exact in either type: there the kernel must equal the plain version,
+# and the float64 sum, bit for bit.
+UNIT_ROUNDOFF = {torch.float32: 2.0 ** -24, torch.float64: 2.0 ** -53}
+SPMV_ULPS, SPMV_L1_ULPS = 32.0, 4.0
 
 N_NODES, N_EDGES, SEED, ITERS = 875_000, 5_100_000, 7, 20
 # Kernels of the composite SpMV around cumsum (int32 index widening, the leading-zero
@@ -118,6 +130,14 @@ def measure_cumsum(pk, x: torch.Tensor, label: str) -> dict:
     rtol = CUMSUM_RTOL[x.dtype]
     check(bool(torch.isfinite(got).all()) and err_rel <= rtol,
           f"cumsum {label}: error {err_rel:.3g} of the running sum of |x| > {rtol}")
+    # integers in -3..3 at x's offset: every partial sum is exact in either
+    # type, so the kernel must equal the plain version bit for bit
+    gen = torch.Generator(device=x.device).manual_seed(x.numel())
+    off = x.storage_offset()
+    xi = torch.randint(-3, 4, (off + x.numel(),), generator=gen, device=x.device,
+                       dtype=x.dtype)[off:]
+    check(torch.equal(pk.cumsum_kernel(xi), pk.cumsum_plain(xi)),
+          f"cumsum {label}: integer sums differ from plain")
     n, size = x.numel(), x.element_size()
     b, by = bound_ms(2 * n * size, n, x.dtype)
     row = {"ms": time_ms(lambda: pk.cumsum_kernel(x)),
@@ -176,10 +196,30 @@ def measure_gather(gk, mode, x: torch.Tensor, idx: torch.Tensor, label: str) -> 
     return row
 
 
-def check_spmv(pk, src, indptr, w, ew, label: str) -> float:
+def spmv_error(got, want, src, indptr, w, ew, label: str) -> tuple[float, float, float]:
+    """``got`` against ``want`` within SPMV_ULPS units of each row's scale
+    and SPMV_L1_ULPS over all rows.  Returns the max abs difference and the
+    largest and the L1 ratio to ``u`` times the scale."""
+    per_edge = w.double()[src]
+    if ew is not None:
+        per_edge = per_edge * ew.double()
+    c = torch.cat([per_edge.new_zeros(1), torch.cumsum(per_edge.abs(), 0)])
+    scale = UNIT_ROUNDOFF[w.dtype] * (c[indptr[1:]] + c[indptr[:-1]])
+    diff = (got.double() - want.double()).abs()
+    worst = float((diff / scale.clamp_min(torch.finfo(torch.float64).tiny)).max())
+    l1 = float(diff.sum() / scale.sum().clamp_min(torch.finfo(torch.float64).tiny))
+    check(bool((diff <= SPMV_ULPS * scale).all()),
+          f"spmv {label}: a row differs by {worst:.3g} u of its scale > {SPMV_ULPS}")
+    check(l1 <= SPMV_L1_ULPS, f"spmv {label}: L1 difference {l1:.3g} u of the scales "
+                              f"> {SPMV_L1_ULPS}")
+    return float(diff.max()), worst, l1
+
+
+def check_spmv(pk, src, indptr, w, ew, label: str, exact: bool) -> tuple[float, float, float]:
     """The fused ``spmv`` kernel against ``spmv_pallas_plain`` on one input,
-    within the prefix-sum class of the per-edge Σ|x|, and two calls bit for
-    bit.  Returns the max abs difference from the plain version."""
+    two calls bit for bit.  With ``exact`` (integer inputs whose sum is
+    exact in ``w``'s type) kernel, plain and the float64 sum must be equal;
+    else :func:`spmv_error` holds kernel to plain."""
     n = w.shape[0]
     got = pk.spmv_pallas(src, indptr, w, n=n, edge_weight=ew)
     again = pk.spmv_pallas(src, indptr, w, n=n, edge_weight=ew)
@@ -188,13 +228,13 @@ def check_spmv(pk, src, indptr, w, ew, label: str) -> float:
     check(got.shape == (n,) and got.dtype == w.dtype, f"spmv {label}: shape/dtype")
     check(bool(torch.isfinite(got).all()), f"spmv {label}: not finite")
     check(torch.equal(got, again), f"spmv {label}: two calls differ")
-    per_edge = w.double()[src]
-    if ew is not None:
-        per_edge = per_edge * ew.double()
-    tol = CUMSUM_RTOL[w.dtype] * float(per_edge.abs().sum())
-    err = float((got - want).abs().max())
-    check(err <= tol, f"spmv {label}: max abs diff {err} from plain > {tol}")
-    return err
+    if not exact:
+        return spmv_error(got, want, src, indptr, w, ew, label)
+    exact_sum = pk.spmv_pallas_plain(src, indptr, w.double(), n=n,
+                                     edge_weight=None if ew is None else ew.double())
+    check(torch.equal(got, want) and torch.equal(got.double(), exact_sum),
+          f"spmv {label}: integer sums differ from plain or from float64")
+    return 0.0, 0.0, 0.0
 
 
 def spmv_cases(rng, tile: int) -> dict:
@@ -213,23 +253,37 @@ def spmv_cases(rng, tile: int) -> dict:
     return cases
 
 
-def sweep_spmv(pk, graphs: dict, rng) -> None:
+def sweep_spmv(pk, graphs: dict, rng) -> dict:
     """:func:`check_spmv` on each ``{name: (src, indptr, w)}`` in float32 and
-    float64, unweighted and weighted; ``w`` None means uniform random."""
+    float64, unweighted and weighted, on real values (``w`` None means
+    uniform random) and on integers (``w`` in 1..3, edge weights 1 or 2).
+    Returns the largest row and L1 ratios (units of ``u``) per type."""
+    most = {dtype: [0.0, 0.0] for dtype in UNIT_ROUNDOFF}
     for name, (src_np, indptr_np, w_np) in graphs.items():
         src = torch.from_numpy(np.asarray(src_np, np.int32)).to("cuda")
         indptr = torch.from_numpy(np.asarray(indptr_np, np.int32)).to("cuda")
         n, e = indptr.shape[0] - 1, src.shape[0]
-        w64 = rng.random(n) if w_np is None else w_np
-        ew64 = rng.uniform(0.5, 2.0, e)
-        errs = []
-        for dtype in (torch.float32, torch.float64):
-            w = torch.from_numpy(w64).to("cuda", dtype)
-            for ew in (None, torch.from_numpy(ew64).to("cuda", dtype)):
-                errs.append(check_spmv(pk, src, indptr, w, ew,
-                                       f"{name} {dtype} {'weighted' if ew is not None else 'unweighted'}"))
-        print(f"spmv {name} (N={n}, E={e}): max abs diff from plain, f32 unweighted/weighted "
-              f"{errs[0]:.3g}/{errs[1]:.3g}, f64 {errs[2]:.3g}/{errs[3]:.3g}; two calls equal")
+        values = {"real": (rng.random(n) if w_np is None else w_np, rng.uniform(0.5, 2.0, e)),
+                  "integer": (rng.integers(1, 4, n).astype(np.float64),
+                              rng.integers(1, 3, e).astype(np.float64))}
+        w_int, ew_int = values["integer"]
+        check(float((w_int[np.asarray(src_np)] * ew_int).sum()) < 2.0 ** 24,
+              f"spmv {name}: integer sum not exact in float32")
+        parts = []
+        for kind, (w64, ew64) in values.items():
+            for dtype in (torch.float32, torch.float64):
+                w = torch.from_numpy(w64).to("cuda", dtype)
+                for ew in (None, torch.from_numpy(ew64).to("cuda", dtype)):
+                    label = f"{name} {kind} {dtype} {'un' if ew is None else ''}weighted"
+                    err, worst, l1 = check_spmv(pk, src, indptr, w, ew, label, kind == "integer")
+                    most[dtype] = [max(most[dtype][0], worst), max(most[dtype][1], l1)]
+                    if kind == "real":
+                        parts.append(f"{str(dtype)[6:]} {'un' if ew is None else ''}weighted "
+                                     f"{err:.3g} ({worst:.3g} u, L1 {l1:.3g} u)")
+        print(f"spmv {name} (N={n}, E={e}): max abs diff from plain (largest row / L1 in "
+              f"units u of the scale): " + "; ".join(parts)
+              + "; integers equal to plain and float64; two calls equal")
+    return most
 
 
 def measure_spmv_pallas(pk, ops, src, indptr, w) -> dict:
@@ -244,9 +298,7 @@ def measure_spmv_pallas(pk, ops, src, indptr, w) -> dict:
     mat = torch.sparse_csr_tensor(indptr, src, torch.ones(e, dtype=w.dtype, device=w.device),
                                   size=(n, n), check_invariants=False)
     want = ops.cumsum_diff_spmv(w.double()[src], indptr)
-    err = float((got.double() - want).abs().max())
-    tol = CUMSUM_RTOL[w.dtype] * float(want.abs().sum())  # prefix-sum class
-    check(err <= tol, f"spmv_pallas: max abs error {err} vs float64 > {tol}")
+    err, worst, l1 = spmv_error(got, want, src, indptr, w, None, "main path vs float64")
     b, by = bound_ms(src.nbytes + w.nbytes + indptr.nbytes + got.nbytes)
     row = {"ms": time_ms(lambda: pk.spmv_pallas(src, indptr, w, n=n)),
            "plain_ms": time_ms(lambda: pk.spmv_pallas_plain(src, indptr, w, n=n)),
@@ -256,7 +308,8 @@ def measure_spmv_pallas(pk, ops, src, indptr, w) -> dict:
     print(f"spmv E={e} N={n}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
           f"composite around cumsum {composite:.4f} ms, library (sparse CSR @ w) "
           f"{row['library_ms']:.4f} ms, bound {b:.4f} ms ({by}), max abs err vs float64 "
-          f"{err:.3g} (tol {tol:.3g}), vs plain {row['max_abs_err']:.3g}")
+          f"{err:.3g} (largest row {worst:.3g} u, L1 {l1:.3g} u), vs plain "
+          f"{row['max_abs_err']:.3g}")
     return row
 
 
@@ -443,9 +496,12 @@ def main() -> int:
     graphs = {name: (s, ip, None) for name, (s, ip) in spmv_cases(rng, tile).items()}
     graphs["power-law 300 nodes"] = (small.src, small.csr_indptr(), None)
     graphs["main path"] = (graph.src, graph.csr_indptr(), weighted.double().cpu().numpy())
-    sweep_spmv(pk, graphs, rng)
+    most = sweep_spmv(pk, graphs, rng)
+    print("spmv sweep, largest row / L1 difference from plain in units u of the scale "
+          f"(limits {SPMV_ULPS:g} / {SPMV_L1_ULPS:g}): "
+          + ", ".join(f"{str(d)[6:]} {r:.3g} / {l:.3g}" for d, (r, l) in most.items()))
     main_rows["spmv"] = measure_spmv_pallas(pk, ops, src, indptr, weighted)
-    cumsum_sweep = pk.LAUNCHES["cumsum"]
+    cumsum_sweep = main_rows["cumsum"]["sweep_launches"] = pk.LAUNCHES["cumsum"]
     print(f"cumsum launches in phase 3 (its sweep, the main path's input and their "
           f"timing): {cumsum_sweep}; the pallas path runs its scan inside spmv")
 
@@ -584,15 +640,16 @@ def main() -> int:
     print(f"w[src] with the int32 index: {time_ms(lambda: w[src]):.4f} ms; with an int64 "
           f"index: {time_ms(lambda: w[src64]):.4f} ms")
 
-    # 7. the kernels line, then the result line
+    # 7. the kernels line, then the result line; launches are those of the
+    # kernel's own path (none for cumsum, whose scan the pallas path runs
+    # inside spmv: its phase-3 calls stand apart, as sweep_launches)
     meta = {
         "spmv": ("page_rank_and_tfidf_using_apache_spark_tpu_torch/csrc/spmv.cu",
                  "page_rank_and_tfidf_using_apache_spark_tpu/ops/pallas_kernels.py:144",
                  launches["pallas"]["spmv"]),
-        # the main path scans inside spmv: cumsum's count is its phase-3 sweep
         "cumsum": ("page_rank_and_tfidf_using_apache_spark_tpu_torch/csrc/cumsum.cu",
                    "page_rank_and_tfidf_using_apache_spark_tpu/ops/pallas_kernels.py:78",
-                   cumsum_sweep),
+                   launches["pallas"]["cumsum"]),
         "rowsum": ("page_rank_and_tfidf_using_apache_spark_tpu_torch/csrc/rowsum.cu",
                    "page_rank_and_tfidf_using_apache_spark_tpu/ops/pallas_kernels.py:118",
                    launches["hybrid"]["rowsum"]),

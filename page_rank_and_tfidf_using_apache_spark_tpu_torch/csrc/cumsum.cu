@@ -15,8 +15,8 @@
 //
 // Design: a single-pass chained scan with a deterministic fixed-window
 // decoupled look-back (scan.cuh).  The input is read once and the output
-// written once, with 16-byte loads and stores on full tiles (faster than one
-// element a thread at a time: tools/scan_variants.py, PERF.md).  A call is one
+// written once, with 16-byte loads and stores on full tiles (one element a
+// thread at a time measured slower on the H100: PERF.md §6).  A call is one
 // cudaMemsetAsync of the tile descriptors and the ticket counter, then one
 // kernel of ceil(E / 4096) blocks of 256 threads.  Tiles are 4096 elements
 // (871 at the main path's E); the ragged tail is masked, nothing is padded.

@@ -18,7 +18,7 @@
 // Design, per tile of 4096 edges [e0, e1) (scan.cuh):
 //   1. gather w[src[e]] through the read-only path, times ew[e] if given,
 //      one edge a thread at a time (16-byte loads of src measured slower
-//      with the L2 flushed: tools/scan_variants.py, PERF.md);
+//      with the L2 flushed on the H100: PERF.md §6);
 //   2. scan the tile and run the deterministic fixed-window look-back, so
 //      shared memory holds c0[j] = sum of the first j per-edge values for
 //      j in (e0, e1];
@@ -29,7 +29,7 @@
 //      tile 0 also takes indptr[i] == 0, and the last tile's e1 is E, so
 //      trailing empty rows are covered.  Knowing both ends lets the loop
 //      keep several indptr loads in flight: a loop that stops at the first
-//      pointer past e1 measured slower (tools/scan_variants.py, PERF.md).
+//      pointer past e1 measured slower (PERF.md §6).
 // A second small kernel writes out[v] = S[v+1] - S[v]: the same value as the
 // plain c0[indptr[v+1]] - c0[indptr[v]].  A call is one cudaMemsetAsync of
 // the tile descriptors, the scan kernel and the difference kernel.  Two

@@ -118,16 +118,6 @@ def build(names=tuple(SIGNATURES), *, force: bool = False) -> dict[str, dict]:
     return out
 
 
-def load(path: Path, name: str) -> ctypes.CDLL:
-    """The shared library at ``path``, built from ``<name>.cu``, with the
-    C signatures of ``name`` set."""
-    lib = ctypes.CDLL(str(path))
-    for fn, (restype, argtypes) in SIGNATURES[name].items():
-        getattr(lib, fn).restype = restype
-        getattr(lib, fn).argtypes = argtypes
-    return lib
-
-
 def library(name: str) -> ctypes.CDLL:
     """The loaded library ``lib<name>.so``, built first if needed (with
     every other stale library, in parallel), with its C signatures set."""
@@ -136,5 +126,9 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             if _stale(name):
                 build(tuple(n for n in SIGNATURES if _stale(n)))
-            lib = _libs[name] = load(lib_path(name), name)
+            lib = ctypes.CDLL(str(lib_path(name)))
+            for fn, (restype, argtypes) in SIGNATURES[name].items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _libs[name] = lib
         return lib

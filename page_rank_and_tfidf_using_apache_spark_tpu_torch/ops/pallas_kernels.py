@@ -70,17 +70,10 @@ def cumsum_kernel(x: torch.Tensor) -> torch.Tensor:
     _check(x, 1, "cumsum")
     if x.device.type == "cpu":
         return cumsum_plain(x)
-    if x.shape[0] == 0:
-        return x
-    out = launch_cumsum(_build.library("cumsum"), x)
-    LAUNCHES["cumsum"] += 1
-    return out
-
-
-def launch_cumsum(lib, x: torch.Tensor) -> torch.Tensor:
-    """One call of ``lib`` (a loaded ``cumsum`` library) on a non-empty,
-    checked CUDA tensor; uncounted."""
     n = x.shape[0]
+    if n == 0:
+        return x
+    lib = _build.library("cumsum")
     out = torch.empty_like(x)
     scratch = torch.empty(lib.cumsum_scratch_len(n), dtype=torch.uint8, device=x.device)
     launch = lib.cumsum_f32 if x.dtype == torch.float32 else lib.cumsum_f64
@@ -88,6 +81,7 @@ def launch_cumsum(lib, x: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         rc = launch(x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, stream)
     _raise_on(rc, lib, "cumsum_error_string", "cumsum")
+    LAUNCHES["cumsum"] += 1
     return out
 
 
@@ -187,17 +181,10 @@ def spmv_pallas(
     _check_spmv(src, indptr, w, n, edge_weight)
     if w.device.type == "cpu":
         return spmv_pallas_plain(src, indptr, w, n=n, edge_weight=edge_weight)
-    if src.shape[0] == 0 or n == 0:
+    e = src.shape[0]
+    if e == 0 or n == 0:
         return torch.zeros(n, dtype=w.dtype, device=w.device)
-    out = launch_spmv(_build.library("spmv"), src, indptr, w, edge_weight)
-    LAUNCHES["spmv"] += 1
-    return out
-
-
-def launch_spmv(lib, src, indptr, w, edge_weight=None) -> torch.Tensor:
-    """One call of ``lib`` (a loaded ``spmv`` library) on checked CUDA
-    tensors with at least one edge and one node; uncounted."""
-    e, n = src.shape[0], w.shape[0]
+    lib = _build.library("spmv")
     out = torch.empty(n, dtype=w.dtype, device=w.device)
     scratch = torch.empty(lib.spmv_scratch_len(e, n, w.element_size()), dtype=torch.uint8,
                           device=w.device)
@@ -208,4 +195,5 @@ def launch_spmv(lib, src, indptr, w, edge_weight=None) -> torch.Tensor:
         rc = launch(src.data_ptr(), indptr.data_ptr(), w.data_ptr(), ew, out.data_ptr(),
                     scratch.data_ptr(), e, n, stream)
     _raise_on(rc, lib, "spmv_error_string", "spmv")
+    LAUNCHES["spmv"] += 1
     return out

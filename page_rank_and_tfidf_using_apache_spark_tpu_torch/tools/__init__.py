@@ -10,9 +10,6 @@ and its power limit.  Its stages are module-level callables
 ``--device cpu`` run evaluates every stage once and writes ``null`` where a
 time would stand.  ``--out`` also writes the record, under the provenance
 guard of ``utils/artifacts.py``.
-
-``scan_variants`` is the port's own: it times edited copies of the scan
-kernels of ``csrc/`` beside the committed ones, and needs the card.
 """
 
 from __future__ import annotations

@@ -23,7 +23,6 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch import convert
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import _build
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pagerank as tops
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pallas_kernels as tpk
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import scan_variants
 
 RTOL = ATOL = 1e-12
 
@@ -115,6 +114,30 @@ def test_spmv_pallas_plain_matches_jax_edge_graphs(kind, weighted):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     np.testing.assert_array_equal(
         tpk.spmv_pallas(*args, n=g.n_nodes, edge_weight=tdg.edge_weight).numpy(), got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("kind", ["empty_lead_and_tail_rows", "hub_row", "ragged_tiles"])
+def test_spmv_pallas_exact_on_integers(kind, weighted, dtype):
+    """On small integers every prefix sum is exact in either type, so the
+    port and the JAX ``spmv_pallas`` agree bit for bit with the float64 sum,
+    in float32 too; ``chip_smoke.py`` holds the kernel to the same inputs."""
+    g, rng = _edge_graph(kind)
+    if weighted:
+        g = from_edges(g.src, g.dst, weight=rng.integers(1, 3, g.n_edges).astype(np.float64),
+                       dedup=False, compact_ids=False)
+    jdg = jops.put_graph(g, dtype)
+    tdg = convert.device_graph(jdg, device="cpu")
+    w = rng.integers(1, 4, g.n_nodes).astype(dtype)
+    want = np.asarray(jpk.spmv_pallas(jdg.src, jdg.indptr, jnp.asarray(w), n=g.n_nodes,
+                                      edge_weight=jdg.edge_weight, interpret=True))
+    got = tpk.spmv_pallas(tdg.src, tdg.indptr, torch.from_numpy(w), n=g.n_nodes,
+                          edge_weight=tdg.edge_weight).numpy()
+    assert got.dtype == want.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(got, want)
+    per_edge = w.astype(np.float64)[g.src] * (1.0 if g.weight is None else g.weight)
+    np.testing.assert_array_equal(got, np.bincount(g.dst, per_edge, minlength=g.n_nodes))
 
 
 def test_spmv_pallas_empty_graph():
@@ -223,19 +246,3 @@ def test_stale_follows_its_own_source(csrc_copy):
     assert _build._stale("spmv")
     assert not _build._stale("cumsum")
 
-
-@pytest.mark.parametrize("name", sorted(scan_variants.VARIANTS))
-def test_scan_variants_edit_the_current_sources(name):
-    """Each variant's edits still find their text in ``csrc/``, so the
-    tool builds what its name says."""
-    edited = scan_variants.variant_sources(name)
-    committed = {f: (_build.SRC_DIR / f).read_text() for f in scan_variants.SOURCES}
-    assert (edited == committed) == (name == "committed")
-
-
-def test_scan_variants_raise_without_cuda(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        scan_variants.main(["--variants", "committed"])
-    with pytest.raises(SystemExit):
-        scan_variants.main(["--variants", "bogus"])
