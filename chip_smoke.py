@@ -22,9 +22,13 @@ Phases, each of which exits non-zero on failure:
    ``torch.sparse_csr_tensor @ w``; two calls of ``cumsum`` and of
    ``spmv`` on one input must agree bit for bit, and so must kernel and
    plain version on small integers, whose sums are exact;
+   ``rowsum`` also over widths 1 to 1000, row counts around one block's
+   run of rows and one wave, and unaligned row slices, in float32 and
+   float64; and, once, the launch floor of the timing protocol;
 3b. the gather kernel of the SpMV cost probe against its plain version,
-   bit for bit, in every mode of the probe at its default shapes and at
-   edge shapes;
+   bit for bit, in every mode of the probe at its default shapes (timed
+   beside the L2 loop it replaced on the staged routes), at edge shapes,
+   and on both sides of every staged route's width limit;
 4. the main path, ``run_pagerank`` at web-Google scale (875K nodes, 5.1M
    edges, 20 iterations), through the ``segment``, ``pallas`` and
    ``hybrid`` SpMV impls, checked against an f64 run and counting kernel
@@ -45,6 +49,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import sys
@@ -57,6 +62,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import _build  # noqa: E402
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.timing import (  # noqa: E402
     BOUND_SLACK,
     bound_ms,
@@ -150,17 +156,70 @@ def measure_cumsum(pk, x: torch.Tensor, label: str) -> dict:
     return row
 
 
-def measure_rowsum(pk, rows: torch.Tensor, label: str) -> dict:
+def check_rowsum(pk, rows: torch.Tensor, label: str) -> tuple[float, float]:
+    """``rowsum_kernel`` against ``rowsum_plain`` within ROWSUM_RTOL of each
+    row's sum of |x|; two calls bit for bit.  Returns the max abs and
+    relative errors."""
     got = pk.rowsum_kernel(rows)
+    again = pk.rowsum_kernel(rows)
     want = pk.rowsum_plain(rows)
     torch.cuda.synchronize()
-    check(got.shape == (rows.shape[0],), f"rowsum {label} shape")
+    check(got.shape == (rows.shape[0],) and got.dtype == rows.dtype, f"rowsum {label} shape")
+    check(torch.equal(got, again), f"rowsum {label}: two calls differ")
+    if rows.shape[0] == 0:
+        return 0.0, 0.0
     err_abs = float((got - want).abs().max())
     scale = rows.abs().sum(dim=1).clamp_min(torch.finfo(rows.dtype).tiny)
     err_rel = float(((got - want).abs() / scale).max())
     rtol = ROWSUM_RTOL[rows.dtype]
     check(bool(torch.isfinite(got).all()) and err_rel <= rtol,
           f"rowsum {label}: error {err_rel:.3g} of the row sum of |x| > {rtol}")
+    return err_abs, err_rel
+
+
+def rowsum_plan(width: int, dtype) -> tuple[int, int]:
+    """Rows one block of ``csrc/rowsum.cu`` covers with one task a warp, and
+    the blocks of one wave, for an aligned ``[*, width]`` matrix."""
+    block_rows, wave = ctypes.c_longlong(), ctypes.c_longlong()
+    size = torch.empty(0, dtype=dtype).element_size()
+    rc = _build.library("rowsum").rowsum_plan(width, size, ctypes.byref(block_rows),
+                                              ctypes.byref(wave))
+    check(rc == 0 and block_rows.value > 0 and wave.value > 0,
+          f"rowsum_plan({width}, {dtype}) returned {rc}")
+    return block_rows.value, wave.value
+
+
+def sweep_rowsum(pk, rng) -> int:
+    """``rowsum`` on widths around the 16-byte route's limits (below 4, not a
+    multiple of 4, wider than a warp's 8 vectors a lane), at row counts
+    around one block's run and one wave, and on unaligned bases, in float32
+    and float64.  Returns the number of cases."""
+    cases = 0
+    for dtype in (torch.float32, torch.float64):
+        for w in (1, 3, 8, 100, 128, 129, 1000):
+            block_rows, wave = rowsum_plan(w, dtype)
+            counts = sorted({max(r, 0) for r in (block_rows - 1, block_rows, block_rows + 1,
+                                                  block_rows * wave - 1, block_rows * wave + 1)})
+            for r in counts:
+                rows = torch.from_numpy(rng.random((r, w))).to("cuda", dtype)
+                check_rowsum(pk, rows, f"R={r} W={w} {dtype}")
+                cases += 1
+            print(f"rowsum sweep W={w} {dtype}: block of {block_rows} rows, wave of {wave} "
+                  f"blocks; R in {counts} within tolerance, two calls equal")
+        # unaligned bases: a row slice of an odd-width matrix, and a
+        # multiple-of-4 width one element off 16-byte alignment
+        for r, w in ((1025, 129), (1025, 128)):
+            buf = torch.from_numpy(rng.random(r * w + w)).to("cuda", dtype)
+            odd = buf[w:].view(r, w) if w % 2 else buf[1:r * w + 1].view(r, w)
+            check(odd.data_ptr() % 16 != 0 or w % 4 != 0, "rowsum unaligned case is aligned")
+            check_rowsum(pk, odd, f"unaligned R={r} W={w} {dtype}")
+            cases += 1
+    return cases
+
+
+def measure_rowsum(pk, rows: torch.Tensor, label: str) -> dict:
+    err_abs, err_rel = check_rowsum(pk, rows, label)
+    rtol = ROWSUM_RTOL[rows.dtype]
     r, w = rows.shape
     size = rows.element_size()
     b, by = bound_ms(r * w * size + r * size, r * (w - 1), rows.dtype)
@@ -175,13 +234,69 @@ def measure_rowsum(pk, rows: torch.Tensor, label: str) -> dict:
     return row
 
 
-def measure_gather(gk, mode, x: torch.Tensor, idx: torch.Tensor, label: str) -> dict:
+def gather_route(gk, mode, x: torch.Tensor, idx: torch.Tensor) -> int:
+    """The route the wrapper takes for these inputs (its output is fresh,
+    so 16-byte aligned)."""
+    aligned = x.data_ptr() % 16 == 0 and idx.data_ptr() % 16 == 0
+    return gk.route(x.shape[0], idx.shape[1], mode.axis, aligned=aligned,
+                    table_limit=gk.table_limit(x.device))
+
+
+def gather_l2(x: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
+    """``csrc/gather.cu``'s L2 loop on any inputs, the design the staged
+    routes replaced; a yardstick only, so it counts no launch."""
+    out = torch.empty_like(idx, dtype=torch.float32)
+    rc = _build.library("gather").gather_f32(
+        x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0], idx.shape[0], idx.shape[1],
+        axis, 0, torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"gather L2 loop launch failed: {rc}")
+    return out
+
+
+def check_gather(gk, mode, x: torch.Tensor, idx: torch.Tensor, label: str) -> torch.Tensor:
     """The gather kernel against its plain version on one mode's inputs: a
     gather is exact, so the two must be equal bit for bit."""
     got = gk.take_along_rows_kernel(x, idx, axis=mode.axis)
     want = gk.take_along_rows_plain(x, idx, axis=mode.axis)
     torch.cuda.synchronize()
     check(torch.equal(got, want), f"gather {label}: kernel differs from plain")
+    return got
+
+
+def sweep_gather_routes(gk, gather_micro, rng) -> None:
+    """Every mode at both sides of each staged route's width limit (all 8
+    rows; one row; a cluster of 2; of 4), at 1 and 3 blocks of 8 rows, bit
+    for bit against plain; each mode must have run every route it has."""
+    limit = gk.table_limit(torch.device("cuda"))
+    row = limit // 4 // 4 * 4
+    limits = {"all 8 rows": limit // 32 // 4 * 4, "one row": row, "cluster of 2": 2 * row,
+              "cluster of 4": 4 * row}
+    seen = {"lane": set(), "sublane": set(), "bcast": set()}
+    for name, widest in limits.items():
+        for w in (widest, widest + 4):
+            for kind in seen:
+                for steps in (1, 3):
+                    mode = gather_micro.Mode(w, steps, 0 if kind == "sublane" else 1,
+                                             kind == "bcast")
+                    x, idx = (torch.from_numpy(a).to("cuda")
+                              for a in gather_micro.mode_inputs(mode, rng))
+                    blocks = gather_route(gk, mode, x, idx)
+                    seen[kind].add(blocks)
+                    check_gather(gk, mode, x, idx, f"{kind} W={w} steps={steps}")
+        print(f"gather at the {name} limit (W = {widest}, {widest + 4}): lane, sublane and "
+              f"broadcast, steps 1 and 3, equal to plain")
+    want = {"lane": {0, 1, 2, 4}, "sublane": {0, 1}, "bcast": {0, 1, 2, 4}}
+    check(seen == want, f"gather route sweep ran routes {seen}, wanted {want}")
+    print(f"gather routes run (0 = L2 loop, else blocks a staged table): {seen}; "
+          f"table limit {limit} bytes a block")
+
+
+def measure_gather(gk, mode, x: torch.Tensor, idx: torch.Tensor, label: str,
+                   yardstick: bool = False) -> dict:
+    """:func:`check_gather`, then kernel, plain and library times; with
+    ``yardstick``, the L2 loop's time too, on the same inputs."""
+    got = check_gather(gk, mode, x, idx, label)
+    blocks = gather_route(gk, mode, x, idx)
     steps, w = idx.shape[0] // gk.BLOCK_ROWS, idx.shape[1]
     table = x.expand(gk.BLOCK_ROWS, w).unsqueeze(0).expand(steps, gk.BLOCK_ROWS, w)
     idx64 = idx.view(steps, gk.BLOCK_ROWS, w).long()  # widened before timing
@@ -190,9 +305,17 @@ def measure_gather(gk, mode, x: torch.Tensor, idx: torch.Tensor, label: str) -> 
     row = {"ms": time_ms(lambda: gk.take_along_rows_kernel(x, idx, axis=mode.axis)),
            "plain_ms": time_ms(lambda: gk.take_along_rows_plain(x, idx, axis=mode.axis)),
            "library_ms": time_ms(lambda: torch.gather(table, dim, idx64)),
-           "bound_ms": b, "bound_by": by, "max_abs_err": float((got - want).abs().max())}
-    print(f"gather {label}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-          f"library {row['library_ms']:.4f} ms, bound {b:.4f} ms ({by}), equal")
+           "bound_ms": b, "bound_by": by, "max_abs_err": 0.0}  # equal bit for bit
+    note = ""
+    if yardstick:
+        check(torch.equal(gather_l2(x, idx, mode.axis), got), f"gather {label}: L2 loop differs")
+        l2 = time_ms(lambda: gather_l2(x, idx, mode.axis))
+        ns = 1e6 / idx.numel()
+        note = (f"; ns per gather {row['ms'] * ns:.5f}, L2 loop {l2:.4f} ms "
+                f"({l2 * ns:.5f} ns per gather)")
+    print(f"gather {label} [{gk.route_name(x.shape[0], mode.axis, blocks)}]: kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+          f"{row['library_ms']:.4f} ms, bound {b:.4f} ms ({by}), equal{note}")
     return row
 
 
@@ -415,7 +538,6 @@ def main() -> int:
         put_graph_for,
         run_pagerank,
     )
-    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import _build
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import gather_kernels as gk
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pagerank as ops
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pallas_kernels as pk
@@ -477,6 +599,9 @@ def main() -> int:
             for r in (1, 1023, 1025, hl.head_src.shape[0]):
                 rows = torch.from_numpy(rng.random((r, w))).to("cuda", dtype)
                 measure_rowsum(pk, rows, f"R={r} W={w} {dtype}")
+    print(f"rowsum sweep: {sweep_rowsum(pk, rng)} more shapes within tolerance")
+    floor = time_ms(lambda: torch.cuda._sleep(0))
+    print(f"launch floor: time_ms of a near-empty kernel (torch.cuda._sleep(0)) {floor:.4f} ms")
 
     # the main path's own inputs: per-edge values w[src] at uniform ranks,
     # and the hybrid head's gathered rows
@@ -519,8 +644,10 @@ def main() -> int:
     gather_rows = {}
     for name, mode in {**probe_modes, **edge_modes}.items():
         x, idx = (torch.from_numpy(a).to("cuda") for a in gather_micro.mode_inputs(mode, rng))
-        gather_rows[name] = measure_gather(gk, mode, x, idx, f"{name} steps={mode.steps}")
+        gather_rows[name] = measure_gather(gk, mode, x, idx, f"{name} steps={mode.steps}",
+                                           yardstick=name in probe_modes)
     main_rows["gather"] = gather_rows["lane_w109184"]
+    sweep_gather_routes(gk, gather_micro, rng)
 
     # 4a. every impl against a dense f64 power iteration on a small graph
     want = dense_pagerank(small, ITERS)

@@ -9,38 +9,64 @@
 //     broadcast (x 1 row) out[8i+r, j] = x[0, idx[8i+r, j]]
 //     sublane   (axis 0)  out[8i+r, j] = x[idx[8i+r, j], j]
 //   The TPU probe asked how wide a VMEM-local gather may be before Mosaic
-//   fails to lower it.  On Hopper every width launches: the table is read
-//   from device memory through L1/L2 like any array, so the question
-//   becomes ns per gather against the table's size.
+//   fails to lower it.  On Hopper the question is ns per gather against the
+//   table's width, and the answer depends on where the table is read from.
 //
 // Bound on the H100: bytes.  Each gather reads 4 bytes of idx and writes 4
-// bytes of out; the table is read once (at most 8 x 109184 floats, 3.5 MB,
-// which stays in the 50 MB L2).  At lane W = 109184 (4,367,360 gathers)
-// that is 34.9 MB plus 3.5 MB, about 11.5 us at 3.35 TB/s; at W = 128
-// (4,399,104 gathers) 35.2 MB, about 10.5 us.  The streams of idx and out
-// set the pace.
+// bytes of out; the table is read once (at most 8 x W floats).  At lane
+// W = 109184 (4,367,360 gathers) that is 34.9 MB plus 3.5 MB, about 11.5 us
+// at 3.35 TB/s; at W = 128 (4,399,104 gathers) 35.2 MB, about 10.5 us.  The
+// streams of idx and out set the pace, so the table's reads must not.
 //
-// Design: a grid-stride loop over the output, each thread taking 4
-// consecutive elements of a row: one 16-byte load of idx, four table reads
-// through the read-only path (__ldg), one 16-byte store of out.  Where the
-// width is not a multiple of 4, or a pointer is not 16-byte aligned, the
-// same loop takes the 4 elements one at a time and masks the row's ragged
-// end.  Offsets are 64-bit.  Indices are not checked: they must lie in
-// [0, W) for axis 1 and [0, 8) for axis 0.  Staging the table in shared
-// memory (227 KB a block, up to W of about 7K at 8 rows) is later work.
+// Design: like the TPU kernel, every gather reads the table from fast
+// memory.  A block copies what its outputs read of the table into shared
+// memory with one TMA bulk copy (cp.async.bulk completing on an mbarrier),
+// issues its first 16-byte idx loads while the copy is in flight, then
+// streams its share of idx and out (16-byte loads and stores, 4 quads a
+// thread in flight) and gathers from shared memory.  Routes, by what fits
+// in a block's shared memory (232,432 bytes of table on the H100):
+//   - sublane: the whole table (8 or 1 rows; W <= 7,260 at 8 rows).  Any
+//     block takes any output rows.
+//   - lane, one row fits (W <= 58,108): the output rows fall into 8 groups
+//     of one residue g % 8 (one group when x is the broadcast row), and a
+//     block serves one group, so it stages one row of x, 1/8 of what
+//     staging all 8 rows would cost.
+//   - lane, wider: a thread-block cluster of 2 or 4 blocks splits the row;
+//     a gather reads its value from the owning block's shared memory
+//     (distributed shared memory, map_shared_rank), and the cluster syncs
+//     after the copies and again before any block exits.
+// The grid is one wave (occupancy by shared memory), at most what the
+// group's idx needs, so staging costs at most a wave's worth of table
+// reads from L2 (lane_w109184: 128 blocks of 218 KB, 28 MB of L2 reads,
+// where reading every gather's 32-byte sector from L2 costs 140 MB).
+// Everything else -- a width not a multiple of 4, a pointer not 16-byte
+// aligned (a bulk copy needs both), a sublane table wider than a block, a
+// lane row wider than a cluster of 4 -- takes the grid-stride L2 loop: 4
+// outputs a thread, table reads through the read-only path (__ldg).  The
+// route is the caller's choice (ops/gather_kernels.py); a route that does
+// not fit is refused, never replaced.  Offsets are 64-bit.  Indices are not
+// checked: they must lie in [0, W) for axis 1 and [0, 8) for axis 0.
 //
 // C interface (loaded with ctypes): device pointers, a cudaStream_t, and
 // the cudaError_t of the launch as the return value (0 on success).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBlockRows = 8;      // rows of the x block each output row gathers from
-constexpr long long kMaxBlocks = 8192;  // grid-stride beyond this
+constexpr int kBlockRows = 8;           // rows of the x block each output row gathers from
+constexpr int kThreads = 256;           // L2 loop
+constexpr long long kMaxBlocks = 8192;  // L2 loop: grid-stride beyond this
+constexpr int kStagedThreads = 512;     // staged routes
+constexpr int kUnroll = 4;              // staged routes: quads a thread loads before it gathers
+constexpr int kBarrierBytes = 16;       // the mbarrier, ahead of the staged table
+
+// ---- L2 loop ----
 
 // Table row and column of output element (g, j) whose index is k.
 template <int kAxis>
@@ -82,38 +108,281 @@ gather_rows(const float* __restrict__ x, const int* __restrict__ idx, float* __r
   }
 }
 
+// ---- staged routes ----
+
+__device__ __forceinline__ std::uint32_t smem_addr(const void* p) {
+  return static_cast<std::uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Thread 0: arm `bar` for `bytes` and copy them from global `src` to shared
+// `dst` with one bulk copy that completes on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, std::uint32_t bytes,
+                                          std::uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+// Wait for phase `parity` of `bar` to complete.  A copy that never lands
+// traps after 2^26 tries (far beyond any copy's time), so a fault surfaces
+// as a launch error rather than a hung card.
+__device__ __forceinline__ void barrier_wait(std::uint64_t* bar, std::uint32_t parity) {
+  for (std::uint32_t tries = 0;; ++tries) {
+    std::uint32_t done = 0;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n" : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) __trap();
+  }
+}
+
+// One launch of a staged route.  The output rows fall into `groups` groups
+// (group r holds rows g = groups*i + r); `per_group` consecutive blocks
+// serve a group, cut into clusters of kCluster.  Each block stages
+// `stage_len` floats of x from element r*W + rank*stage_len (lane: row r,
+// or its part `rank` within a cluster; sublane: all of x, with groups 1),
+// then takes its share of the group's quads.  Sublane reads table row k at
+// k * row_stride (0 for the broadcast row).
+template <int kAxis, int kCluster>
+__global__ void __launch_bounds__(kStagedThreads)
+gather_staged(const float* __restrict__ x, const int* __restrict__ idx, float* __restrict__ out,
+              long long group_rows, int width, int groups, int per_group, int stage_len,
+              int row_stride) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto* bar = reinterpret_cast<std::uint64_t*>(smem);
+  float* table = reinterpret_cast<float*>(smem + kBarrierBytes);
+  const int r = blockIdx.x / per_group;
+  const int kb = blockIdx.x - r * per_group;
+  int rank = 0;
+  const float* parts[kCluster];  // each rank's part of the row, as this block reads it
+  parts[0] = table;
+  if constexpr (kCluster > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    rank = static_cast<int>(cluster.block_rank());
+#pragma unroll
+    for (int c = 0; c < kCluster; ++c) {
+      parts[c] = c == rank ? table : cluster.map_shared_rank(table, c);
+    }
+  }
+  const int count = kCluster > 1 ? min(stage_len, width - rank * stage_len) : stage_len;
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_addr(bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (count > 0) {
+      const long long first = static_cast<long long>(r) * width +
+                              static_cast<long long>(rank) * stage_len;
+      bulk_copy(table, x + first, static_cast<std::uint32_t>(count) * 4u, bar);
+    } else {
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
+    }
+  }
+
+  // This block's quads [q0, q1) of the group's group_rows x wq, walked with
+  // a stride of one block; (i, jq) follows q without a division per step.
+  const long long wq = width / 4;
+  const long long n = group_rows * wq;
+  const long long q1 = n * (kb + 1) / per_group;
+  const long long step = blockDim.x;
+  const long long si = step / wq, sj = step - si * wq;
+  long long q = n * kb / per_group + threadIdx.x;
+  long long i = q / wq, jq = q - i * wq;
+  int4 k[kUnroll];
+  long long off[kUnroll];
+  int col[kUnroll];
+  bool ok[kUnroll];
+  auto load = [&]() {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      ok[u] = q < q1;
+      if (ok[u]) {
+        col[u] = static_cast<int>(jq) * 4;
+        off[u] = (groups * i + r) * width + col[u];
+        k[u] = __ldcs(reinterpret_cast<const int4*>(idx + off[u]));
+      }
+      q += step;
+      i += si;
+      jq += sj;
+      if (jq >= wq) {
+        jq -= wq;
+        ++i;
+      }
+    }
+  };
+  auto fetch = [&](int kk, int j) -> float {
+    if constexpr (kAxis == 0) {
+      return table[kk * row_stride + j];
+    } else if constexpr (kCluster == 1) {
+      return table[kk];
+    } else {
+      int owner = 0;
+#pragma unroll
+      for (int c = 1; c < kCluster; ++c) owner += kk >= c * stage_len;
+      const float* p = parts[0];
+#pragma unroll
+      for (int c = 1; c < kCluster; ++c) p = owner == c ? parts[c] : p;
+      return p[kk - owner * stage_len];
+    }
+  };
+
+  load();  // the first idx loads overlap the bulk copy
+  barrier_wait(bar, 0);
+  if constexpr (kCluster > 1) cg::this_cluster().sync();  // every part has landed
+  while (ok[0]) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (ok[u]) {
+        float4 v;
+        v.x = fetch(k[u].x, col[u] + 0);
+        v.y = fetch(k[u].y, col[u] + 1);
+        v.z = fetch(k[u].z, col[u] + 2);
+        v.w = fetch(k[u].w, col[u] + 3);
+        __stcs(reinterpret_cast<float4*>(out + off[u]), v);
+      }
+    }
+    load();
+  }
+  if constexpr (kCluster > 1) cg::this_cluster().sync();  // no part leaves while read
+}
+
+int device_attribute(cudaDeviceAttr attr, int* value) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(value, attr, dev);
+  return static_cast<int>(err);
+}
+
+template <int kAxis, int kCluster>
+int launch_staged(const float* x, const int* idx, float* out, int x_rows, long long rows,
+                  int width, int table_limit, cudaStream_t stream) {
+  const int groups = kAxis == 1 && x_rows == kBlockRows ? kBlockRows : 1;
+  int stage_len = width;
+  if (kAxis == 0) {
+    stage_len = x_rows * width;
+  } else if (kCluster > 1) {
+    stage_len = (width + kCluster - 1) / kCluster;
+    stage_len += -stage_len & 3;  // 16-byte parts
+  }
+  if (width % 4 || rows % groups || static_cast<long long>(stage_len) * 4 > table_limit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem = kBarrierBytes + stage_len * 4;
+  auto kernel = gather_staged<kAxis, kCluster>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(kStagedThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = kCluster > 1 ? 1 : 0;
+  int wave = 0;  // blocks resident at once
+  if (kCluster > 1) {
+    err = cudaOccupancyMaxActiveClusters(&wave, kernel, &cfg);
+    wave *= kCluster;
+  } else {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kStagedThreads, smem);
+    if (err == cudaSuccess) err = static_cast<cudaError_t>(
+        device_attribute(cudaDevAttrMultiProcessorCount, &sms));
+    wave = per_sm * sms;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // blocks per group: a wave's share, no more than the group's quads fill,
+  // a whole number of clusters
+  const long long group_rows = rows / groups;
+  const long long quads = group_rows * (width / 4);
+  const long long fill = (quads + kStagedThreads * kUnroll - 1) / (kStagedThreads * kUnroll);
+  long long per_group = (wave / groups) / kCluster * kCluster;
+  const long long fill_up = (fill + kCluster - 1) / kCluster * kCluster;
+  if (per_group > fill_up) per_group = fill_up;
+  if (per_group < kCluster) per_group = kCluster;
+  cfg.gridDim = dim3(static_cast<unsigned>(groups * per_group));
+  err = cudaLaunchKernelEx(&cfg, kernel, x, idx, out, group_rows, width, groups,
+                           static_cast<int>(per_group), stage_len,
+                           x_rows == 1 ? 0 : width);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kAxis>
+int launch(const float* x, const int* idx, float* out, int x_rows, long long rows, int width,
+           int cluster, cudaStream_t stream) {
+  if (cluster == 0) {
+    const bool vec = width % 4 == 0 &&
+                     (reinterpret_cast<std::uintptr_t>(idx) |
+                      reinterpret_cast<std::uintptr_t>(out)) % 16 == 0;
+    const long long total = rows * ((width + 3) / 4);
+    long long blocks = (total + kThreads - 1) / kThreads;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+    gather_rows<kAxis><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        x, idx, out, x_rows == 1, rows, width, vec);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if ((reinterpret_cast<std::uintptr_t>(x) | reinterpret_cast<std::uintptr_t>(idx) |
+       reinterpret_cast<std::uintptr_t>(out)) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int limit = 0;
+  const int err = device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin, &limit);
+  if (err != 0) return err;
+  limit -= kBarrierBytes;
+  switch (cluster) {
+    case 1: return launch_staged<kAxis, 1>(x, idx, out, x_rows, rows, width, limit, stream);
+    case 2:
+      if (kAxis == 1) return launch_staged<1, 2>(x, idx, out, x_rows, rows, width, limit, stream);
+      break;
+    case 4:
+      if (kAxis == 1) return launch_staged<1, 4>(x, idx, out, x_rows, rows, width, limit, stream);
+      break;
+    default: break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
 
 // x: float32 [x_rows, width] with x_rows 8, or 1 for the broadcast row;
 // idx: int32 [rows, width]; out: float32 [rows, width]; rows a multiple of 8.
+// cluster: 0 for the L2 loop; 1 for one block per staged table; 2 or 4 for
+// a cluster of that many blocks splitting one row (axis 1 only).
 int gather_f32(const void* x, const void* idx, void* out, int x_rows, long long rows, int width,
-               int axis, void* stream) {
+               int axis, int cluster, void* stream) {
   if ((x_rows != 1 && x_rows != kBlockRows) || (axis != 0 && axis != 1) || rows < 0 ||
-      width < 0) {
+      width < 0 || rows % kBlockRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (rows == 0 || width == 0) return 0;
-  const bool vec = width % 4 == 0 &&
-                   (reinterpret_cast<std::uintptr_t>(idx) | reinterpret_cast<std::uintptr_t>(out)) %
-                           16 == 0;
-  const long long total = rows * ((width + 3) / 4);
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  const bool bcast = x_rows == 1;
   auto s = static_cast<cudaStream_t>(stream);
   const auto* xp = static_cast<const float*>(x);
   const auto* ip = static_cast<const int*>(idx);
   auto* op = static_cast<float*>(out);
-  if (axis == 1) {
-    gather_rows<1><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(xp, ip, op, bcast, rows,
-                                                                      width, vec);
-  } else {
-    gather_rows<0><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(xp, ip, op, bcast, rows,
-                                                                      width, vec);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return axis == 1 ? launch<1>(xp, ip, op, x_rows, rows, width, cluster, s)
+                   : launch<0>(xp, ip, op, x_rows, rows, width, cluster, s);
+}
+
+// Bytes of table a block of the staged routes can hold on the current
+// device (its opt-in shared memory less the barrier), or -1.
+int gather_table_limit() {
+  int limit = 0;
+  if (device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin, &limit) != 0) return -1;
+  return limit - kBarrierBytes;
 }
 
 const char* gather_error_string(int code) {

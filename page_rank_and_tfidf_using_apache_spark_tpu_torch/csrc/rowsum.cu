@@ -2,30 +2,45 @@
 //
 // Replaces: page_rank_and_tfidf_using_apache_spark_tpu/ops/pallas_kernels.py
 //   rowsum_pallas (body _rowsum_kernel).  The TPU kernel streams 1024-row
-//   blocks through VMEM and reduces each with one [RB, W] @ ones[W] matrix
-//   unit product at Precision.HIGHEST.
+//   blocks through VMEM in one HBM pass and reduces each with one
+//   [RB, W] @ ones[W] matrix unit product at Precision.HIGHEST.
 //
 // Bound on the H100: bytes.  Each element is read once and added once
 // (R*(W-1) adds, far below the float32 rate), so the least time is the
-// R*W*sizeof(T) bytes read (plus R*sizeof(T) written) over 3.35 TB/s.
+// R*W*sizeof(T) bytes read (plus R*sizeof(T) written) over 3.35 TB/s: at
+// the main path's [15,112, 128] float32, 7.8 MB, 2.3 us.
 //
-// Design: no matrix unit.  A group of G lanes reduces one row, where G is
-// the row width rounded up to a power of two and capped at 32 (one warp
-// per row for W >= 32, 32/G rows per warp below that).  Lane j of a group
-// adds elements j, j+G, j+2G, ... of its row, so a warp's loads of one
-// step are contiguous; the G partial sums are combined with xor shuffles
-// that stay inside the group.  The sums run in float32 or float64 on the
-// CUDA cores, so no TF32 rounding arises.  Any width works; the hybrid
-// layout gives a power of two in [8, head_row_width].
+// Design: no matrix unit; the sums run in float32 or float64 on the CUDA
+// cores, so no TF32 rounding arises.  To reach the byte bound the card
+// needs tens of KB in flight per SM, so where W is a multiple of 4 and the
+// base is 16-byte aligned every lane issues 8 loads of 16 bytes before it
+// adds any: a group of G lanes (G the row's 16-byte vectors rounded up to a
+// power of two, capped at 32) shares a row, and a warp takes a task of
+// kRows row slots at once -- at W = 128 float32 one float4 of each of 8
+// rows per lane, 128 bytes in flight where a scalar loop had 16.  The grid
+// is one wave (resident blocks x SMs), or fewer blocks where the tasks run
+// out first; each block walks a contiguous run of tasks, its warps side by
+// side.  A lane adds its row's vectors in column order, then the G
+// partial sums meet in xor shuffles inside the group, so the order is fixed
+// by W alone: no atomics, the same bits from any grid.  Other widths (not a
+// multiple of 4, or below 4) and unaligned bases (a row slice of an
+// odd-width matrix) take the scalar lane-group loop: lane j of a group adds
+// elements j, j+G, j+2G, ... of its row, one row group per warp.
 //
 // C interface (loaded with ctypes): device pointers, a cudaStream_t, and
 // the cudaError_t of the launch as the return value (0 on success).
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kInFlight = 8;  // 16-byte loads a lane issues before it adds
+
+// ---- scalar lane-group loop ----
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -46,20 +61,171 @@ rowsum_rows(const T* __restrict__ mat, T* __restrict__ out,
   if (row < rows && sub == 0) out[row] = s;
 }
 
-int group_for(int width) {
+// ---- 16-byte route ----
+
+template <typename T> struct Vec16;
+template <> struct Vec16<float> {
+  using type = float4;
+  static __device__ __forceinline__ float add(float s, float4 v) {
+    s += v.x;
+    s += v.y;
+    s += v.z;
+    return s + v.w;
+  }
+};
+template <> struct Vec16<double> {
+  using type = double2;
+  static __device__ __forceinline__ double add(double s, double2 v) {
+    s += v.x;
+    return s + v.y;
+  }
+};
+
+// A task is kRows row slots of 32/group rows each; nvec 16-byte vectors a
+// row.  Lane `sub` of a group loads columns sub, sub+group, ... of each of
+// its kRows rows, kInFlight vectors at a time, before it adds them.
+template <typename T, int kRows>
+__global__ void __launch_bounds__(kThreads)
+rowsum_vec(const T* __restrict__ mat, T* __restrict__ out, long long rows, int nvec, int group,
+           long long tasks) {
+  using V = typename Vec16<T>::type;
+  constexpr int kLoads = kInFlight / kRows;  // vectors of one row a lane loads at once
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (group - 1);
+  const int slot = lane / group;
+  const int slots = 32 / group;
+  const V* m = reinterpret_cast<const V*>(mat);
+  const long long t1 = tasks * (blockIdx.x + 1) / gridDim.x;
+  for (long long t = tasks * blockIdx.x / gridDim.x + threadIdx.x / 32; t < t1; t += kWarps) {
+    const long long first = t * kRows * slots + slot;  // row slot b holds row first + b*slots
+    T s[kRows];
+#pragma unroll
+    for (int b = 0; b < kRows; ++b) s[b] = T(0);
+    for (int c0 = sub; c0 < nvec; c0 += kLoads * group) {
+      V v[kRows][kLoads];
+#pragma unroll
+      for (int b = 0; b < kRows; ++b) {
+        const long long row = first + static_cast<long long>(b) * slots;
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u) {
+          const int c = c0 + u * group;
+          if (row < rows && c < nvec) {
+            v[b][u] = __ldg(m + row * nvec + c);
+          } else {
+            v[b][u] = V{};
+          }
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kRows; ++b) {
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u) s[b] = Vec16<T>::add(s[b], v[b][u]);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kRows; ++b) {
+      for (int off = group >> 1; off > 0; off >>= 1) {
+        s[b] += __shfl_xor_sync(0xffffffffu, s[b], off);
+      }
+    }
+    if (sub == 0) {
+#pragma unroll
+      for (int b = 0; b < kRows; ++b) {
+        const long long row = first + static_cast<long long>(b) * slots;
+        if (row < rows) out[row] = s[b];
+      }
+    }
+  }
+}
+
+int pow2_at_least(int n, int cap) {
   int g = 1;
-  while (g < width && g < 32) g <<= 1;
+  while (g < n && g < cap) g <<= 1;
   return g;
+}
+
+// The 16-byte route takes a width that is a multiple of 4 (on an aligned base).
+bool vec_width(int width) { return width >= 4 && width % 4 == 0; }
+
+// How the 16-byte route cuts a row of `width` elements of T.
+struct VecPlan {
+  int nvec;   // 16-byte vectors a row
+  int group;  // lanes a row
+  int rows;   // row slots a task: 8, 4, 2 or 1
+};
+
+template <typename T>
+VecPlan vec_plan(int width) {
+  VecPlan p;
+  p.nvec = width / (16 / static_cast<int>(sizeof(T)));
+  p.group = pow2_at_least(p.nvec, 32);
+  const int per_lane = pow2_at_least((p.nvec + p.group - 1) / p.group, kInFlight);
+  p.rows = kInFlight / per_lane;
+  return p;
+}
+
+template <typename T>
+using VecKernel = void (*)(const T*, T*, long long, int, int, long long);
+
+template <typename T>
+VecKernel<T> vec_kernel(int rows) {
+  switch (rows) {
+    case 8: return rowsum_vec<T, 8>;
+    case 4: return rowsum_vec<T, 4>;
+    case 2: return rowsum_vec<T, 2>;
+    default: return rowsum_vec<T, 1>;
+  }
+}
+
+// Blocks of `kernel` resident at once on the current device.
+template <typename K>
+cudaError_t wave_of(K kernel, long long* wave) {
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *wave = static_cast<long long>(per_sm) * sms;
+  return err;
 }
 
 template <typename T>
 int rowsum_launch(const T* mat, T* out, long long rows, int width, cudaStream_t stream) {
-  if (rows <= 0) return 0;
-  const int group = group_for(width);
+  if (rows < 0 || width < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  if (vec_width(width) && reinterpret_cast<std::uintptr_t>(mat) % 16 == 0) {
+    const VecPlan p = vec_plan<T>(width);
+    const VecKernel<T> kernel = vec_kernel<T>(p.rows);
+    long long wave = 0;
+    const cudaError_t err = wave_of(kernel, &wave);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long task_rows = static_cast<long long>(p.rows) * (32 / p.group);
+    const long long tasks = (rows + task_rows - 1) / task_rows;
+    long long blocks = (tasks + kWarps - 1) / kWarps;
+    if (blocks > wave) blocks = wave;
+    kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(mat, out, rows, p.nvec,
+                                                                    p.group, tasks);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int group = pow2_at_least(width, 32);
   const long long rows_per_block = kThreads / group;
   const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
-  rowsum_rows<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(mat, out, rows, width, group);
+  rowsum_rows<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(mat, out, rows, width,
+                                                                          group);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Rows one block covers when each warp takes one task, and the blocks of
+// one wave, for an aligned [*, width] matrix of T.
+template <typename T>
+int plan(int width, long long* block_rows, long long* wave_blocks) {
+  if (width < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (vec_width(width)) {
+    const VecPlan p = vec_plan<T>(width);
+    *block_rows = static_cast<long long>(kWarps) * p.rows * (32 / p.group);
+    return static_cast<int>(wave_of(vec_kernel<T>(p.rows), wave_blocks));
+  }
+  *block_rows = kThreads / pow2_at_least(width, 32);
+  return static_cast<int>(wave_of(rowsum_rows<T>, wave_blocks));
 }
 
 }  // namespace
@@ -74,6 +240,16 @@ int rowsum_f32(const void* mat, void* out, long long rows, int width, void* stre
 int rowsum_f64(const void* mat, void* out, long long rows, int width, void* stream) {
   return rowsum_launch(static_cast<const double*>(mat), static_cast<double*>(out), rows, width,
                        static_cast<cudaStream_t>(stream));
+}
+
+// The launch plan for an aligned [*, width] matrix of elem_size-byte
+// floats (4 or 8): rows one block covers with one task a warp (one row
+// group a warp on the scalar loop), and the blocks of one wave.  Returns
+// the cudaError_t of the occupancy query.
+int rowsum_plan(int width, int elem_size, long long* block_rows, long long* wave_blocks) {
+  if (elem_size == 4) return plan<float>(width, block_rows, wave_blocks);
+  if (elem_size == 8) return plan<double>(width, block_rows, wave_blocks);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* rowsum_error_string(int code) {

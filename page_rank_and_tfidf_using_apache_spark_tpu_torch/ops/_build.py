@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_PLL = ctypes.POINTER(ctypes.c_longlong)
 # C signatures of every exported function: name -> (restype, argtypes).
 SIGNATURES: dict[str, dict[str, tuple]] = {
     "cumsum": {
@@ -46,10 +47,12 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
     "rowsum": {
         "rowsum_f32": (_I, [_P, _P, _LL, _I, _P]),
         "rowsum_f64": (_I, [_P, _P, _LL, _I, _P]),
+        "rowsum_plan": (_I, [_I, _I, _PLL, _PLL]),
         "rowsum_error_string": (ctypes.c_char_p, [_I]),
     },
     "gather": {
-        "gather_f32": (_I, [_P, _P, _P, _I, _LL, _I, _I, _P]),
+        "gather_f32": (_I, [_P, _P, _P, _I, _LL, _I, _I, _I, _P]),
+        "gather_table_limit": (_I, []),
         "gather_error_string": (ctypes.c_char_p, [_I]),
     },
 }

@@ -12,7 +12,8 @@ are CUDA C++ here, built for ``sm_90a`` on first use (``ops/_build.py``):
   ``csrc/scan.cuh``).  On the main path its scan runs inside the fused
   kernel, so the main path launches it no more.
 - :func:`rowsum_kernel` replaces ``rowsum_pallas``: the row sums of the
-  ``spmv_impl='hybrid'`` dense head (``csrc/rowsum.cu``).
+  ``spmv_impl='hybrid'`` dense head (``csrc/rowsum.cu``), in one pass with
+  16-byte loads of several rows in flight per lane.
 
 Each wrapper checks its input, takes a CPU tensor to the plain PyTorch
 version beside it (``spmv_pallas_plain``, ``cumsum_plain``,
@@ -91,8 +92,11 @@ def rowsum_plain(rows: torch.Tensor) -> torch.Tensor:
 
 
 def rowsum_kernel(rows: torch.Tensor) -> torch.Tensor:
-    """Row sums ``[R, W] -> [R]`` of a contiguous float32/float64 matrix:
-    ``csrc/rowsum.cu`` on CUDA, :func:`rowsum_plain` on the CPU."""
+    """Row sums ``[R, W] -> [R]`` of a contiguous float32/float64 matrix of
+    any shape: ``csrc/rowsum.cu`` on CUDA, :func:`rowsum_plain` on the CPU.
+    The kernel adds each row in an order fixed by W alone (16-byte loads
+    where W is a multiple of 4 on a 16-byte aligned base, a scalar loop
+    otherwise), so two calls give the same bits."""
     _check(rows, 2, "rowsum")
     if rows.device.type == "cpu":
         return rowsum_plain(rows)

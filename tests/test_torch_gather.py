@@ -53,8 +53,16 @@ def pallas_gather(x, idx, *, axis, broadcast):
     return np.asarray(call(jnp.asarray(x), jnp.asarray(idx)))
 
 
+# Bytes of table a block of csrc/gather.cu stages on an H100: 232,448 bytes
+# of opt-in shared memory less its 16-byte barrier.
+H100_TABLE_LIMIT = 232_448 - 16
+# The widest W of each staged route there: all 8 rows (sublane), one row
+# (lane and broadcast), one row across a cluster of 2, and of 4.
+ROUTE_LIMITS = (7260, 58108, 116216, 232432)
+
+
 @pytest.mark.parametrize("steps", [1, 3])
-@pytest.mark.parametrize("width", [128, 256, 1024])
+@pytest.mark.parametrize("width", [128, 256, 1024, *(w + d for w in ROUTE_LIMITS for d in (0, 4))])
 @pytest.mark.parametrize("mode", ["lane", "sublane", "broadcast"])
 def test_gather_matches_pallas_kernel(mode, width, steps):
     m = gather_micro.Mode(width, steps, axis=0 if mode == "sublane" else 1,
@@ -112,3 +120,52 @@ def test_cpu_calls_count_no_launch():
 def test_empty_input():
     out = gk.take_along_rows_kernel(torch.zeros(8, 0), torch.zeros(8, 0, dtype=torch.int32), axis=1)
     assert out.shape == (8, 0) and out.dtype == torch.float32
+
+
+@pytest.mark.parametrize("x_rows, width, axis, aligned, blocks", [
+    (8, 7260, 0, True, 1),  # sublane: all 8 rows fit
+    (8, 7264, 0, True, 0),
+    (1, 58108, 0, True, 1),  # broadcast sublane: the one row fits
+    (1, 58112, 0, True, 0),
+    (8, 128, 1, True, 1),  # lane: one row a block
+    (8, 58108, 1, True, 1),
+    (8, 58112, 1, True, 2),  # the row splits over a cluster of 2
+    (8, 109184, 1, True, 2),  # the probe's widest lane width
+    (8, 116216, 1, True, 2),
+    (8, 116220, 1, True, 4),
+    (1, 109184, 1, True, 2),  # the probe's broadcast row
+    (8, 232432, 1, True, 4),
+    (8, 232436, 1, True, 0),  # wider than a cluster of 4: the L2 loop
+    (1, 232436, 1, True, 0),
+    (8, 1024, 1, False, 0),  # a bulk copy needs 16-byte aligned tensors
+    (8, 1026, 1, True, 0),  # and 16-byte rows
+    (8, 2, 0, True, 0),
+    (8, 0, 1, True, 0),
+])
+def test_route_follows_the_table_limit(x_rows, width, axis, aligned, blocks):
+    assert gk.route(x_rows, width, axis, aligned=aligned, table_limit=H100_TABLE_LIMIT) == blocks
+
+
+def test_route_limits_are_the_widest_of_each_route():
+    """``ROUTE_LIMITS`` are where the route changes, in the mode each bounds."""
+    def blocks(w, axis=1, x_rows=8):
+        return gk.route(x_rows, w, axis, aligned=True, table_limit=H100_TABLE_LIMIT)
+
+    all_rows, one_row, cluster2, cluster4 = ROUTE_LIMITS
+    assert (blocks(all_rows, axis=0), blocks(all_rows + 4, axis=0)) == (1, 0)
+    assert (blocks(one_row), blocks(one_row + 4)) == (1, 2)
+    assert (blocks(cluster2), blocks(cluster2 + 4)) == (2, 4)
+    assert (blocks(cluster4), blocks(cluster4 + 4)) == (4, 0)
+
+
+@pytest.mark.parametrize("x_rows, axis, blocks, name", [
+    (8, 1, 0, "L2 loop"),
+    (8, 0, 1, "all 8 rows"),
+    (1, 0, 1, "all 1 rows"),
+    (8, 1, 1, "one row"),
+    (1, 1, 1, "the broadcast row"),
+    (8, 1, 2, "one row across a cluster of 2"),
+    (1, 1, 4, "one row across a cluster of 4"),
+])
+def test_route_name(x_rows, axis, blocks, name):
+    assert gk.route_name(x_rows, axis, blocks) == name

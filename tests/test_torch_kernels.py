@@ -40,7 +40,13 @@ def test_cumsum_plain_matches_jax(n, reference):
     np.testing.assert_array_equal(tpk.cumsum_kernel(torch.from_numpy(x)).numpy(), got)
 
 
-@pytest.mark.parametrize("shape", [(1, 8), (7, 128), (33, 64), (2049, 128)])
+# Widths on both sides of csrc/rowsum.cu's 16-byte route (below 4, not a
+# multiple of 4, one vector a lane at 128, several at 1000) and row counts
+# around a task (8 rows), a block's run (64) and the TPU kernel's 1024.
+@pytest.mark.parametrize("shape", [
+    (1, 8), (7, 128), (33, 64), (2049, 128),
+    (63, 1), (65, 3), (9, 100), (64, 128), (1025, 129), (8, 1000), (7, 1000),
+])
 def test_rowsum_plain_matches_rowsum_pallas(shape):
     rows = np.random.default_rng(shape[0]).random(shape)
     want = np.asarray(jpk.rowsum_pallas(jnp.asarray(rows), interpret=True))
