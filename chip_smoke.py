@@ -24,11 +24,12 @@ Phases, each of which exits non-zero on failure:
    plain version on small integers, whose sums are exact;
    ``rowsum`` also over widths 1 to 1000, row counts around one block's
    run of rows and one wave, and unaligned row slices, in float32 and
-   float64; and, once, the launch floor of the timing protocol;
+   float64, and timed beside its scalar loop; and, once, the launch floor
+   of the timing protocol;
 3b. the gather kernel of the SpMV cost probe against its plain version,
    bit for bit, in every mode of the probe at its default shapes (timed
-   beside the L2 loop it replaced on the staged routes), at edge shapes,
-   and on both sides of every staged route's width limit;
+   beside the L2 loop alone), at edge shapes, and on both sides of each
+   width limit of the staged route;
 4. the main path, ``run_pagerank`` at web-Google scale (875K nodes, 5.1M
    edges, 20 iterations), through the ``segment``, ``pallas`` and
    ``hybrid`` SpMV impls, checked against an f64 run and counting kernel
@@ -217,6 +218,18 @@ def sweep_rowsum(pk, rng) -> int:
     return cases
 
 
+def rowsum_yardstick(pk, rng) -> None:
+    """``rowsum`` on its 16-byte route beside its scalar loop, which takes
+    a matrix of the same shape one element off 16-byte alignment: at a
+    narrow, the main path's and a wide width, float32."""
+    for r, w in ((70000, 16), (15112, 128), (8448, 1000)):
+        buf = torch.from_numpy(rng.random(r * w + 1)).to("cuda", torch.float32)
+        rows, off = buf[:r * w].view(r, w), buf[1:].view(r, w)
+        check_rowsum(pk, off, f"scalar loop R={r} W={w}")
+        vec, scalar = time_ms(lambda: pk.rowsum_kernel(rows)), time_ms(lambda: pk.rowsum_kernel(off))
+        print(f"rowsum R={r} W={w}: 16-byte route {vec:.4f} ms, scalar loop {scalar:.4f} ms")
+
+
 def measure_rowsum(pk, rows: torch.Tensor, label: str) -> dict:
     err_abs, err_rel = check_rowsum(pk, rows, label)
     rtol = ROWSUM_RTOL[rows.dtype]
@@ -234,17 +247,26 @@ def measure_rowsum(pk, rows: torch.Tensor, label: str) -> dict:
     return row
 
 
-def gather_route(gk, mode, x: torch.Tensor, idx: torch.Tensor) -> int:
-    """The route the wrapper takes for these inputs (its output is fresh,
-    so 16-byte aligned)."""
+def gather_staged(gk, mode, x: torch.Tensor, idx: torch.Tensor) -> bool:
+    """Whether the wrapper takes the staged route for these inputs (its
+    output is fresh, so 16-byte aligned)."""
     aligned = x.data_ptr() % 16 == 0 and idx.data_ptr() % 16 == 0
-    return gk.route(x.shape[0], idx.shape[1], mode.axis, aligned=aligned,
-                    table_limit=gk.table_limit(x.device))
+    return gk.stages_table(x.shape[0], idx.shape[1], mode.axis, aligned=aligned,
+                           table_limit=gk.table_limit(x.device))
+
+
+def route_name(x_rows: int, axis: int, staged: bool) -> str:
+    """What the gather's route stages, for the report."""
+    if not staged:
+        return "L2 loop"
+    if x_rows == 1:
+        return "the broadcast row"
+    return f"all {x_rows} rows" if axis == 0 else "one row"
 
 
 def gather_l2(x: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
-    """``csrc/gather.cu``'s L2 loop on any inputs, the design the staged
-    routes replaced; a yardstick only, so it counts no launch."""
+    """``csrc/gather.cu``'s L2 loop on any inputs, the whole kernel before
+    the staged route; a yardstick only, so it counts no launch."""
     out = torch.empty_like(idx, dtype=torch.float32)
     rc = _build.library("gather").gather_f32(
         x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0], idx.shape[0], idx.shape[1],
@@ -264,13 +286,14 @@ def check_gather(gk, mode, x: torch.Tensor, idx: torch.Tensor, label: str) -> to
 
 
 def sweep_gather_routes(gk, gather_micro, rng) -> None:
-    """Every mode at both sides of each staged route's width limit (all 8
-    rows; one row; a cluster of 2; of 4), at 1 and 3 blocks of 8 rows, bit
-    for bit against plain; each mode must have run every route it has."""
+    """Every mode on both sides of each width limit of the staged route
+    (where the L2 loop's table outgrows L1; where all 8 rows, and where one
+    row, outgrow a block), at 1 and 3 blocks of 8 rows, bit for bit against
+    plain; each mode must have run both routes."""
     limit = gk.table_limit(torch.device("cuda"))
-    row = limit // 4 // 4 * 4
-    limits = {"all 8 rows": limit // 32 // 4 * 4, "one row": row, "cluster of 2": 2 * row,
-              "cluster of 4": 4 * row}
+    l1 = gk.L1_TABLE_BYTES // 4
+    limits = {"L1, 8 rows": l1 // 8, "L1, one row": l1, "all 8 rows": limit // 32 // 4 * 4,
+              "one row": limit // 4 // 4 * 4}
     seen = {"lane": set(), "sublane": set(), "bcast": set()}
     for name, widest in limits.items():
         for w in (widest, widest + 4):
@@ -280,15 +303,13 @@ def sweep_gather_routes(gk, gather_micro, rng) -> None:
                                              kind == "bcast")
                     x, idx = (torch.from_numpy(a).to("cuda")
                               for a in gather_micro.mode_inputs(mode, rng))
-                    blocks = gather_route(gk, mode, x, idx)
-                    seen[kind].add(blocks)
+                    seen[kind].add(gather_staged(gk, mode, x, idx))
                     check_gather(gk, mode, x, idx, f"{kind} W={w} steps={steps}")
         print(f"gather at the {name} limit (W = {widest}, {widest + 4}): lane, sublane and "
               f"broadcast, steps 1 and 3, equal to plain")
-    want = {"lane": {0, 1, 2, 4}, "sublane": {0, 1}, "bcast": {0, 1, 2, 4}}
-    check(seen == want, f"gather route sweep ran routes {seen}, wanted {want}")
-    print(f"gather routes run (0 = L2 loop, else blocks a staged table): {seen}; "
-          f"table limit {limit} bytes a block")
+    check(all(routes == {False, True} for routes in seen.values()),
+          f"gather route sweep: staged route taken per mode {seen}")
+    print(f"gather route sweep ran both routes in every mode; table limit {limit} bytes a block")
 
 
 def measure_gather(gk, mode, x: torch.Tensor, idx: torch.Tensor, label: str,
@@ -296,7 +317,7 @@ def measure_gather(gk, mode, x: torch.Tensor, idx: torch.Tensor, label: str,
     """:func:`check_gather`, then kernel, plain and library times; with
     ``yardstick``, the L2 loop's time too, on the same inputs."""
     got = check_gather(gk, mode, x, idx, label)
-    blocks = gather_route(gk, mode, x, idx)
+    staged = gather_staged(gk, mode, x, idx)
     steps, w = idx.shape[0] // gk.BLOCK_ROWS, idx.shape[1]
     table = x.expand(gk.BLOCK_ROWS, w).unsqueeze(0).expand(steps, gk.BLOCK_ROWS, w)
     idx64 = idx.view(steps, gk.BLOCK_ROWS, w).long()  # widened before timing
@@ -313,7 +334,7 @@ def measure_gather(gk, mode, x: torch.Tensor, idx: torch.Tensor, label: str,
         ns = 1e6 / idx.numel()
         note = (f"; ns per gather {row['ms'] * ns:.5f}, L2 loop {l2:.4f} ms "
                 f"({l2 * ns:.5f} ns per gather)")
-    print(f"gather {label} [{gk.route_name(x.shape[0], mode.axis, blocks)}]: kernel "
+    print(f"gather {label} [{route_name(x.shape[0], mode.axis, staged)}]: kernel "
           f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
           f"{row['library_ms']:.4f} ms, bound {b:.4f} ms ({by}), equal{note}")
     return row
@@ -600,6 +621,7 @@ def main() -> int:
                 rows = torch.from_numpy(rng.random((r, w))).to("cuda", dtype)
                 measure_rowsum(pk, rows, f"R={r} W={w} {dtype}")
     print(f"rowsum sweep: {sweep_rowsum(pk, rng)} more shapes within tolerance")
+    rowsum_yardstick(pk, rng)
     floor = time_ms(lambda: torch.cuda._sleep(0))
     print(f"launch floor: time_ms of a near-empty kernel (torch.cuda._sleep(0)) {floor:.4f} ms")
 

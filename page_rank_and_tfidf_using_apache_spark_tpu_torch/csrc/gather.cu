@@ -18,52 +18,50 @@
 // at 3.35 TB/s; at W = 128 (4,399,104 gathers) 35.2 MB, about 10.5 us.  The
 // streams of idx and out set the pace, so the table's reads must not.
 //
-// Design: like the TPU kernel, every gather reads the table from fast
-// memory.  A block copies what its outputs read of the table into shared
-// memory with one TMA bulk copy (cp.async.bulk completing on an mbarrier),
-// issues its first 16-byte idx loads while the copy is in flight, then
-// streams its share of idx and out (16-byte loads and stores, 4 quads a
-// thread in flight) and gathers from shared memory.  Routes, by what fits
-// in a block's shared memory (232,432 bytes of table on the H100):
-//   - sublane: the whole table (8 or 1 rows; W <= 7,260 at 8 rows).  Any
-//     block takes any output rows.
-//   - lane, one row fits (W <= 58,108): the output rows fall into 8 groups
-//     of one residue g % 8 (one group when x is the broadcast row), and a
-//     block serves one group, so it stages one row of x, 1/8 of what
-//     staging all 8 rows would cost.
-//   - lane, wider: a thread-block cluster of 2 or 4 blocks splits the row;
-//     a gather reads its value from the owning block's shared memory
-//     (distributed shared memory, map_shared_rank), and the cluster syncs
-//     after the copies and again before any block exits.
-// The grid is one wave (occupancy by shared memory), at most what the
-// group's idx needs, so staging costs at most a wave's worth of table
-// reads from L2 (lane_w109184: 128 blocks of 218 KB, 28 MB of L2 reads,
-// where reading every gather's 32-byte sector from L2 costs 140 MB).
-// Everything else -- a width not a multiple of 4, a pointer not 16-byte
-// aligned (a bulk copy needs both), a sublane table wider than a block, a
-// lane row wider than a cluster of 4 -- takes the grid-stride L2 loop: 4
-// outputs a thread, table reads through the read-only path (__ldg).  The
-// route is the caller's choice (ops/gather_kernels.py); a route that does
-// not fit is refused, never replaced.  Offsets are 64-bit.  Indices are not
-// checked: they must lie in [0, W) for axis 1 and [0, 8) for axis 0.
+// Design: like the TPU kernel, a gather reads its table from fast memory.
+// Two routes, chosen by the caller (ops/gather_kernels.py):
+//   - staged: a block copies what its outputs read of the table into shared
+//     memory with one TMA bulk copy (cp.async.bulk completing on an
+//     mbarrier), issues its first 16-byte idx loads while the copy is in
+//     flight, then streams its share of idx and out (16-byte loads and
+//     stores, 4 quads a thread in flight) and gathers from shared memory.
+//     Sublane stages the whole table (8 rows: W <= 7,260 in the H100's
+//     232,432 bytes a block).  Lane splits the output rows into the 8
+//     residues g % 8 (one group for the broadcast row) and a block serves
+//     one, so it stages one row, 1/8 of the table (W <= 58,108).  The grid
+//     is one wave (occupancy by shared memory), at most what the group's
+//     idx fills, so each block copies its row from L2 once.
+//   - L2 loop: a grid-stride loop, 4 outputs a thread, table reads through
+//     the read-only path (__ldg).  It takes what staging cannot (a width not
+//     a multiple of 4, a pointer not 16-byte aligned, a table part wider
+//     than a block) and what it does not speed up: a table of 128 KB or less
+//     stays in L1 on this loop (lane W <= 4,096), where staging measured
+//     up to 7% slower.
+// Measured on the H100 (PERF.md section 6): staging held 0.0203-0.0214 ms
+// from lane W = 128 to 32,768, where the L2 loop rose from 0.0190 to
+// 0.0367 ms as the table outgrew L1.  Past one row a block (lane W =
+// 109,184, the web-Google rank vector's size) a thread-block cluster of 2
+// split the row and read the other half through distributed shared memory,
+// and lost to the L2 loop (0.0441 against 0.0429 ms): random 4-byte remote
+// reads cost more than the L2 sectors they save.  So that width stays on
+// the L2 loop.  Offsets are 64-bit.
+// Indices are not checked: they must lie in [0, W) for axis 1 and [0, 8)
+// for axis 0.  A route that does not fit is refused, never replaced.
 //
 // C interface (loaded with ctypes): device pointers, a cudaStream_t, and
 // the cudaError_t of the launch as the return value (0 on success).
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kBlockRows = 8;           // rows of the x block each output row gathers from
 constexpr int kThreads = 256;           // L2 loop
 constexpr long long kMaxBlocks = 8192;  // L2 loop: grid-stride beyond this
-constexpr int kStagedThreads = 512;     // staged routes
-constexpr int kUnroll = 4;              // staged routes: quads a thread loads before it gathers
+constexpr int kStagedThreads = 512;     // staged route
+constexpr int kUnroll = 4;              // staged route: quads a thread loads before it gathers
 constexpr int kBarrierBytes = 16;       // the mbarrier, ahead of the staged table
 
 // ---- L2 loop ----
@@ -108,7 +106,7 @@ gather_rows(const float* __restrict__ x, const int* __restrict__ idx, float* __r
   }
 }
 
-// ---- staged routes ----
+// ---- staged route ----
 
 __device__ __forceinline__ std::uint32_t smem_addr(const void* p) {
   return static_cast<std::uint32_t>(__cvta_generic_to_shared(p));
@@ -142,14 +140,13 @@ __device__ __forceinline__ void barrier_wait(std::uint64_t* bar, std::uint32_t p
   }
 }
 
-// One launch of a staged route.  The output rows fall into `groups` groups
-// (group r holds rows g = groups*i + r); `per_group` consecutive blocks
-// serve a group, cut into clusters of kCluster.  Each block stages
-// `stage_len` floats of x from element r*W + rank*stage_len (lane: row r,
-// or its part `rank` within a cluster; sublane: all of x, with groups 1),
-// then takes its share of the group's quads.  Sublane reads table row k at
+// One launch of the staged route.  The output rows fall into `groups`
+// groups (group r holds rows g = groups*i + r); `per_group` consecutive
+// blocks serve a group.  Each block stages `stage_len` floats of x from
+// element r*W (lane: row r; sublane: all of x, with groups 1), then takes
+// its share of the group's quads.  Sublane reads table row k at
 // k * row_stride (0 for the broadcast row).
-template <int kAxis, int kCluster>
+template <int kAxis>
 __global__ void __launch_bounds__(kStagedThreads)
 gather_staged(const float* __restrict__ x, const int* __restrict__ idx, float* __restrict__ out,
               long long group_rows, int width, int groups, int per_group, int stage_len,
@@ -159,31 +156,14 @@ gather_staged(const float* __restrict__ x, const int* __restrict__ idx, float* _
   float* table = reinterpret_cast<float*>(smem + kBarrierBytes);
   const int r = blockIdx.x / per_group;
   const int kb = blockIdx.x - r * per_group;
-  int rank = 0;
-  const float* parts[kCluster];  // each rank's part of the row, as this block reads it
-  parts[0] = table;
-  if constexpr (kCluster > 1) {
-    cg::cluster_group cluster = cg::this_cluster();
-    rank = static_cast<int>(cluster.block_rank());
-#pragma unroll
-    for (int c = 0; c < kCluster; ++c) {
-      parts[c] = c == rank ? table : cluster.map_shared_rank(table, c);
-    }
-  }
-  const int count = kCluster > 1 ? min(stage_len, width - rank * stage_len) : stage_len;
   if (threadIdx.x == 0) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_addr(bar)) : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    if (count > 0) {
-      const long long first = static_cast<long long>(r) * width +
-                              static_cast<long long>(rank) * stage_len;
-      bulk_copy(table, x + first, static_cast<std::uint32_t>(count) * 4u, bar);
-    } else {
-      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
-    }
+    bulk_copy(table, x + static_cast<long long>(r) * width,
+              static_cast<std::uint32_t>(stage_len) * 4u, bar);
   }
 
   // This block's quads [q0, q1) of the group's group_rows x wq, walked with
@@ -218,24 +198,11 @@ gather_staged(const float* __restrict__ x, const int* __restrict__ idx, float* _
     }
   };
   auto fetch = [&](int kk, int j) -> float {
-    if constexpr (kAxis == 0) {
-      return table[kk * row_stride + j];
-    } else if constexpr (kCluster == 1) {
-      return table[kk];
-    } else {
-      int owner = 0;
-#pragma unroll
-      for (int c = 1; c < kCluster; ++c) owner += kk >= c * stage_len;
-      const float* p = parts[0];
-#pragma unroll
-      for (int c = 1; c < kCluster; ++c) p = owner == c ? parts[c] : p;
-      return p[kk - owner * stage_len];
-    }
+    return kAxis == 0 ? table[kk * row_stride + j] : table[kk];
   };
 
   load();  // the first idx loads overlap the bulk copy
   barrier_wait(bar, 0);
-  if constexpr (kCluster > 1) cg::this_cluster().sync();  // every part has landed
   while (ok[0]) {
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -250,7 +217,6 @@ gather_staged(const float* __restrict__ x, const int* __restrict__ idx, float* _
     }
     load();
   }
-  if constexpr (kCluster > 1) cg::this_cluster().sync();  // no part leaves while read
 }
 
 int device_attribute(cudaDeviceAttr attr, int* value) {
@@ -260,98 +226,55 @@ int device_attribute(cudaDeviceAttr attr, int* value) {
   return static_cast<int>(err);
 }
 
-template <int kAxis, int kCluster>
+template <int kAxis>
 int launch_staged(const float* x, const int* idx, float* out, int x_rows, long long rows,
-                  int width, int table_limit, cudaStream_t stream) {
+                  int width, cudaStream_t stream) {
+  int limit = 0;
+  int rc = device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin, &limit);
+  if (rc != 0) return rc;
   const int groups = kAxis == 1 && x_rows == kBlockRows ? kBlockRows : 1;
-  int stage_len = width;
-  if (kAxis == 0) {
-    stage_len = x_rows * width;
-  } else if (kCluster > 1) {
-    stage_len = (width + kCluster - 1) / kCluster;
-    stage_len += -stage_len & 3;  // 16-byte parts
-  }
-  if (width % 4 || rows % groups || static_cast<long long>(stage_len) * 4 > table_limit) {
+  const int stage_len = kAxis == 0 ? x_rows * width : width;
+  if (width % 4 || static_cast<long long>(stage_len) * 4 > limit - kBarrierBytes ||
+      (reinterpret_cast<std::uintptr_t>(x) | reinterpret_cast<std::uintptr_t>(idx) |
+       reinterpret_cast<std::uintptr_t>(out)) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int smem = kBarrierBytes + stage_len * 4;
-  auto kernel = gather_staged<kAxis, kCluster>;
+  auto kernel = gather_staged<kAxis>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster);
-  cfg.blockDim = dim3(kStagedThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = kCluster > 1 ? 1 : 0;
-  int wave = 0;  // blocks resident at once
-  if (kCluster > 1) {
-    err = cudaOccupancyMaxActiveClusters(&wave, kernel, &cfg);
-    wave *= kCluster;
-  } else {
-    int per_sm = 0, sms = 0;
+  int per_sm = 0, sms = 0;
+  if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kStagedThreads, smem);
-    if (err == cudaSuccess) err = static_cast<cudaError_t>(
-        device_attribute(cudaDevAttrMultiProcessorCount, &sms));
-    wave = per_sm * sms;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  // blocks per group: a wave's share, no more than the group's quads fill,
-  // a whole number of clusters
+  rc = device_attribute(cudaDevAttrMultiProcessorCount, &sms);
+  if (rc != 0) return rc;
+  // blocks per group: a wave's share, no more than the group's quads fill
   const long long group_rows = rows / groups;
   const long long quads = group_rows * (width / 4);
+  long long per_group = static_cast<long long>(per_sm) * sms / groups;
   const long long fill = (quads + kStagedThreads * kUnroll - 1) / (kStagedThreads * kUnroll);
-  long long per_group = (wave / groups) / kCluster * kCluster;
-  const long long fill_up = (fill + kCluster - 1) / kCluster * kCluster;
-  if (per_group > fill_up) per_group = fill_up;
-  if (per_group < kCluster) per_group = kCluster;
-  cfg.gridDim = dim3(static_cast<unsigned>(groups * per_group));
-  err = cudaLaunchKernelEx(&cfg, kernel, x, idx, out, group_rows, width, groups,
-                           static_cast<int>(per_group), stage_len,
-                           x_rows == 1 ? 0 : width);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_group > fill) per_group = fill;
+  if (per_group < 1) per_group = 1;
+  kernel<<<static_cast<unsigned>(groups * per_group), kStagedThreads, smem, stream>>>(
+      x, idx, out, group_rows, width, groups, static_cast<int>(per_group), stage_len,
+      x_rows == 1 ? 0 : width);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int kAxis>
 int launch(const float* x, const int* idx, float* out, int x_rows, long long rows, int width,
-           int cluster, cudaStream_t stream) {
-  if (cluster == 0) {
-    const bool vec = width % 4 == 0 &&
-                     (reinterpret_cast<std::uintptr_t>(idx) |
-                      reinterpret_cast<std::uintptr_t>(out)) % 16 == 0;
-    const long long total = rows * ((width + 3) / 4);
-    long long blocks = (total + kThreads - 1) / kThreads;
-    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-    gather_rows<kAxis><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        x, idx, out, x_rows == 1, rows, width, vec);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if ((reinterpret_cast<std::uintptr_t>(x) | reinterpret_cast<std::uintptr_t>(idx) |
-       reinterpret_cast<std::uintptr_t>(out)) % 16) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int limit = 0;
-  const int err = device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin, &limit);
-  if (err != 0) return err;
-  limit -= kBarrierBytes;
-  switch (cluster) {
-    case 1: return launch_staged<kAxis, 1>(x, idx, out, x_rows, rows, width, limit, stream);
-    case 2:
-      if (kAxis == 1) return launch_staged<1, 2>(x, idx, out, x_rows, rows, width, limit, stream);
-      break;
-    case 4:
-      if (kAxis == 1) return launch_staged<1, 4>(x, idx, out, x_rows, rows, width, limit, stream);
-      break;
-    default: break;
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+           bool staged, cudaStream_t stream) {
+  if (staged) return launch_staged<kAxis>(x, idx, out, x_rows, rows, width, stream);
+  const bool vec = width % 4 == 0 &&
+                   (reinterpret_cast<std::uintptr_t>(idx) |
+                    reinterpret_cast<std::uintptr_t>(out)) % 16 == 0;
+  const long long total = rows * ((width + 3) / 4);
+  long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  gather_rows<kAxis><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      x, idx, out, x_rows == 1, rows, width, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -360,10 +283,9 @@ extern "C" {
 
 // x: float32 [x_rows, width] with x_rows 8, or 1 for the broadcast row;
 // idx: int32 [rows, width]; out: float32 [rows, width]; rows a multiple of 8.
-// cluster: 0 for the L2 loop; 1 for one block per staged table; 2 or 4 for
-// a cluster of that many blocks splitting one row (axis 1 only).
+// staged: 1 for the staged route, 0 for the L2 loop.
 int gather_f32(const void* x, const void* idx, void* out, int x_rows, long long rows, int width,
-               int axis, int cluster, void* stream) {
+               int axis, int staged, void* stream) {
   if ((x_rows != 1 && x_rows != kBlockRows) || (axis != 0 && axis != 1) || rows < 0 ||
       width < 0 || rows % kBlockRows) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -373,11 +295,11 @@ int gather_f32(const void* x, const void* idx, void* out, int x_rows, long long 
   const auto* xp = static_cast<const float*>(x);
   const auto* ip = static_cast<const int*>(idx);
   auto* op = static_cast<float*>(out);
-  return axis == 1 ? launch<1>(xp, ip, op, x_rows, rows, width, cluster, s)
-                   : launch<0>(xp, ip, op, x_rows, rows, width, cluster, s);
+  return axis == 1 ? launch<1>(xp, ip, op, x_rows, rows, width, staged != 0, s)
+                   : launch<0>(xp, ip, op, x_rows, rows, width, staged != 0, s);
 }
 
-// Bytes of table a block of the staged routes can hold on the current
+// Bytes of table a block of the staged route can hold on the current
 // device (its opt-in shared memory less the barrier), or -1.
 int gather_table_limit() {
   int limit = 0;

@@ -11,21 +11,29 @@
 // the main path's [15,112, 128] float32, 7.8 MB, 2.3 us.
 //
 // Design: no matrix unit; the sums run in float32 or float64 on the CUDA
-// cores, so no TF32 rounding arises.  To reach the byte bound the card
-// needs tens of KB in flight per SM, so where W is a multiple of 4 and the
-// base is 16-byte aligned every lane issues 8 loads of 16 bytes before it
-// adds any: a group of G lanes (G the row's 16-byte vectors rounded up to a
-// power of two, capped at 32) shares a row, and a warp takes a task of
-// kRows row slots at once -- at W = 128 float32 one float4 of each of 8
-// rows per lane, 128 bytes in flight where a scalar loop had 16.  The grid
-// is one wave (resident blocks x SMs), or fewer blocks where the tasks run
-// out first; each block walks a contiguous run of tasks, its warps side by
-// side.  A lane adds its row's vectors in column order, then the G
-// partial sums meet in xor shuffles inside the group, so the order is fixed
-// by W alone: no atomics, the same bits from any grid.  Other widths (not a
-// multiple of 4, or below 4) and unaligned bases (a row slice of an
-// odd-width matrix) take the scalar lane-group loop: lane j of a group adds
-// elements j, j+G, j+2G, ... of its row, one row group per warp.
+// cores, so no TF32 rounding arises.  Where W is a multiple of 4 on a
+// 16-byte aligned base, a group of G lanes (G the row's 16-byte vectors
+// rounded up to a power of two, capped at 32) shares a row, and each lane
+// issues 2 loads of 16 bytes along it before it adds them (at W = 128
+// float32 one float4 a lane: a warp reads a row in one request).  The grid
+// is one wave (resident blocks x SMs), or fewer blocks where the rows run
+// out first; each block walks a contiguous run of rows, its warps side by
+// side, with its bounds computed on the host.  A lane adds its row's
+// vectors in column order, then the G partial sums meet in xor shuffles
+// inside the group, so the order is fixed by W alone: no atomics, the same
+// bits from any grid.  Other widths (not a multiple of 4, or below 4) and
+// unaligned bases (a row slice of an odd-width matrix) take the scalar
+// lane-group loop: lane j of a group adds elements j, j+G, j+2G, ... of its
+// row, one row group per warp.
+//
+// What holds it back (H100 measurements, PERF.md section 6): at the main
+// path's 7.8 MB, the timing protocol's own floor of about 5 us and the
+// memory latency, not the bytes in flight.  A warp already reads a whole
+// row per request, and a one-row-per-warp grid has megabytes in flight.
+// Eight rows in flight per lane (128 bytes, not 16) made it slower, as did
+// eight loads a lane along the row (more registers, a smaller wave).  This
+// design ties the scalar loop at the main path and is faster on narrow
+// (W = 16) and wide (W = 512, 1000) rows.
 //
 // C interface (loaded with ctypes): device pointers, a cudaStream_t, and
 // the cudaError_t of the launch as the return value (0 on success).
@@ -38,7 +46,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kInFlight = 8;  // 16-byte loads a lane issues before it adds
+constexpr int kInFlight = 2;  // 16-byte loads a lane issues along its row before it adds
 
 // ---- scalar lane-group loop ----
 
@@ -81,60 +89,36 @@ template <> struct Vec16<double> {
   }
 };
 
-// A task is kRows row slots of 32/group rows each; nvec 16-byte vectors a
-// row.  Lane `sub` of a group loads columns sub, sub+group, ... of each of
-// its kRows rows, kInFlight vectors at a time, before it adds them.
-template <typename T, int kRows>
+// A task is one row for each of the warp's 32/group lane groups; nvec
+// 16-byte vectors a row.  Block b takes tasks [b*per_block, ...), its warps
+// side by side.  Lane `sub` of a group loads columns sub, sub+group, ... of
+// its row, kInFlight vectors at a time, before it adds them.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rowsum_vec(const T* __restrict__ mat, T* __restrict__ out, long long rows, int nvec, int group,
-           long long tasks) {
+           long long tasks, long long per_block) {
   using V = typename Vec16<T>::type;
-  constexpr int kLoads = kInFlight / kRows;  // vectors of one row a lane loads at once
   const int lane = threadIdx.x & 31;
   const int sub = lane & (group - 1);
-  const int slot = lane / group;
-  const int slots = 32 / group;
+  const long long slots = 32 / group;
   const V* m = reinterpret_cast<const V*>(mat);
-  const long long t1 = tasks * (blockIdx.x + 1) / gridDim.x;
-  for (long long t = tasks * blockIdx.x / gridDim.x + threadIdx.x / 32; t < t1; t += kWarps) {
-    const long long first = t * kRows * slots + slot;  // row slot b holds row first + b*slots
-    T s[kRows];
+  const long long t0 = per_block * blockIdx.x;
+  const long long t1 = t0 + per_block < tasks ? t0 + per_block : tasks;
+  for (long long t = t0 + threadIdx.x / 32; t < t1; t += kWarps) {
+    const long long row = t * slots + lane / group;
+    T s = T(0);
+    for (int c0 = sub; c0 < nvec; c0 += kInFlight * group) {
+      V v[kInFlight];
 #pragma unroll
-    for (int b = 0; b < kRows; ++b) s[b] = T(0);
-    for (int c0 = sub; c0 < nvec; c0 += kLoads * group) {
-      V v[kRows][kLoads];
-#pragma unroll
-      for (int b = 0; b < kRows; ++b) {
-        const long long row = first + static_cast<long long>(b) * slots;
-#pragma unroll
-        for (int u = 0; u < kLoads; ++u) {
-          const int c = c0 + u * group;
-          if (row < rows && c < nvec) {
-            v[b][u] = __ldg(m + row * nvec + c);
-          } else {
-            v[b][u] = V{};
-          }
-        }
+      for (int u = 0; u < kInFlight; ++u) {
+        const int c = c0 + u * group;
+        v[u] = row < rows && c < nvec ? __ldg(m + row * nvec + c) : V{};
       }
 #pragma unroll
-      for (int b = 0; b < kRows; ++b) {
-#pragma unroll
-        for (int u = 0; u < kLoads; ++u) s[b] = Vec16<T>::add(s[b], v[b][u]);
-      }
+      for (int u = 0; u < kInFlight; ++u) s = Vec16<T>::add(s, v[u]);
     }
-#pragma unroll
-    for (int b = 0; b < kRows; ++b) {
-      for (int off = group >> 1; off > 0; off >>= 1) {
-        s[b] += __shfl_xor_sync(0xffffffffu, s[b], off);
-      }
-    }
-    if (sub == 0) {
-#pragma unroll
-      for (int b = 0; b < kRows; ++b) {
-        const long long row = first + static_cast<long long>(b) * slots;
-        if (row < rows) out[row] = s[b];
-      }
-    }
+    for (int off = group >> 1; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (sub == 0 && row < rows) out[row] = s;
   }
 }
 
@@ -151,30 +135,12 @@ bool vec_width(int width) { return width >= 4 && width % 4 == 0; }
 struct VecPlan {
   int nvec;   // 16-byte vectors a row
   int group;  // lanes a row
-  int rows;   // row slots a task: 8, 4, 2 or 1
 };
 
 template <typename T>
 VecPlan vec_plan(int width) {
-  VecPlan p;
-  p.nvec = width / (16 / static_cast<int>(sizeof(T)));
-  p.group = pow2_at_least(p.nvec, 32);
-  const int per_lane = pow2_at_least((p.nvec + p.group - 1) / p.group, kInFlight);
-  p.rows = kInFlight / per_lane;
-  return p;
-}
-
-template <typename T>
-using VecKernel = void (*)(const T*, T*, long long, int, int, long long);
-
-template <typename T>
-VecKernel<T> vec_kernel(int rows) {
-  switch (rows) {
-    case 8: return rowsum_vec<T, 8>;
-    case 4: return rowsum_vec<T, 4>;
-    case 2: return rowsum_vec<T, 2>;
-    default: return rowsum_vec<T, 1>;
-  }
+  const int nvec = width / (16 / static_cast<int>(sizeof(T)));
+  return {nvec, pow2_at_least(nvec, 32)};
 }
 
 // Blocks of `kernel` resident at once on the current device.
@@ -194,16 +160,15 @@ int rowsum_launch(const T* mat, T* out, long long rows, int width, cudaStream_t 
   if (rows == 0) return 0;
   if (vec_width(width) && reinterpret_cast<std::uintptr_t>(mat) % 16 == 0) {
     const VecPlan p = vec_plan<T>(width);
-    const VecKernel<T> kernel = vec_kernel<T>(p.rows);
     long long wave = 0;
-    const cudaError_t err = wave_of(kernel, &wave);
+    const cudaError_t err = wave_of(rowsum_vec<T>, &wave);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const long long task_rows = static_cast<long long>(p.rows) * (32 / p.group);
-    const long long tasks = (rows + task_rows - 1) / task_rows;
+    const long long slots = 32 / p.group;
+    const long long tasks = (rows + slots - 1) / slots;
     long long blocks = (tasks + kWarps - 1) / kWarps;
     if (blocks > wave) blocks = wave;
-    kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(mat, out, rows, p.nvec,
-                                                                    p.group, tasks);
+    rowsum_vec<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        mat, out, rows, p.nvec, p.group, tasks, (tasks + blocks - 1) / blocks);
     return static_cast<int>(cudaGetLastError());
   }
   const int group = pow2_at_least(width, 32);
@@ -220,9 +185,8 @@ template <typename T>
 int plan(int width, long long* block_rows, long long* wave_blocks) {
   if (width < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (vec_width(width)) {
-    const VecPlan p = vec_plan<T>(width);
-    *block_rows = static_cast<long long>(kWarps) * p.rows * (32 / p.group);
-    return static_cast<int>(wave_of(vec_kernel<T>(p.rows), wave_blocks));
+    *block_rows = static_cast<long long>(kWarps) * (32 / vec_plan<T>(width).group);
+    return static_cast<int>(wave_of(rowsum_vec<T>, wave_blocks));
   }
   *block_rows = kThreads / pow2_at_least(width, 32);
   return static_cast<int>(wave_of(rowsum_rows<T>, wave_blocks));

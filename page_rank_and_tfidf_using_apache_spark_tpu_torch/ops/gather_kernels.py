@@ -8,9 +8,11 @@ On the card it is ``csrc/gather.cu``, built for ``sm_90a`` on first use
 (``ops/_build.py``); on the CPU the wrapper runs :func:`take_along_rows_plain`.
 
 Like the TPU kernel, which keeps its table in VMEM, the CUDA kernel gathers
-from shared memory: a block stages what its outputs read of the table.
-:func:`route` picks how, from the shapes, the alignment and the shared
-memory a block can hold (``gather_table_limit()`` of the device).
+from fast memory: a block stages what its outputs read of the table in
+shared memory, or, where the table is small enough for L1 or too wide for
+a block, a grid-stride loop reads it through L1/L2.  :func:`stages_table`
+picks, from the shapes, the alignment and the shared memory a block can
+hold (``gather_table_limit()`` of the device).
 
 ``LAUNCHES`` counts kernel launches, so a run can show that it went through
 the kernel.  It is kept apart from ``pallas_kernels.LAUNCHES``, whose keys
@@ -27,8 +29,9 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops.pallas_kernels import 
 # Rows of the table block each group of 8 output rows gathers from.
 BLOCK_ROWS = 8
 
-# Blocks that split one staged row between them (a thread-block cluster).
-CLUSTER_SIZES = (2, 4)
+# Tables the L2 loop keeps in L1 (lane W <= 4,096 at 8 rows): staging them
+# measured no faster on the H100 (PERF.md section 6).
+L1_TABLE_BYTES = 128 * 1024
 
 # Kernel launches per wrapper since the last reset_launches().
 LAUNCHES: dict[str, int] = {"gather": 0}
@@ -63,37 +66,20 @@ def _check(x: torch.Tensor, idx: torch.Tensor, axis: int) -> None:
                          f"got {x.device} and {idx.device}")
 
 
-def route(x_rows: int, width: int, axis: int, *, aligned: bool, table_limit: int) -> int:
-    """Blocks that share one staged table in ``csrc/gather.cu``: 1 where
-    one block stages all that its outputs read, 2 or 4 where a cluster of
-    that many blocks splits one row, 0 for the L2 loop.
+def stages_table(x_rows: int, width: int, axis: int, *, aligned: bool,
+                 table_limit: int) -> bool:
+    """Whether ``csrc/gather.cu`` stages the table in shared memory (its
+    staged route) rather than reading it through L1/L2 (its L2 loop).
 
-    A bulk copy needs ``width % 4 == 0`` and 16-byte aligned tensors
-    (``aligned``); ``table_limit`` is the bytes of table a block can hold.
-    Sublane (``axis=0``) stages the whole ``[x_rows, W]`` table.  Lane
-    stages one row a block: the block's outputs all read row ``g % 8`` (or
-    the broadcast row), 1/8 of the table; where the row outgrows a block,
-    a cluster of 2 or 4 splits it into 16-byte parts."""
-    if not aligned or width % 4 or width == 0:
-        return 0
-    if axis == 0:
-        return 1 if x_rows * width * 4 <= table_limit else 0
-    for blocks in (1, *CLUSTER_SIZES):
-        part = -(-width // blocks)
-        if (part + -part % 4) * 4 <= table_limit:
-            return blocks
-    return 0
-
-
-def route_name(x_rows: int, axis: int, blocks: int) -> str:
-    """What :func:`route`'s answer stages, for a report."""
-    if blocks == 0:
-        return "L2 loop"
-    if blocks > 1:
-        return f"one row across a cluster of {blocks}"
-    if axis == 0:
-        return f"all {x_rows} rows"
-    return "one row" if x_rows == BLOCK_ROWS else "the broadcast row"
+    A block stages what its outputs read: the whole ``[x_rows, W]`` table
+    for sublane (``axis=0``), one row for lane (the block's outputs all
+    read row ``g % 8``, or the broadcast row).  That must fit in
+    ``table_limit`` bytes, and a bulk copy needs ``width % 4 == 0`` and
+    16-byte aligned tensors (``aligned``).  A table of at most
+    :data:`L1_TABLE_BYTES` stays on the L2 loop, whose L1 holds it."""
+    if not aligned or width % 4 or x_rows * width * 4 <= L1_TABLE_BYTES:
+        return False
+    return (x_rows * width if axis == 0 else width) * 4 <= table_limit
 
 
 def table_limit(device: torch.device) -> int:
@@ -130,8 +116,8 @@ def take_along_rows_kernel(x: torch.Tensor, idx: torch.Tensor, *, axis: int) -> 
     does not check it (an index out of range reads outside the table); the
     plain version, which the CPU route runs, raises.
 
-    ``csrc/gather.cu`` on CUDA, by :func:`route`, and
-    :func:`take_along_rows_plain` on the CPU."""
+    ``csrc/gather.cu`` on CUDA, on the route :func:`stages_table` picks,
+    and :func:`take_along_rows_plain` on the CPU."""
     _check(x, idx, axis)
     if x.device.type == "cpu":
         return take_along_rows_plain(x, idx, axis=axis)
@@ -141,11 +127,12 @@ def take_along_rows_kernel(x: torch.Tensor, idx: torch.Tensor, *, axis: int) -> 
         return out
     lib = _build.library("gather")
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, idx, out))
-    blocks = route(x.shape[0], width, axis, aligned=aligned, table_limit=table_limit(x.device))
+    staged = stages_table(x.shape[0], width, axis, aligned=aligned,
+                          table_limit=table_limit(x.device))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gather_f32(x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0], rows,
-                            width, axis, blocks, stream)
+                            width, axis, int(staged), stream)
     _raise_on(rc, lib, "gather_error_string", "gather")
     LAUNCHES["gather"] += 1
     return out

@@ -12,8 +12,8 @@ are CUDA C++ here, built for ``sm_90a`` on first use (``ops/_build.py``):
   ``csrc/scan.cuh``).  On the main path its scan runs inside the fused
   kernel, so the main path launches it no more.
 - :func:`rowsum_kernel` replaces ``rowsum_pallas``: the row sums of the
-  ``spmv_impl='hybrid'`` dense head (``csrc/rowsum.cu``), in one pass with
-  16-byte loads of several rows in flight per lane.
+  ``spmv_impl='hybrid'`` dense head (``csrc/rowsum.cu``): one pass of
+  16-byte loads on a grid of one wave.
 
 Each wrapper checks its input, takes a CPU tensor to the plain PyTorch
 version beside it (``spmv_pallas_plain``, ``cumsum_plain``,

@@ -56,9 +56,10 @@ def pallas_gather(x, idx, *, axis, broadcast):
 # Bytes of table a block of csrc/gather.cu stages on an H100: 232,448 bytes
 # of opt-in shared memory less its 16-byte barrier.
 H100_TABLE_LIMIT = 232_448 - 16
-# The widest W of each staged route there: all 8 rows (sublane), one row
-# (lane and broadcast), one row across a cluster of 2, and of 4.
-ROUTE_LIMITS = (7260, 58108, 116216, 232432)
+# The widths at which the staged route's reach changes there: where an
+# 8-row table, and a broadcast row, outgrow L1_TABLE_BYTES; where all 8
+# rows (sublane), and one row (lane), outgrow a block.
+ROUTE_LIMITS = (4096, 32768, 7260, 58108)
 
 
 @pytest.mark.parametrize("steps", [1, 3])
@@ -122,50 +123,38 @@ def test_empty_input():
     assert out.shape == (8, 0) and out.dtype == torch.float32
 
 
-@pytest.mark.parametrize("x_rows, width, axis, aligned, blocks", [
-    (8, 7260, 0, True, 1),  # sublane: all 8 rows fit
-    (8, 7264, 0, True, 0),
-    (1, 58108, 0, True, 1),  # broadcast sublane: the one row fits
-    (1, 58112, 0, True, 0),
-    (8, 128, 1, True, 1),  # lane: one row a block
-    (8, 58108, 1, True, 1),
-    (8, 58112, 1, True, 2),  # the row splits over a cluster of 2
-    (8, 109184, 1, True, 2),  # the probe's widest lane width
-    (8, 116216, 1, True, 2),
-    (8, 116220, 1, True, 4),
-    (1, 109184, 1, True, 2),  # the probe's broadcast row
-    (8, 232432, 1, True, 4),
-    (8, 232436, 1, True, 0),  # wider than a cluster of 4: the L2 loop
-    (1, 232436, 1, True, 0),
-    (8, 1024, 1, False, 0),  # a bulk copy needs 16-byte aligned tensors
-    (8, 1026, 1, True, 0),  # and 16-byte rows
-    (8, 2, 0, True, 0),
-    (8, 0, 1, True, 0),
+@pytest.mark.parametrize("x_rows, width, axis, aligned, staged", [
+    (8, 4096, 1, True, False),  # lane: a 128 KB table stays in L1 on the L2 loop
+    (8, 4100, 1, True, True),  # one row a block
+    (8, 32768, 1, True, True),
+    (8, 58108, 1, True, True),
+    (8, 58112, 1, True, False),  # one row outgrows a block
+    (8, 109184, 1, True, False),  # the probe's widest lane width
+    (8, 4096, 0, True, False),  # sublane: all 8 rows staged
+    (8, 4100, 0, True, True),
+    (8, 7260, 0, True, True),
+    (8, 7264, 0, True, False),
+    (1, 32768, 1, True, False),  # the broadcast row
+    (1, 32772, 1, True, True),
+    (1, 58108, 0, True, True),
+    (1, 58112, 0, True, False),
+    (8, 8192, 1, False, False),  # a bulk copy needs 16-byte aligned tensors
+    (8, 8194, 1, True, False),  # and 16-byte rows
+    (8, 0, 1, True, False),
 ])
-def test_route_follows_the_table_limit(x_rows, width, axis, aligned, blocks):
-    assert gk.route(x_rows, width, axis, aligned=aligned, table_limit=H100_TABLE_LIMIT) == blocks
+def test_stages_table_follows_the_limits(x_rows, width, axis, aligned, staged):
+    assert gk.stages_table(x_rows, width, axis, aligned=aligned,
+                           table_limit=H100_TABLE_LIMIT) is staged
 
 
-def test_route_limits_are_the_widest_of_each_route():
-    """``ROUTE_LIMITS`` are where the route changes, in the mode each bounds."""
-    def blocks(w, axis=1, x_rows=8):
-        return gk.route(x_rows, w, axis, aligned=True, table_limit=H100_TABLE_LIMIT)
-
-    all_rows, one_row, cluster2, cluster4 = ROUTE_LIMITS
-    assert (blocks(all_rows, axis=0), blocks(all_rows + 4, axis=0)) == (1, 0)
-    assert (blocks(one_row), blocks(one_row + 4)) == (1, 2)
-    assert (blocks(cluster2), blocks(cluster2 + 4)) == (2, 4)
-    assert (blocks(cluster4), blocks(cluster4 + 4)) == (4, 0)
-
-
-@pytest.mark.parametrize("x_rows, axis, blocks, name", [
-    (8, 1, 0, "L2 loop"),
-    (8, 0, 1, "all 8 rows"),
-    (1, 0, 1, "all 1 rows"),
-    (8, 1, 1, "one row"),
-    (1, 1, 1, "the broadcast row"),
-    (8, 1, 2, "one row across a cluster of 2"),
-    (1, 1, 4, "one row across a cluster of 4"),
+@pytest.mark.parametrize("x_rows, axis, limit", [
+    (8, 1, 4096), (8, 0, 4096), (1, 1, 32768), (1, 0, 32768),  # L1's reach
+    (8, 0, 7260), (8, 1, 58108), (1, 1, 58108), (1, 0, 58108),  # a block's reach
 ])
-def test_route_name(x_rows, axis, blocks, name):
-    assert gk.route_name(x_rows, axis, blocks) == name
+def test_route_limits_are_where_the_route_changes(x_rows, axis, limit):
+    """Each of ``ROUTE_LIMITS`` flips the route of the modes it bounds."""
+    def staged(w):
+        return gk.stages_table(x_rows, w, axis, aligned=True, table_limit=H100_TABLE_LIMIT)
+
+    assert limit in ROUTE_LIMITS
+    assert staged(limit) != staged(limit + 4)

@@ -41,8 +41,9 @@ def test_cumsum_plain_matches_jax(n, reference):
 
 
 # Widths on both sides of csrc/rowsum.cu's 16-byte route (below 4, not a
-# multiple of 4, one vector a lane at 128, several at 1000) and row counts
-# around a task (8 rows), a block's run (64) and the TPU kernel's 1024.
+# multiple of 4, one vector a lane at 128, several at 1000), and row counts
+# around a block's run (8 rows at W = 128 and 1000) and the TPU kernel's
+# 1024-row block.
 @pytest.mark.parametrize("shape", [
     (1, 8), (7, 128), (33, 64), (2049, 128),
     (63, 1), (65, 3), (9, 100), (64, 128), (1025, 129), (8, 1000), (7, 1000),
