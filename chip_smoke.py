@@ -42,6 +42,18 @@ Phases, each of which exits non-zero on failure:
    record checked for its stamp, the JAX tool's keys and its times;
 6b. ``torch.profiler`` over the breakdown's ``gather_w_src`` stage alone,
    its kernels and host ops by name;
+8. batch TF-IDF, which reaches no kernel, at BASELINE config 2's size (the
+   19,000-document stand-in for 20-Newsgroups, vocab 2^18): the corpus
+   tokenized by the C++ tokenizer (the run fails on the numpy path);
+   ``api.tfidf`` in the default configuration, cold and a warm median of
+   5, tokens/s, no kernel launched, and a ``torch.profiler`` line of the
+   pipeline's device time by op and busy share; ``ops.tfidf_pipeline`` in
+   all 18 TF x IDF x L2 modes against a float64 numpy oracle (COO, counts
+   and DF equal, IDF and weights within 2e-6), each L2 mode twice, equal
+   bit for bit; ``score_query`` top-10 against the oracle's stable order;
+   the TF-IDF CLI (``python -m``) against ``api.tfidf`` on the tiny
+   fixture; and the PageRank loaders' native parse and sort against their
+   numpy paths, on the tiny fixture and on the main path's graph;
 7. one JSON line describing every kernel, then the result line.
 
 Without a CUDA device, or without the port's package beside it, it exits
@@ -53,6 +65,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -91,6 +104,13 @@ UNIT_ROUNDOFF = {torch.float32: 2.0 ** -24, torch.float64: 2.0 ** -53}
 SPMV_ULPS, SPMV_L1_ULPS = 32.0, 4.0
 
 N_NODES, N_EDGES, SEED, ITERS = 875_000, 5_100_000, 7, 20
+# Batch TF-IDF at BASELINE config 2's size: the stand-in bench.py builds for
+# 20-Newsgroups (19K docs, ~180 tokens each, Zipf(1.3) over 50K words, seed
+# 7), hashed into 2^18 terms.  IDF and weights are held to TFIDF_RTOL of a
+# float64 numpy oracle: float32 rounds each of the few operations behind a
+# weight to within 6e-8, and the per-document sums run in float64.
+TFIDF_DOCS, TFIDF_TOKENS, TFIDF_SEED, TFIDF_BITS = 19_000, 180, 7, 18
+TFIDF_RTOL, TFIDF_REPS, QUERY_K = 2e-6, 5, 10
 # Kernels of the composite SpMV around cumsum (int32 index widening, the leading-zero
 # cat, the index gathers) that the fused spmv kernel removes from the loop.
 WIDENING_KERNELS = ("direct_copy_kernel", "CatArrayBatchedCopy", "index_elementwise_kernel")
@@ -548,6 +568,252 @@ def dense_pagerank(graph, iterations: int, damping: float = 0.85) -> np.ndarray:
     return r
 
 
+def tfidf_oracle(corpus) -> dict:
+    """The float64 numpy oracle's counts: one ``np.unique`` of the int64
+    key ``term * 2^31 + doc`` with its counts (the COO in (term, doc)
+    order), and ``np.bincount`` of the terms for DF."""
+    key, count = np.unique(corpus.term_ids.astype(np.int64) * (1 << 31) + corpus.doc_ids,
+                           return_counts=True)
+    term = (key >> 31).astype(np.int32)
+    return {"doc": (key % (1 << 31)).astype(np.int32), "term": term,
+            "count": count.astype(np.float64),
+            "df": np.bincount(term, minlength=1 << corpus.vocab_bits).astype(np.float64),
+            "n": float(max(corpus.n_docs, 1)), "doc_lengths": corpus.doc_lengths}
+
+
+def tfidf_oracle_weights(base: dict, tf_mode: str, idf_mode: str, l2: bool):
+    """float64 ``(idf, weight)`` by the formulas of the JAX package's
+    ``ops/tfidf.py:127-191``, on the oracle's counts."""
+    n, df, count, doc = base["n"], base["df"], base["count"], base["doc"]
+    with np.errstate(divide="ignore"):
+        idf = {"classic": np.log(n / np.maximum(df, 1.0)),
+               "mllib": np.log((n + 1.0) / (df + 1.0)),
+               "smooth": np.log((1.0 + n) / (1.0 + df)) + 1.0}[idf_mode]
+    idf = np.where(df > 0, idf, 0.0)
+    tf = {"raw": count, "freq": count / np.maximum(base["doc_lengths"][doc], 1),
+          "lognorm": 1.0 + np.log(count)}[tf_mode]
+    w = tf * idf[base["term"]]
+    if l2:
+        sq = np.bincount(doc, weights=w * w, minlength=int(n))
+        w = w / np.sqrt(np.maximum(sq, 1e-30))[doc]
+    return idf, w
+
+
+def rel_err(got, want) -> float:
+    """Largest ``|got - want| / |want|``; a zero ``want`` counts as exact
+    only where ``got`` is zero too."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    diff = np.abs(got - want)
+    if not diff.size:
+        return 0.0
+    return float(np.max(np.where(want != 0, diff / np.where(want != 0, np.abs(want), 1.0),
+                                 np.where(diff > 0, np.inf, 0.0))))
+
+
+def check_tfidf_modes(tops, tcfg, corpus, base, device) -> dict:
+    """``ops.tfidf_pipeline`` in every TF x IDF x L2 mode (18 runs) against
+    the float64 oracle: COO, counts and DF equal, IDF and weights within
+    TFIDF_RTOL; each L2 mode run twice, equal bit for bit.  Returns the
+    default mode's result."""
+    doc_t, term_t, len_t = (torch.from_numpy(a).to(device) for a in
+                            (corpus.doc_ids, corpus.term_ids, corpus.doc_lengths))
+    kw = dict(n_docs=max(corpus.n_docs, 1), vocab=1 << corpus.vocab_bits)
+    results = {}
+    for tf_mode in tcfg.TfMode:
+        for idf_mode in tcfg.IdfMode:
+            for l2 in (False, True):
+                mode = dict(tf_mode=tf_mode, idf_mode=idf_mode, l2_normalize=l2)
+                res = tops.tfidf_pipeline(doc_t, term_t, len_t, **kw, **mode)
+                label = f"{tf_mode.value}/{idf_mode.value}/{'l2' if l2 else 'no-l2'}"
+                for f in ("doc", "term", "count"):
+                    check(np.array_equal(getattr(res, f).cpu().numpy(), base[f]),
+                          f"tfidf {label}: {f} differs from the oracle")
+                check(np.array_equal(res.df.cpu().numpy(), base["df"]),
+                      f"tfidf {label}: df differs from the oracle")
+                idf, w = tfidf_oracle_weights(base, tf_mode.value, idf_mode.value, l2)
+                e_idf, e_w = rel_err(res.idf.cpu().numpy(), idf), rel_err(res.weight.cpu().numpy(), w)
+                check(e_idf <= TFIDF_RTOL and e_w <= TFIDF_RTOL,
+                      f"tfidf {label}: idf {e_idf:.3g}, weight {e_w:.3g} > rtol {TFIDF_RTOL}")
+                note = ""
+                if l2:
+                    again = tops.tfidf_pipeline(doc_t, term_t, len_t, **kw, **mode)
+                    check(all(torch.equal(getattr(res, f), getattr(again, f))
+                              for f in ("doc", "term", "weight", "idf", "df", "count")),
+                          f"tfidf {label}: two runs differ")
+                    note = "; two runs equal bit for bit"
+                print(f"tfidf {label}: COO, counts, df equal to the float64 oracle; largest "
+                      f"relative error idf {e_idf:.3g}, weight {e_w:.3g} (rtol {TFIDF_RTOL}){note}")
+                results[(tf_mode.value, idf_mode.value, l2)] = res
+    return results
+
+
+def check_tfidf_queries(tops, tio, base, results, bits: int, device) -> None:
+    """``score_query`` top-10 against the oracle's stable order (score
+    descending, lower doc id first), on the default and the smooth/L2
+    results, for a head word, a rare one, a mid-frequency one and a
+    two-word query."""
+    n = int(base["n"])
+    for tf_mode, idf_mode, l2 in (("raw", "classic", False), ("raw", "smooth", True)):
+        _, w = tfidf_oracle_weights(base, tf_mode, idf_mode, l2)
+        res = results[(tf_mode, idf_mode, l2)]
+        for words in (["w1"], ["w0"], ["w250"], ["w7", "w1000"]):
+            q = np.zeros(1 << bits, np.float32)
+            q[tio.hash_to_vocab(tio.fnv1a_64(words), bits)] = 1.0
+            want = np.bincount(base["doc"], weights=w * q[base["term"]], minlength=n)
+            order = np.lexsort((np.arange(n), -want))[:QUERY_K]
+            scores, idx = tops.score_query(res, torch.from_numpy(q).to(device), n_docs=n,
+                                           k=QUERY_K)
+            label = f"query {words} on {tf_mode}/{idf_mode}/{'l2' if l2 else 'no-l2'}"
+            check(np.array_equal(idx.cpu().numpy(), order),
+                  f"{label}: top-{QUERY_K} {idx.tolist()} != oracle {order.tolist()}")
+            err = rel_err(scores.cpu().numpy(), want[order])
+            check(err <= TFIDF_RTOL, f"{label}: score error {err:.3g} > {TFIDF_RTOL}")
+            print(f"{label}: top-{QUERY_K} ids equal to the oracle's stable order "
+                  f"{order.tolist()}, scores {np.round(want[order], 4).tolist()}, largest "
+                  f"relative error {err:.3g}")
+
+
+def check_tfidf_cli(tapi, tops, tio, device) -> None:
+    """``python -m ...cli.tfidf`` on the tiny fixture: its output file and its
+    printed top-k equal ``api.tfidf``'s, and ``score_query``'s, on the same
+    inputs."""
+    tiny = os.path.join(ROOT, "tests", "fixtures", "tiny.txt")
+    query = ["node", "graph"]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "weights.tsv")
+        cmd = [sys.executable, "-m", "page_rank_and_tfidf_using_apache_spark_tpu_torch.cli.tfidf",
+               tiny, "--lines", "--vocab-bits", "10", "--idf-mode", "smooth", "--l2-normalize",
+               "--query", *query, "--output", out]
+        if device.type == "cpu":
+            cmd += ["--device", "cpu"]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0, f"tfidf CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        with open(out) as f:
+            cli_file = f.read()
+    docs, names = tio.load_corpus_lines(tiny)
+    api = tapi.tfidf(docs, vocab_bits=10, idf_mode="smooth", l2_normalize=True, device=device)
+    want_file = "".join(f"{names[d]}\t{t}\t{w:.10g}\n"
+                        for d, t, w in zip(api.doc, api.term, api.weight))
+    check(cli_file == want_file, "tfidf CLI output file differs from api.tfidf's")
+    q = np.zeros(1 << 10, np.float32)
+    q[tio.hash_to_vocab(tio.fnv1a_64(query), 10)] = 1.0
+    res = tops.TfidfResult(*(torch.from_numpy(a).to(device) for a in
+                             (api.doc, api.term, api.weight, api.idf, api.df)))
+    scores, idx = tops.score_query(res, torch.from_numpy(q).to(device), n_docs=api.n_docs,
+                                   k=min(10, api.n_docs))
+    want_top = [f"{names[i]}\t{s:.10g}" for s, i in zip(scores.tolist(), idx.tolist()) if s > 0]
+    check(proc.stdout.splitlines() == want_top,
+          f"tfidf CLI top-k {proc.stdout.splitlines()} != api's {want_top}")
+    summary = [ln for ln in proc.stderr.splitlines() if ln.startswith('{"docs"')]
+    check(summary == [json.dumps({"docs": api.n_docs, "nnz": api.nnz})],
+          f"tfidf CLI summary {summary}")
+    print(f"tfidf cli: {len(cli_file.splitlines())} lines equal to api.tfidf's; top-k "
+          f"{want_top} equal; {summary[0]}")
+
+
+def check_graph_loaders(tg, native, graph) -> None:
+    """The PageRank loaders with the native layer and with it forced off:
+    ``load_snap`` of the tiny fixture, and the main path's graph rebuilt
+    from its seed, equal array for array."""
+    from unittest import mock
+
+    def same(a, b) -> bool:
+        return a.n_nodes == b.n_nodes and all(
+            np.array_equal(getattr(a, f), getattr(b, f))
+            for f in ("src", "dst", "out_degree", "node_ids"))
+
+    tiny = os.path.join(ROOT, "tests", "fixtures", "tiny.txt")
+    fast = tg.load_snap(tiny)
+    with mock.patch.object(native, "parse_edge_file", return_value=None), \
+            mock.patch.object(native, "sort_dedup_edges", return_value=None):
+        slow = tg.load_snap(tiny)
+        t0 = time.perf_counter()
+        slow_main = tg.synthetic_powerlaw(N_NODES, N_EDGES, seed=SEED)
+        slow_secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fast_main = tg.synthetic_powerlaw(N_NODES, N_EDGES, seed=SEED)
+    fast_secs = time.perf_counter() - t0
+    check(fast.native_steps == ("parse", "sort") and slow.native_steps == (),
+          f"load_snap ran {fast.native_steps} natively, forced off {slow.native_steps}")
+    check(same(fast, slow), "load_snap: native graph differs from the numpy path's")
+    check(graph.native_steps == fast_main.native_steps == ("sort",)
+          and slow_main.native_steps == (), "main path graph: native sort did not run")
+    check(same(fast_main, slow_main) and same(fast_main, graph),
+          "main path graph: native sort differs from the lexsort")
+    print(f"graph loaders: tiny.txt parsed and sorted natively ({fast.n_nodes} nodes, "
+          f"{fast.n_edges} edges), equal to the numpy path; main path graph "
+          f"({graph.n_edges} edges) equal with the native sort ({fast_secs:.2f} s to build) "
+          f"and the lexsort ({slow_secs:.2f} s)")
+
+
+def tfidf_phase(device, reset_counts, counts, n_docs: int = TFIDF_DOCS,
+                tokens: int = TFIDF_TOKENS, bits: int = TFIDF_BITS, reps: int = TFIDF_REPS,
+                profile: bool = True) -> None:
+    """Phase 8, batch TF-IDF at the config-2 stand-in's size (see the module
+    docstring); every check raises on failure."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch import api as tapi
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.io import text as tio
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models import tfidf as tm
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import tfidf as tops
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
+
+    # 8a. the corpus, tokenized by the C++ tokenizer
+    t0 = time.perf_counter()
+    docs = tio.synthetic_corpus_lines(n_docs, tokens, TFIDF_SEED)
+    gen_secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    corpus = tio.tokenize_corpus(docs, vocab_bits=bits)
+    tok_secs = time.perf_counter() - t0
+    check(corpus.native, "tfidf: the native tokenizer did not run")
+    print(f"tfidf corpus: {corpus.n_docs} docs, {corpus.n_tokens} tokens "
+          f"(built in {gen_secs:.2f} s); tokenize {tok_secs:.3f} s on the native path "
+          f"({corpus.n_tokens / tok_secs:.4g} tokens/s)")
+
+    # 8b. the default configuration through api.tfidf: one cold run, then
+    # `reps` warm ones; no kernel of the port may launch on this path
+    reset_counts()
+    runs = [tapi.tfidf(docs, vocab_bits=bits, device=device) for _ in range(reps + 1)]
+    launched = counts()
+    check(not any(launched.values()), f"tfidf path launched kernels {launched}")
+    ev = [{r["event"]: r for r in out.metrics.records if "event" in r} for out in runs]
+    check(all(e["tokenize"]["native"] for e in ev), "tfidf: api.tfidf tokenized on numpy")
+    cold, warm = ev[0]["pipeline"]["secs"], [e["pipeline"]["secs"] for e in ev[1:]]
+    med = float(np.median(warm))
+    tok = float(np.median([e["tokenize"]["secs"] for e in ev[1:]]))
+    out = runs[-1]
+    check(all(r.nnz == out.nnz and np.array_equal(r.weight, out.weight) for r in runs),
+          "tfidf: api.tfidf runs differ")
+    check(np.isfinite(out.weight).all() and np.isfinite(out.idf).all()
+          and out.df.shape == out.idf.shape == (1 << bits,), "tfidf: output not finite/shaped")
+    print(f"tfidf api (raw/classic/no-l2): nnz {out.nnz}; pipeline cold {cold:.4f} s, warm "
+          f"median {med:.4f} s of {reps} (min {min(warm):.4f}, max {max(warm):.4f}); "
+          f"{corpus.n_tokens / med:.4g} tokens/s through the pipeline, "
+          f"{corpus.n_tokens / (med + tok):.4g} tokens/s with tokenize ({tok:.3f} s); "
+          f"kernel launches {launched}")
+    if profile:
+        cfg = tcfg.TfidfConfig(vocab_bits=bits)
+        calls = 3
+        rows = [r for r in profile_calls(lambda: tm.pipeline(corpus, cfg, device), calls)
+                if r[3] == "cuda"]
+        device_ms = sum(r[1] for r in rows) / calls
+        print(f"profile tfidf pipeline: device {device_ms:.3f} ms per call of a "
+              f"{med * 1e3:.3f} ms warm pipeline (busy {device_ms / (med * 1e3):.3f}), "
+              f"{sum(r[2] for r in rows) / calls:g} device ops per call; by op, ms per call: "
+              + "; ".join(f"{k[:70]} {t / calls:.4f} x{c / calls:g}" for k, t, c, _ in rows))
+
+    # 8c-8e. every mode against the float64 oracle, L2 twice, queries
+    t0 = time.perf_counter()
+    base = tfidf_oracle(corpus)
+    results = check_tfidf_modes(tops, tcfg, corpus, base, device)
+    check(np.array_equal(results[("raw", "classic", False)].weight.cpu().numpy(), out.weight),
+          "tfidf: api.tfidf differs from ops.tfidf_pipeline in the default mode")
+    check_tfidf_queries(tops, tio, base, results, bits, device)
+    print(f"tfidf modes and queries checked in {time.perf_counter() - t0:.1f} s")
+
+    # 8f. the CLI against the API
+    check_tfidf_cli(tapi, tops, tio, device)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs one CUDA GPU",
@@ -788,6 +1054,16 @@ def main() -> int:
     w = torch.from_numpy(spmv_breakdown.inputs(graph.n_nodes, graph.n_edges)["w"]).to("cuda")
     print(f"w[src] with the int32 index: {time_ms(lambda: w[src]):.4f} ms; with an int64 "
           f"index: {time_ms(lambda: w[src64]):.4f} ms")
+
+    # 8. batch TF-IDF at config 2's size, then the PageRank loaders' native
+    # layer against their numpy paths
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.io import graph as tg
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    tfidf_phase(torch.device("cuda"), reset_counts, counts)
+    check_graph_loaders(tg, native, graph)
+    print(f"phase 8 (tfidf, loaders): {time.perf_counter() - t0:.1f} s")
 
     # 7. the kernels line, then the result line; launches are those of the
     # kernel's own path (none for cumsum, whose scan the pallas path runs

@@ -1,27 +1,36 @@
-"""PyTorch/CUDA port of the PageRank framework, for one NVIDIA H100.
+"""PyTorch/CUDA port of the PageRank and TF-IDF framework, for one NVIDIA H100.
 
 The JAX package ``page_rank_and_tfidf_using_apache_spark_tpu`` beside this
 one is the reference; this package imports nothing of it and no JAX.  It
-covers single-device PageRank: every SpMV impl in PyTorch, with the two
-TPU kernels of that path written by hand in CUDA C++ for ``sm_90a``
-(``csrc/``, built with ``nvcc`` on first use).  Entry points run on
+covers single-device PageRank, every SpMV impl in PyTorch, with the TPU
+kernels written by hand in CUDA C++ for ``sm_90a`` (``csrc/``, built with
+``nvcc`` on first use), and batch TF-IDF in plain PyTorch, whose host
+ingest runs in C++ (``native/``, built with ``g++`` on first use).  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``.
 
 Layout mirrors the JAX package:
 
-- ``io/``        host-side ingest: SNAP edge lists → dst-sorted edge arrays
-- ``ops/``       the PageRank step, the SpMV impls, the kernel wrappers
+- ``io/``        host-side ingest: SNAP edge lists → dst-sorted edge arrays;
+                 corpora → hashed (doc, term) token arrays
+- ``ops/``       the PageRank step, the SpMV impls, the kernel wrappers; the
+                 TF-IDF pipeline and query scoring
 - ``csrc/``      the CUDA kernels
+- ``native/``    the C++ host kernels: edge parse, edge sort, tokenizer
 - ``dataflow/``  the fixpoint loop
-- ``models/``    the PageRank driver
-- ``utils/``     config, metrics, device resolution
-- ``cli/``       the ``pagerank <edges> <iters>`` command line
-- ``convert.py`` the JAX package's graph state and ranks, as this package's
+- ``models/``    the PageRank and batch TF-IDF drivers
+- ``utils/``     config, metrics, device resolution, the native bindings
+- ``cli/``       the ``pagerank <edges> <iters>`` and ``tfidf <corpus>``
+                 command lines
+- ``convert.py`` the JAX package's graph state, ranks and TF-IDF results,
+                 as this package's
 """
 
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import PageRankConfig
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.api import pagerank
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
+    PageRankConfig,
+    TfidfConfig,
+)
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.api import pagerank, tfidf
 
 __version__ = "0.1.0"
 
-__all__ = ["PageRankConfig", "pagerank", "__version__"]
+__all__ = ["PageRankConfig", "TfidfConfig", "pagerank", "tfidf", "__version__"]

@@ -1,12 +1,13 @@
-"""Library API: PageRank behind one call.
+"""Library API: PageRank and TF-IDF behind one call each.
 
-Counterpart of the JAX package's ``api.pagerank``; the CLI (``cli/``) is
-a thin argv wrapper over the same driver.
+Counterpart of the JAX package's ``api.pagerank`` and ``api.tfidf``; the
+CLIs (``cli/``) are thin argv wrappers over the same drivers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import torch
 
@@ -15,7 +16,11 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import (
     PageRankResult,
     run_pagerank,
 )
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import PageRankConfig
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import TfidfOutput, run_tfidf
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
+    PageRankConfig,
+    TfidfConfig,
+)
 
 
 def pagerank(
@@ -38,3 +43,28 @@ def pagerank(
     elif kwargs:
         cfg = dataclasses.replace(cfg, **kwargs)
     return run_pagerank(graph, cfg, device=device)
+
+
+def tfidf(
+    docs: Sequence[str],
+    cfg: TfidfConfig | None = None,
+    *,
+    streaming: bool = False,
+    device: str | torch.device | None = None,
+    **kwargs,
+) -> TfidfOutput:
+    """Compute TF-IDF over a sequence of document strings, on ``cuda``
+    unless ``device`` says otherwise.
+
+    Defaults match the 20-Newsgroups configuration: unigrams, hashed vocab
+    2^18, raw TF, classic ``log(N/df)`` IDF.  Keyword args construct/override
+    the config: ``tfidf(docs, idf_mode="smooth", l2_normalize=True)``.
+    """
+    if cfg is None:
+        cfg = TfidfConfig(**kwargs)
+    elif kwargs:
+        cfg = dataclasses.replace(cfg, **kwargs)
+    if streaming:
+        raise NotImplementedError(
+            "streaming TF-IDF is not ported to PyTorch yet (ROADMAP Queue 1 item 8)")
+    return run_tfidf(docs, cfg, device=device)

@@ -9,8 +9,10 @@ generators draw from ``numpy.random.default_rng`` exactly as the JAX
 package does, so both packages build byte-identical graphs from one seed
 (``tests/test_torch_graph.py``).
 
-The dedup sort is numpy's ``lexsort``; the JAX package's native C++ sort is
-bit-identical to it and is not bound here.
+The edge-file parse and the (dst, src) dedup sort run in C++
+(``utils/native.py``) where the library loads, else in numpy
+(``str.split`` and ``np.lexsort``), which gives the same bits; each graph
+records in ``native_steps`` which steps ran natively.
 
 SNAP format: ``#``-prefixed comment header lines, whitespace-separated
 integer ``src dst`` pairs.
@@ -21,6 +23,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import native
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +48,9 @@ class Graph:
     # Optional per-edge weights aligned with src/dst, strictly positive
     # (enforced by from_edges).  None = unweighted.
     weight: np.ndarray | None = None
+    # The host steps that ran in C++: "parse" (load_snap), "sort"
+    # (from_edges); the others ran in numpy.
+    native_steps: tuple[str, ...] = ()
 
     @property
     def n_edges(self) -> int:
@@ -135,20 +142,28 @@ def from_edges(
     src = src.astype(np.int64)
     dst = dst.astype(np.int64)
     # Sort (dst major, src minor): both the dedup order and the final
-    # destination-sorted layout every SpMV impl relies on.
-    order = np.lexsort((src, dst))
-    src, dst = src[order], dst[order]
-    if weight is not None:
-        weight = weight[order]
-    if dedup and src.size:
-        keep = np.empty(src.shape, dtype=bool)
-        keep[0] = True
-        keep[1:] = (src[1:] != src[:-1]) | (dst[1:] != dst[:-1])
+    # destination-sorted layout every SpMV impl relies on.  The C++ radix
+    # sort takes unweighted graphs; the lexsort gives the same bits.
+    sorted_pair = (
+        native.sort_dedup_edges(src, dst, dedup=dedup)
+        if src.size and n <= (1 << 31) and weight is None else None
+    )
+    if sorted_pair is not None:
+        src, dst = sorted_pair
+    else:
+        order = np.lexsort((src, dst))
+        src, dst = src[order], dst[order]
         if weight is not None:
-            # duplicate pairs are contiguous after the lexsort: one
-            # reduceat sums each group's weights
-            weight = np.add.reduceat(weight, np.flatnonzero(keep))
-        src, dst = src[keep], dst[keep]
+            weight = weight[order]
+        if dedup and src.size:
+            keep = np.empty(src.shape, dtype=bool)
+            keep[0] = True
+            keep[1:] = (src[1:] != src[:-1]) | (dst[1:] != dst[:-1])
+            if weight is not None:
+                # duplicate pairs are contiguous after the lexsort: one
+                # reduceat sums each group's weights
+                weight = np.add.reduceat(weight, np.flatnonzero(keep))
+            src, dst = src[keep], dst[keep]
 
     out_degree = np.bincount(src, minlength=n).astype(np.int32)
     return Graph(
@@ -158,6 +173,7 @@ def from_edges(
         out_degree=out_degree,
         node_ids=node_ids,
         weight=weight,
+        native_steps=("sort",) if sorted_pair is not None else (),
     )
 
 
@@ -178,7 +194,12 @@ def parse_snap_text(text: str | bytes, **kwargs) -> Graph:
 
 
 def load_snap(path: str, **kwargs) -> Graph:
-    """Load a SNAP-format edge-list file."""
+    """Load a SNAP-format edge-list file, parsed in C++ where the native
+    library loads, else by :func:`parse_snap_text`."""
+    pairs = native.parse_edge_file(path)
+    if pairs is not None:
+        g = from_edges(pairs[:, 0], pairs[:, 1], **kwargs)
+        return dataclasses.replace(g, native_steps=("parse", *g.native_steps))
     with open(path, "rb") as f:
         return parse_snap_text(f.read(), **kwargs)
 

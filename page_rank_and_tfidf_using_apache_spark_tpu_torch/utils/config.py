@@ -1,10 +1,13 @@
-"""PageRank configuration: a frozen dataclass mirroring the CLI flags.
+"""PageRank and TF-IDF configuration: frozen dataclasses mirroring the CLI
+flags.
 
 Counterpart of the JAX package's ``utils/config.py`` (``PageRankConfig``,
-``DanglingMode``, ``RankInit``, the PageRank keys of ``TUNABLE_DEFAULTS``
-and ``config_hash``), copied so the port never imports that package.
-Field names, defaults and validation are held equal to the JAX package by
-``tests/test_torch_graph.py``.
+``DanglingMode``, ``RankInit``, ``TfidfConfig``, ``IdfMode``, ``TfMode``,
+the keys of ``TUNABLE_DEFAULTS`` they read and ``config_hash``), copied so
+the port never imports that package.  Field names, defaults, validation
+and hashes are held equal to the JAX package by
+``tests/test_torch_graph.py`` (PageRank) and ``tests/test_torch_tfidf.py``
+(TF-IDF).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import hashlib
 import json
 from typing import Any
 
-# The PageRank performance knobs and their hand-picked defaults.  No tuned
+# The performance knobs the configs read and their hand-picked defaults.  No tuned
 # profile exists for CUDA yet, so a knob resolves as explicit value, then
 # this table.
 TUNABLE_DEFAULTS: dict = {
@@ -26,6 +29,12 @@ TUNABLE_DEFAULTS: dict = {
     "shuffle_bucket_width": 8,
     # strategy="owned" replicated hub-head cap (sharded path, not ported)
     "owned_max_head": 4096,
+    # staged streaming-ingest depths and chunk re-packing target (TfidfConfig;
+    # the streaming path is not ported, the fields keep configs and hashes
+    # equal to the JAX package's)
+    "prefetch": 2,
+    "pipeline_depth": 2,
+    "pack_target_tokens": 0,
 }
 
 SPMV_IMPLS = ("segment", "bcoo", "cumsum", "cumsum_mxu", "hybrid",
@@ -136,6 +145,95 @@ class PageRankConfig:
         """Hash of the *semantic* fields only: run length, tolerance, and
         checkpoint placement are operational."""
         return _hash_config(self, exclude={"iterations", "tol", "checkpoint_every", "checkpoint_dir"})
+
+
+class IdfMode(str, enum.Enum):
+    """IDF formula variant.
+
+    - CLASSIC: ``log(N / df)`` — the textbook formula most course projects use.
+    - MLLIB:   ``log((N + 1) / (df + 1))`` — Spark MLlib's smoothing.
+    - SMOOTH:  ``log((1 + N) / (1 + df)) + 1`` — sklearn's ``smooth_idf``.
+    """
+
+    CLASSIC = "classic"
+    MLLIB = "mllib"
+    SMOOTH = "smooth"
+
+
+class TfMode(str, enum.Enum):
+    """TF variant: RAW counts (Spark canonical), FREQ = count/doc_len,
+    LOGNORM = 1 + log(count)."""
+
+    RAW = "raw"
+    FREQ = "freq"
+    LOGNORM = "lognorm"
+
+
+@dataclasses.dataclass(frozen=True)
+class TfidfConfig:
+    """Configuration for a TF-IDF run over a corpus.
+
+    ``vocab_bits`` fixes the hashed vocabulary to ``2**vocab_bits`` ids
+    (2^18 for the 20-Newsgroups configuration).  The batch pipeline runs in
+    float32 whatever ``dtype`` says, as the JAX package's does.
+    """
+
+    vocab_bits: int = 18
+    ngram: int = 1  # 1 = unigram, 2 = uni+bigram
+    tf_mode: TfMode = TfMode.RAW
+    idf_mode: IdfMode = IdfMode.CLASSIC
+    l2_normalize: bool = False
+    lowercase: bool = True
+    min_token_len: int = 1
+    # Streaming ingest: docs are fed in fixed-size chunks of this many
+    # tokens; 0 = single batch.  This and the fields below it down to
+    # checkpoint_dir belong to the streaming path, which the port does not
+    # run yet; they are kept so configs and their hashes match the JAX
+    # package's.
+    chunk_tokens: int = 0
+    # Staged ingest pipeline: tokenized chunks the tokenizer thread may run
+    # ahead (prefetch), and H2D-staged chunks held on the device
+    # (pipeline_depth).
+    prefetch: int = TUNABLE_DEFAULTS["prefetch"]
+    pipeline_depth: int = TUNABLE_DEFAULTS["pipeline_depth"]
+    # Re-pack incoming document chunks to ~this many tokens each; 0 = take
+    # the caller's chunking as-is.
+    pack_target_tokens: int = TUNABLE_DEFAULTS["pack_target_tokens"]
+    checkpoint_every: int = 0  # chunks between checkpoints (0 = off)
+    checkpoint_dir: str | None = None
+    dtype: str = "float32"
+
+    def __post_init__(self) -> None:
+        if not 1 <= self.vocab_bits <= 30:
+            raise ValueError(f"vocab_bits must be in [1, 30], got {self.vocab_bits}")
+        if self.ngram not in (1, 2):
+            raise ValueError(f"ngram must be 1 or 2, got {self.ngram}")
+        if self.prefetch < 0:
+            raise ValueError(f"prefetch must be >= 0, got {self.prefetch}")
+        if self.pipeline_depth < 0:
+            raise ValueError(
+                f"pipeline_depth must be >= 0, got {self.pipeline_depth}"
+            )
+        if self.pack_target_tokens < 0:
+            raise ValueError(
+                f"pack_target_tokens must be >= 0, got {self.pack_target_tokens}"
+            )
+        object.__setattr__(self, "tf_mode", TfMode(self.tf_mode))
+        object.__setattr__(self, "idf_mode", IdfMode(self.idf_mode))
+
+    @property
+    def vocab_size(self) -> int:
+        return 1 << self.vocab_bits
+
+    def config_hash(self) -> str:
+        """Semantic fields only (chunking/checkpoint placement excluded —
+        the accumulated DF/TF state is chunk-boundary-independent)."""
+        return _hash_config(
+            self,
+            exclude={"chunk_tokens", "prefetch", "pipeline_depth",
+                     "pack_target_tokens", "checkpoint_every",
+                     "checkpoint_dir"},
+        )
 
 
 def _to_jsonable(obj: Any) -> Any:

@@ -1,9 +1,11 @@
 """Import hygiene and device defaults of the PyTorch port.
 
 The port (``page_rank_and_tfidf_using_apache_spark_tpu_torch``) and
-``chip_smoke.py`` must import neither JAX nor anything of the JAX package,
-and every entry point must run on ``cuda`` unless told otherwise — raising,
-not falling back, where there is no CUDA.
+``chip_smoke.py`` must import neither JAX nor anything of the JAX package
+(the scan globs every ``.py`` file of the package, new modules included),
+must not name the JAX package's ``native/`` copy, and every entry point
+must run on ``cuda`` unless told otherwise — raising, not falling back,
+where there is no CUDA.
 """
 
 import ast
@@ -15,16 +17,22 @@ import numpy as np
 import pytest
 import torch
 
-from page_rank_and_tfidf_using_apache_spark_tpu_torch import pagerank
+from page_rank_and_tfidf_using_apache_spark_tpu_torch import pagerank, tfidf
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.cli import pagerank as cli
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.cli import tfidf as tfidf_cli
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import synthetic_powerlaw
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import run_tfidf
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import (
     gather_micro,
     spmv_breakdown,
     xla_cost_micro,
 )
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import PageRankConfig
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import native
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
+    PageRankConfig,
+    TfidfConfig,
+)
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -106,12 +114,14 @@ TOOLS = {"gather_micro": gather_micro, "spmv_breakdown": spmv_breakdown,
          "xla_cost_micro": xla_cost_micro}
 
 
-@pytest.mark.parametrize("entry", ["api", "run_pagerank", "cli", *TOOLS])
+@pytest.mark.parametrize("entry", ["api", "run_pagerank", "cli", *TOOLS, "api_tfidf",
+                                   "run_tfidf", "cli_tfidf"])
 def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
     """With no CUDA and no ``device=``, every entry point raises rather than
     running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g = synthetic_powerlaw(30, 90, seed=2)
+    docs = ["a b c", "b c d"]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "api":
             pagerank(g)
@@ -119,6 +129,12 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
             run_pagerank(g, PageRankConfig())
         elif entry == "cli":
             cli.main([TINY, "5", "--output", str(tmp_path / "r.txt")])
+        elif entry == "api_tfidf":
+            tfidf(docs)
+        elif entry == "run_tfidf":
+            run_tfidf(docs, TfidfConfig())
+        elif entry == "cli_tfidf":
+            tfidf_cli.main([TINY, "--lines", "--output", str(tmp_path / "r.json")])
         else:
             TOOLS[entry].main(["--reps", "1", "--out", str(tmp_path / "r.json")])
     assert not (tmp_path / "r.json").exists()
@@ -128,3 +144,44 @@ def test_explicit_cpu_runs(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     res = pagerank(synthetic_powerlaw(30, 90, seed=2), device="cpu")
     assert res.ranks.shape == (res.ranks.size,) and np.isfinite(res.ranks).all()
+
+
+def test_explicit_cpu_runs_tfidf(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tfidf(["a b c", "b c d"], vocab_bits=8, device="cpu")
+    assert out.nnz == 6 and np.isfinite(out.weight).all()
+
+
+def test_tfidf_runs_with_jax_unimportable():
+    code = """
+import sys
+for name in ("jax", "jaxlib", "page_rank_and_tfidf_using_apache_spark_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import page_rank_and_tfidf_using_apache_spark_tpu_torch as port
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import load_snap
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import native
+out = port.tfidf(["the cat sat", "the dog sat", ""], vocab_bits=10, l2_normalize=True,
+                 device="cpu")
+assert out.nnz == 6 and out.metrics.records[0]["native"], out.metrics.records
+assert load_snap(sys.argv[1]).native_steps == ("parse", "sort")
+assert native.available()
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code, TINY], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_file_names_the_reference_native_path(path):
+    """The port builds and reads only its own copy of ``native/``."""
+    text = path.read_text()
+    for pattern in ("apache_spark_tpu/native", "apache_spark_tpu.native",
+                    '"native", "build"', "native/build"):
+        assert pattern not in text, (path.relative_to(ROOT), pattern)
+
+
+def test_native_library_lives_in_the_port():
+    for p in (native.SRC, native.BUILD_DIR, native.LIB_PATH):
+        assert pathlib.Path(p).resolve().is_relative_to(PORT), p
