@@ -19,13 +19,24 @@ Phases, each of which exits non-zero on failure:
    over more than 32 tiles), the 300-node power-law graph and the main
    path's graph, timed at the main path's shapes against the plain
    version, the composite around ``cumsum`` and
-   ``torch.sparse_csr_tensor @ w``; two calls of ``cumsum`` and of
+   ``torch.sparse_csr_tensor @ w``; ``cumsum`` timed at the ``hybrid``
+   tail's length, whose run launches it, and swept over lengths around its
+   tile and at ``cumsum_mxu``'s base case; two calls of ``cumsum`` and of
    ``spmv`` on one input must agree bit for bit, and so must kernel and
    plain version on small integers, whose sums are exact;
    ``rowsum`` also over widths 1 to 1000, row counts around one block's
    run of rows and one wave, and unaligned row slices, in float32 and
-   float64, and timed beside its scalar loop; and, once, the launch floor
-   of the timing protocol;
+   float64, and timed beside its scalar loop; the ``segment`` kernel (the
+   sorted segmented sum) through both its loaders in float32 and float64,
+   unweighted and weighted, over edge cases (no rows, no values, sizes
+   around its block of merge-path items, a hub row over 150 blocks amid
+   empty rows, long runs of empty rows, every row ending a block), the
+   spmv sweep's graphs and the main path's, float32 rows within 1 ulp and
+   float64 rows within 1e-12 of the row's sum of |x| of plain, integers
+   equal, two calls equal, then timed at the main path's shapes against
+   its plain float64 ``index_add_`` and ``torch.segment_reduce``, and at the
+   ``hybrid`` head's and ``sort_shuffle``'s shapes; and, once, the launch
+   floor of the timing protocol;
 3b. the gather kernel of the SpMV cost probe against its plain version,
    bit for bit, in every mode of the probe at its default shapes (timed
    beside the L2 loop alone), at edge shapes, and on both sides of each
@@ -33,10 +44,18 @@ Phases, each of which exits non-zero on failure:
 4. the main path, ``run_pagerank`` at web-Google scale (875K nodes, 5.1M
    edges, 20 iterations), through the ``segment``, ``pallas`` and
    ``hybrid`` SpMV impls, checked against an f64 run and counting kernel
-   launches; every impl is also held against a dense f64 power iteration
-   on a small graph; the ``pallas`` loop's profile must show no index
-   widening, ``cat`` or index kernel;
-5. the port's CLI once, at the same scale, with its output file checked;
+   launches (``segment`` launches the segment kernel, ``hybrid`` the
+   ``cumsum`` and segment kernels, 20 times or more each); every impl is
+   also held against a dense f64 power iteration on a small graph; the
+   ``pallas`` loop's profile must show no index widening, ``cat`` or
+   index kernel, the ``segment`` loop's no ``index_add_``;
+4d. every SpMV impl, and ``spark_exact``, run twice at full width in
+   float32 and float64: all but ``bcoo`` (the library's sparse product)
+   must give equal bits;
+5. the port's CLI once, at the same scale, with ``--trace-dir`` and
+   ``--profile-dir``: its output file checked, its trace read back by
+   ``tools/trace_report.py`` with the ``pagerank.result_pull`` span, its
+   Chrome trace holding that span and the card's kernels;
 6a. the three SpMV cost probes (``tools/gather_micro``, ``xla_cost_micro``,
    ``spmv_breakdown``) through their ``main`` at default sizes, each
    record checked for its stamp, the JAX tool's keys and its times;
@@ -102,6 +121,11 @@ ROWSUM_RTOL = {torch.float32: 1e-6, torch.float64: 1e-12}
 # and the float64 sum, bit for bit.
 UNIT_ROUNDOFF = {torch.float32: 2.0 ** -24, torch.float64: 2.0 ** -53}
 SPMV_ULPS, SPMV_L1_ULPS = 32.0, 4.0
+# segment: kernel and plain both sum a float32 row in float64 and round once,
+# so a float32 row may differ by 1 ulp where the float64 sums, added in
+# other orders, fall on two sides of a rounding boundary; a float64 row is
+# held to SEGMENT_F64_RTOL of its sum of |x|.  Integer rows are exact.
+SEGMENT_F64_RTOL = 1e-12
 
 N_NODES, N_EDGES, SEED, ITERS = 875_000, 5_100_000, 7, 20
 # Batch TF-IDF at BASELINE config 2's size: the stand-in bench.py builds for
@@ -142,6 +166,130 @@ BREAKDOWN_STAGES = {
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def check_segment(sk, values, ptr, n: int, label: str, *, src=None, ew=None,
+                  exact: bool = False) -> tuple[float, float]:
+    """``segment_sum_kernel`` against ``segment_sum_plain`` on one input, two
+    calls bit for bit.  With ``exact`` (integer inputs whose sums are exact)
+    kernel, plain and the float64 sum must be equal; else float32 rows must
+    lie within 1 ulp of plain (both sum in float64 and round once) and
+    float64 rows within SEGMENT_F64_RTOL of the row's sum of |x|.  Returns
+    the max abs difference and the largest ratio to the row's limit."""
+    got = sk.segment_sum_kernel(values, ptr, n, src=src, edge_weight=ew)
+    again = sk.segment_sum_kernel(values, ptr, n, src=src, edge_weight=ew)
+    want = sk.segment_sum_plain(values, ptr, n, src=src, edge_weight=ew)
+    torch.cuda.synchronize()
+    check(got.shape == (n,) and got.dtype == values.dtype, f"segment {label}: shape/dtype")
+    check(bool(torch.isfinite(got).all()), f"segment {label}: not finite")
+    check(torch.equal(got, again), f"segment {label}: two calls differ")
+    if n == 0:
+        return 0.0, 0.0
+    if exact:
+        f64 = sk.segment_sum_plain(values.double(), ptr, n, src=src,
+                                   edge_weight=None if ew is None else ew.double())
+        check(torch.equal(got, want) and torch.equal(got.double(), f64),
+              f"segment {label}: integer sums differ from plain or from float64")
+        return 0.0, 0.0
+    diff = (got.double() - want.double()).abs()
+    if values.dtype == torch.float32:
+        inf = torch.full_like(want, float("inf"))
+        ulp = (torch.nextafter(want.abs(), inf) - want.abs()).double()
+        limit = ulp
+    else:
+        per = values if src is None else values[src]
+        if ew is not None:
+            per = per * ew
+        limit = SEGMENT_F64_RTOL * sk.segment_sum_plain(per.abs(), ptr, n)
+    worst = float((diff / limit.clamp_min(torch.finfo(torch.float64).tiny)).max())
+    check(bool((diff <= limit).all()),
+          f"segment {label}: a row differs from plain by {worst:.3g} of its limit "
+          f"({'1 ulp' if values.dtype == torch.float32 else f'{SEGMENT_F64_RTOL} of sum |x|'})")
+    return float(diff.max()), worst
+
+
+def segment_cases(rng, block: int) -> dict:
+    """Edge-case CSR layouts ``{name: ptr}`` (numpy, n = len - 1) for the
+    segment kernel: no rows, no values, sizes around one and several blocks
+    of ``block`` merge-path items, a hub row spanning many blocks amid runs
+    of empty rows, a long run of empty rows, rows each ending on a block
+    boundary, and trailing empty rows."""
+    def from_dst(n, dst):
+        return np.searchsorted(np.sort(dst), np.arange(n + 1))
+
+    cases = {"n=0": np.zeros(1, np.int64), "E=0, n=1000": np.zeros(1001, np.int64)}
+    for n, e in ((1, 1), (1, block - 1), (1, block), (1, block + 1), (1000, 31),
+                 (1000, block - 1), (1000, 5 * block + 7), (3 * block + 1, block)):
+        cases[f"n={n} E={e}"] = from_dst(n, rng.integers(0, n, e))
+    hub = 150 * block
+    cases[f"one hub row of {hub}"] = np.array([0, hub])
+    cases[f"hub row 57 of 100 ({hub} values)"] = np.r_[np.zeros(58), np.full(43, hub)]
+    cases["50,000 rows, values in the last 10"] = from_dst(50_000, rng.integers(49_990, 50_000,
+                                                                               5000))
+    # row r holds block - 1 values, so each row's end is the last item of a block
+    cases["every row ends a block"] = np.arange(41) * (block - 1)
+    cases["trailing 20,000 empty rows"] = from_dst(30_000, rng.integers(0, 10_000, 3 * block))
+    return cases
+
+
+def sweep_segment(sk, graphs: dict, rng) -> dict:
+    """:func:`check_segment` on each ``{name: ptr}``: the value loader and
+    the gather loader (over a table of 1000, or of n where given as
+    ``(ptr, src)``), unweighted and weighted, in float32 and float64, on
+    real values and on small integers.  Returns the largest ratio to the
+    row limit per dtype."""
+    most = {torch.float32: 0.0, torch.float64: 0.0}
+    for name, case in graphs.items():
+        ptr_np, src_np = case if isinstance(case, tuple) else (case, None)
+        n, e = len(ptr_np) - 1, int(ptr_np[-1])
+        if src_np is None:
+            src_np = rng.integers(0, 1000, e)
+        table = int(src_np.max()) + 1 if e else 1
+        ptr = torch.from_numpy(np.asarray(ptr_np, np.int32)).to("cuda")
+        src = torch.from_numpy(np.asarray(src_np, np.int32)).to("cuda")
+        inputs = {"real": (rng.random(e), rng.random(table), rng.uniform(0.5, 2.0, e)),
+                  "integer": (rng.integers(-3, 4, e).astype(np.float64),
+                              rng.integers(1, 4, table).astype(np.float64),
+                              rng.integers(1, 3, e).astype(np.float64))}
+        for kind, (x64, w64, ew64) in inputs.items():
+            for dtype in (torch.float32, torch.float64):
+                x, w, ew = (torch.from_numpy(a).to("cuda", dtype) for a in (x64, w64, ew64))
+                exact = kind == "integer"
+                for loader, kw in (("values", dict(values=x)),
+                                   ("gather", dict(values=w, src=src)),
+                                   ("gather weighted", dict(values=w, src=src, ew=ew))):
+                    label = f"{name} {loader} {kind} {dtype}"
+                    _, worst = check_segment(sk, ptr=ptr, n=n, label=label, exact=exact, **kw)
+                    most[dtype] = max(most[dtype], worst)
+        print(f"segment {name} (n={n}, E={e}): values and gather loaders, unweighted and "
+              f"weighted, float32 within 1 ulp and float64 within {SEGMENT_F64_RTOL} of "
+              f"sum |x| of plain; integers equal to plain and float64; two calls equal")
+    return most
+
+
+def measure_segment(sk, src, ptr, w, label: str) -> dict:
+    """The segment kernel's gather loader at the main path's shapes (the
+    ``segment`` impl's SpMV), against its plain version (float64
+    ``index_add_``), one library call (``torch.segment_reduce`` over the
+    same pointers, on the gathered values) and its byte bound: src, ptr, w
+    read once and the output written once."""
+    n, e = w.shape[0], src.shape[0]
+    err, worst = check_segment(sk, w, ptr, n, label, src=src)
+    per_edge = w[src]  # gathered before timing
+    got = sk.segment_sum_kernel(w, ptr, n, src=src)
+    exact = sk.segment_sum_plain(w.double(), ptr, n, src=src)
+    rel = float(((got.double() - exact).abs() / exact.abs().clamp_min(1e-300)).max())
+    b, by = bound_ms(src.nbytes + ptr.nbytes + w.nbytes + got.nbytes, e, torch.float64)
+    row = {"ms": time_ms(lambda: sk.segment_sum_kernel(w, ptr, n, src=src)),
+           "plain_ms": time_ms(lambda: sk.segment_sum_plain(w, ptr, n, src=src)),
+           "library_ms": time_ms(lambda: torch.segment_reduce(per_edge, "sum", offsets=ptr,
+                                                              unsafe=True)),
+           "bound_ms": b, "bound_by": by, "max_abs_err": err}
+    print(f"segment {label}: kernel {row['ms']:.4f} ms, plain (float64 index_add_) "
+          f"{row['plain_ms']:.4f} ms, library (torch.segment_reduce) {row['library_ms']:.4f} ms, "
+          f"bound {b:.4f} ms ({by}); vs plain max abs diff {err:.3g} ({worst:.3g} of 1 ulp), "
+          f"largest relative error vs float64 {rel:.3g}")
+    return row
 
 
 def measure_cumsum(pk, x: torch.Tensor, label: str) -> dict:
@@ -555,6 +703,37 @@ def check_probe(tool: str, rec: dict) -> None:
     check(not bad, f"{tool}: times not finite and positive: {bad}")
 
 
+def check_cli_trace(trace_dir: str, profile_dir: str) -> None:
+    """The PageRank CLI's ``--trace-dir`` trace reads back through the
+    repository's stdlib reader ``tools/trace_report.py`` with the JAX
+    package's span names, and its ``--profile-dir`` Chrome trace holds the
+    same span beside the card's kernels."""
+    import glob
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "trace_report", os.path.join(ROOT, "tools", "trace_report.py"))
+    trace_report = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(trace_report)
+    traces = glob.glob(os.path.join(trace_dir, "pagerank.*.trace.jsonl"))
+    check(len(traces) == 1, f"CLI trace dir holds {traces}")
+    rep = trace_report.report(traces[0])
+    check("pagerank.result_pull" in rep["breakdown"] and rep["manifest"]["status"] == "ok"
+          and rep["manifest"]["backend"] == "cuda",
+          f"CLI trace: phases {sorted(rep['breakdown'])}, manifest {rep.get('manifest')}")
+    profiles = glob.glob(os.path.join(profile_dir, "*.pt.trace.json"))
+    check(len(profiles) == 1, f"CLI profile dir holds {profiles}")
+    with open(profiles[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    check("pagerank.result_pull" in names and kernels > 0,
+          f"CLI profile: result_pull span {'pagerank.result_pull' in names}, {kernels} kernels")
+    print(f"cli trace: {rep['events']} events, phases "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in rep["breakdown"].items())
+          + f"; profile {os.path.getsize(profiles[0])} bytes, {kernels} kernel events")
+
+
 def dense_pagerank(graph, iterations: int, damping: float = 0.85) -> np.ndarray:
     """f64 power iteration on a dense matrix: the reference for the small
     graph (dangling=redistribute, init=uniform, uniform restart)."""
@@ -566,6 +745,49 @@ def dense_pagerank(graph, iterations: int, damping: float = 0.85) -> np.ndarray:
     for _ in range(iterations):
         r = (1.0 - damping) / n + damping * (a @ r + r[dangling].sum() / n)
     return r
+
+
+def run_twice_bits(graph) -> dict:
+    """Phase 4d: every SpMV impl's runner, and ``spark_exact`` over
+    ``segment``, run twice on one device graph at full width in float32 and
+    float64, the two rank vectors compared bit for bit.  Prints, per mode
+    and dtype, whether they are equal and how many entries differ.  Returns
+    ``{(mode, dtype): entries that differ}``."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import put_graph_for
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pagerank as ops
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
+        SPMV_IMPLS,
+        PageRankConfig,
+    )
+
+    n = graph.n_nodes
+    differ = {}
+    for dtype in ("float32", "float64"):
+        bits = torch.int32 if dtype == "float32" else torch.int64
+        for impl in SPMV_IMPLS:
+            cfg = PageRankConfig(iterations=ITERS, dangling="redistribute", init="uniform",
+                                 dtype=dtype, spmv_impl=impl)
+            dg = put_graph_for(graph, cfg, "cuda")  # once per impl and dtype
+            modes = {impl: cfg}
+            if impl == "segment":  # spark_exact needs dangling=drop, init=one
+                modes["spark_exact"] = PageRankConfig(iterations=ITERS, dtype=dtype,
+                                                      spmv_impl=impl, spark_exact=True)
+            for mode, c in modes.items():
+                make = ops.make_spark_exact_runner if c.spark_exact else ops.make_pagerank_runner
+                runner = make(n, c)
+                e = torch.from_numpy(ops.restart_vector(n, c)).to("cuda")
+                r0 = torch.from_numpy(ops.init_ranks(n, c)).to("cuda")
+                a, b = (runner(dg, r0, e)[0] for _ in range(2))
+                torch.cuda.synchronize()
+                check(a.shape == (n,) and bool(torch.isfinite(a).all()),
+                      f"determinism {mode} {dtype}: ranks not finite or wrong shape")
+                count = int((a.view(bits) != b.view(bits)).sum())
+                differ[(mode, dtype)] = count
+                print(f"determinism {mode} {dtype}: two runs "
+                      f"{'equal bit for bit' if count == 0 else 'DIFFER'}; {count} of {n} "
+                      f"entries differ, max abs diff {float((a - b).abs().max()):.3g}")
+            del dg
+    return differ
 
 
 def tfidf_oracle(corpus) -> dict:
@@ -828,6 +1050,7 @@ def main() -> int:
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import gather_kernels as gk
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pagerank as ops
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pallas_kernels as pk
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import segment_kernels as sk
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import (
         gather_micro,
         spmv_breakdown,
@@ -841,9 +1064,10 @@ def main() -> int:
     def reset_counts() -> None:
         pk.reset_launches()
         gk.reset_launches()
+        sk.reset_launches()
 
     def counts() -> dict:
-        return {**pk.LAUNCHES, **gk.LAUNCHES}
+        return {**pk.LAUNCHES, **gk.LAUNCHES, **sk.LAUNCHES}
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -871,13 +1095,18 @@ def main() -> int:
           f"({hl.head_edges} edges); host build {time.perf_counter() - t0:.2f} s")
 
     # 3. kernels against their plain versions on the card
-    # (E around the scan's tile and past its 128-tile look-back window; an
+    # (E around the scan's tile and past its 128-tile look-back window, and
+    # the length cumsum_mxu's recursive carry falls to at the main path; an
     # input one element off 16-byte alignment takes the unvectorised path)
     reset_counts()
     rng = np.random.default_rng(SEED)
     tile = _build.library("spmv").spmv_tile_len()
+    mxu_base = graph.n_edges
+    while mxu_base > 4 * 128:  # cumsum_blocked's default block of 128
+        mxu_base = -(-mxu_base // 128)
     for dtype in (torch.float32, torch.float64):
-        for e in (0, 1, 31, 1024, 1025, tile - 1, tile, tile + 1, 128 * tile + 1, N_EDGES):
+        for e in (0, 1, 31, mxu_base, 1024, 1025, tile - 1, tile, tile + 1, 128 * tile + 1,
+                  N_EDGES):
             x = torch.from_numpy(rng.standard_normal(e)).to("cuda", dtype)
             measure_cumsum(pk, x, f"E={e} {dtype}")
         x = torch.from_numpy(rng.standard_normal(N_EDGES + 1)).to("cuda", dtype)[1:]
@@ -891,19 +1120,22 @@ def main() -> int:
     floor = time_ms(lambda: torch.cuda._sleep(0))
     print(f"launch floor: time_ms of a near-empty kernel (torch.cuda._sleep(0)) {floor:.4f} ms")
 
-    # the main path's own inputs: per-edge values w[src] at uniform ranks,
-    # and the hybrid head's gathered rows
+    # the main path's own inputs at uniform ranks: the hybrid tail's per-edge
+    # values (the prefix sum the hybrid run launches), the head's gathered
+    # rows, and all edges' values w[src] (the cumsum impl's, driven in 4d)
     inv = torch.from_numpy(graph.inv_out_strength("float32")).to("cuda")
     weighted = inv / graph.n_nodes
     src = torch.from_numpy(graph.src).to("cuda")
     per_edge = weighted[src]
+    per_tail = weighted[torch.from_numpy(hl.tail_src).to("cuda")]
     w_ext = torch.cat([weighted, weighted.new_zeros(1)])
     head_rows = w_ext[torch.from_numpy(hl.head_src).to("cuda")]
     main_rows = {
-        "cumsum": measure_cumsum(pk, per_edge, f"main path E={per_edge.shape[0]}"),
+        "cumsum": measure_cumsum(pk, per_tail, f"main path, hybrid tail E={per_tail.shape[0]}"),
         "rowsum": measure_rowsum(pk, head_rows, f"main path R={head_rows.shape[0]} "
                                                 f"W={head_rows.shape[1]}"),
     }
+    measure_cumsum(pk, per_edge, f"main path, cumsum impl E={per_edge.shape[0]}")
     indptr = torch.from_numpy(graph.csr_indptr().astype(np.int32)).to("cuda")
     small = synthetic_powerlaw(300, 1500, seed=3)
     graphs = {name: (s, ip, None) for name, (s, ip) in spmv_cases(rng, tile).items()}
@@ -914,9 +1146,33 @@ def main() -> int:
           f"(limits {SPMV_ULPS:g} / {SPMV_L1_ULPS:g}): "
           + ", ".join(f"{str(d)[6:]} {r:.3g} / {l:.3g}" for d, (r, l) in most.items()))
     main_rows["spmv"] = measure_spmv_pallas(pk, ops, src, indptr, weighted)
-    cumsum_sweep = main_rows["cumsum"]["sweep_launches"] = pk.LAUNCHES["cumsum"]
-    print(f"cumsum launches in phase 3 (its sweep, the main path's input and their "
-          f"timing): {cumsum_sweep}; the pallas path runs its scan inside spmv")
+
+    # the segment kernel: edge cases, the spmv sweep's graphs, the 300-node
+    # graph and the main path's, then its three call sites' shapes
+    block = _build.library("segment").segment_block_items()
+    seg_graphs = dict(segment_cases(rng, block))
+    seg_graphs.update({f"spmv case {k}": (ip, s) for k, (s, ip) in spmv_cases(rng, tile).items()})
+    seg_graphs["power-law 300 nodes"] = (small.csr_indptr(), small.src)
+    seg_graphs["main path"] = (graph.csr_indptr(), graph.src)
+    most = sweep_segment(sk, seg_graphs, rng)
+    print(f"segment sweep ({block} items a block), largest difference from plain as a share of "
+          "its limit: " + ", ".join(f"{str(d)[6:]} {r:.3g}" for d, r in most.items()))
+    main_rows["segment"] = measure_segment(sk, src, indptr, weighted,
+                                           f"main path (gather) E={src.shape[0]} N={graph.n_nodes}")
+    head_ptr = torch.from_numpy(ops.segment_pointers(hl.head_row_node,
+                                                     hl.head_ids.shape[0])).to("cuda")
+    head_sums = pk.rowsum_kernel(head_rows)
+    bucket_src, bucket_node, _ = ops.build_shuffle_layout(graph)
+    bucket_ptr = torch.from_numpy(ops.segment_pointers(bucket_node, graph.n_nodes)).to("cuda")
+    bucket_sums = w_ext[torch.from_numpy(bucket_src).to("cuda")].sum(dim=1)
+    for label, vals, ptr_t in (("hybrid head", head_sums, head_ptr),
+                               ("sort_shuffle buckets", bucket_sums, bucket_ptr)):
+        n_seg = ptr_t.shape[0] - 1
+        err, worst = check_segment(sk, vals, ptr_t, n_seg, label)
+        print(f"segment {label} ({vals.shape[0]} values into {n_seg} segments): kernel "
+              f"{time_ms(lambda: sk.segment_sum_kernel(vals, ptr_t, n_seg)):.4f} ms, plain "
+              f"{time_ms(lambda: sk.segment_sum_plain(vals, ptr_t, n_seg)):.4f} ms; max abs diff "
+              f"{err:.3g} ({worst:.3g} of 1 ulp)")
 
     # 3b. the probe's gather kernel against its plain version: every mode at
     # the probe's default shapes, then one block of 8 rows, and W = 4
@@ -984,6 +1240,11 @@ def main() -> int:
           f"pallas run launched spmv {launches['pallas']['spmv']} times")
     check(launches["hybrid"]["rowsum"] >= ITERS,
           f"hybrid run launched rowsum {launches['hybrid']['rowsum']} times")
+    check(launches["segment"]["segment"] >= ITERS,
+          f"segment run launched segment {launches['segment']['segment']} times")
+    check(launches["hybrid"]["cumsum"] >= ITERS and launches["hybrid"]["segment"] >= ITERS,
+          f"hybrid run launched cumsum {launches['hybrid']['cumsum']} and segment "
+          f"{launches['hybrid']['segment']} times")
 
     # 4c. where the loop's time goes: device time by kernel, and the share
     # of the unprofiled loop wall time the device was busy
@@ -1000,15 +1261,29 @@ def main() -> int:
         if impl == "pallas":
             bad = [r[0] for r in rows if any(s in r[0] for s in WIDENING_KERNELS)]
             check(not bad, f"pallas loop still runs {bad}")
+        if impl == "segment":  # the float64 index_add_ and its atomics are gone
+            bad = [r[0] for r in rows if "indexFunc" in r[0]]
+            check(not bad, f"segment loop still runs {bad}")
 
-    # 5. the CLI once, at the same scale
+    # 4d. two runs of every impl at full width, bit for bit
+    # (bcoo is the library's sparse product: logged, not held)
+    t0 = time.perf_counter()
+    differ = run_twice_bits(graph)
+    bad = {k: v for k, v in differ.items() if v and k[0] != "bcoo"}
+    check(not bad, f"determinism: two runs differ in {bad}")
+    print(f"phase 4d (two runs of every impl): {time.perf_counter() - t0:.1f} s")
+
+    # 5. the CLI once, at the same scale, traced and profiled
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "ranks.tsv")
+        trace_dir, profile_dir = os.path.join(tmp, "trace"), os.path.join(tmp, "profile")
         rc = cli.main([f"synthetic:{N_NODES},{N_EDGES},{SEED}", str(ITERS),
                        "--spmv-impl", "pallas", "--dangling", "redistribute",
-                       "--init", "uniform", "--device", "cuda", "--output", out])
+                       "--init", "uniform", "--device", "cuda", "--output", out,
+                       "--trace-dir", trace_dir, "--profile-dir", profile_dir])
         check(rc == 0, f"CLI exited {rc}")
         table = np.loadtxt(out, dtype=np.float64, delimiter="\t", ndmin=2)
+        check_cli_trace(trace_dir, profile_dir)
     ids, vals = table[:, 0].astype(np.int64), table[:, 1]
     rows = np.searchsorted(graph.node_ids, ids)  # original id -> row
     check(bool(np.all(graph.node_ids[np.minimum(rows, graph.n_nodes - 1)] == ids)),
@@ -1066,20 +1341,23 @@ def main() -> int:
     print(f"phase 8 (tfidf, loaders): {time.perf_counter() - t0:.1f} s")
 
     # 7. the kernels line, then the result line; launches are those of the
-    # kernel's own path (none for cumsum, whose scan the pallas path runs
-    # inside spmv: its phase-3 calls stand apart, as sweep_launches)
+    # kernel's own path: cumsum's from the hybrid run (its tail's prefix
+    # sum), segment's from the segment run
     meta = {
         "spmv": ("page_rank_and_tfidf_using_apache_spark_tpu_torch/csrc/spmv.cu",
                  "page_rank_and_tfidf_using_apache_spark_tpu/ops/pallas_kernels.py:144",
                  launches["pallas"]["spmv"]),
         "cumsum": ("page_rank_and_tfidf_using_apache_spark_tpu_torch/csrc/cumsum.cu",
                    "page_rank_and_tfidf_using_apache_spark_tpu/ops/pallas_kernels.py:78",
-                   launches["pallas"]["cumsum"]),
+                   launches["hybrid"]["cumsum"]),
         "rowsum": ("page_rank_and_tfidf_using_apache_spark_tpu_torch/csrc/rowsum.cu",
                    "page_rank_and_tfidf_using_apache_spark_tpu/ops/pallas_kernels.py:118",
                    launches["hybrid"]["rowsum"]),
         "gather": ("page_rank_and_tfidf_using_apache_spark_tpu_torch/csrc/gather.cu",
                    "tools/gather_micro.py:77", launches["probes"]["gather"]),
+        "segment": ("page_rank_and_tfidf_using_apache_spark_tpu_torch/csrc/segment.cu",
+                    "page_rank_and_tfidf_using_apache_spark_tpu/ops/pagerank.py:378",
+                    launches["segment"]["segment"]),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

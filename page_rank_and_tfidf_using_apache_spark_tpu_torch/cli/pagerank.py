@@ -15,6 +15,7 @@ import argparse
 import json
 import sys
 
+from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import (
     load_snap,
     save_ranks,
@@ -26,6 +27,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
     PageRankConfig,
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder, Timer
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.profiling import trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -59,11 +61,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device to run on (default: cuda; 'cpu' runs "
                         "the kernels' plain versions)")
     p.add_argument("--metrics-json", help="dump structured metrics JSON here")
+    p.add_argument("--profile-dir",
+                   help="torch.profiler Chrome trace output dir (host and card)")
+    p.add_argument("--trace-dir", default=None,
+                   help="obs run-telemetry dir: write <name>.<pid>.trace.jsonl"
+                        " + manifest here (default: $GRAFT_TRACE_DIR)")
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    # The traced run covers the whole command: manifest at startup, every
+    # span and metric event flushed per-event to the JSONL trace, run-end
+    # summary at exit (no-op without --trace-dir/GRAFT_TRACE_DIR).
+    with obs.run("pagerank", trace_dir=args.trace_dir):
+        return _main(args)
+
+
+def _main(args) -> int:
     metrics = MetricsRecorder()
 
     with Timer() as t_load:
@@ -93,7 +108,8 @@ def main(argv: list[str] | None = None) -> int:
         dtype=args.dtype,
         **{k: v for k, v in knobs.items() if v is not None},
     )
-    result = run_pagerank(graph, cfg, metrics=metrics, device=args.device)
+    with trace(args.profile_dir):
+        result = run_pagerank(graph, cfg, metrics=metrics, device=args.device)
 
     if args.output:
         save_ranks(args.output, graph, result.ranks, top_k=args.top_k)

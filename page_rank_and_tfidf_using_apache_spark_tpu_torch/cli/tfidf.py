@@ -8,9 +8,9 @@ Usage::
     python -m ...cli.tfidf corpus.txt --lines --query someword --top-k 3
 
 The JAX package's flags for paths the port does not run yet (streaming,
-checkpoints, the serving index, BM25, the mesh, the tuned profile,
-tracing) are accepted and refused: the command exits non-zero naming the
-ROADMAP item that ports them.
+checkpoints, the serving index, BM25, the mesh, the tuned profile) are
+accepted and refused: the command exits non-zero naming the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import sys
 import numpy as np
 import torch
 
+from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.text import (
     fnv1a_64,
     hash_to_vocab,
@@ -33,6 +34,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops.tfidf import TfidfResu
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import TfidfConfig
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import resolve_device
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.profiling import trace
 
 # Flags of the JAX CLI whose paths are not ported yet: flag -> (what it
 # needs, ROADMAP Queue 1 item).  Each defaults to None, so a given flag is
@@ -54,8 +56,6 @@ LATER_FLAGS = {
     "--bm25-b": ("BM25", 10),
     "--mesh": ("multi-GPU ingest", 11),
     "--tuned-profile": ("the tuned profile", 5),
-    "--profile-dir": ("tracing", 4),
-    "--trace-dir": ("tracing", 4),
 }
 _SWITCHES = {"--streaming", "--resume", "--no-index-bm25"}
 
@@ -81,6 +81,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: cuda)")
     p.add_argument("--metrics-json")
+    p.add_argument("--profile-dir",
+                   help="torch.profiler Chrome trace output dir (host and card)")
+    p.add_argument("--trace-dir", default=None,
+                   help="obs run-telemetry dir: write <name>.<pid>.trace.jsonl"
+                        " + manifest here (default: $GRAFT_TRACE_DIR)")
     later = p.add_argument_group("not ported yet (each exits non-zero naming its ROADMAP item)")
     for flag, (what, item) in LATER_FLAGS.items():
         help_ = f"{what}: ROADMAP Queue 1 item {item}"
@@ -98,6 +103,13 @@ def main(argv: list[str] | None = None) -> int:
     if given:
         parser.error("; ".join(f"{f} ({LATER_FLAGS[f][0]}) is not ported yet: "
                                f"ROADMAP Queue 1 item {LATER_FLAGS[f][1]}" for f in given))
+    # The traced run covers the whole command (no-op without
+    # --trace-dir/GRAFT_TRACE_DIR), as in the pagerank CLI.
+    with obs.run("tfidf", trace_dir=args.trace_dir):
+        return _main(args)
+
+
+def _main(args) -> int:
     device = resolve_device(args.device)
     metrics = MetricsRecorder()
 
@@ -110,7 +122,8 @@ def main(argv: list[str] | None = None) -> int:
         l2_normalize=args.l2_normalize,
         min_token_len=args.min_token_len,
     )
-    out = run_tfidf(docs, cfg, metrics=metrics, doc_names=names, device=device)
+    with trace(args.profile_dir):
+        out = run_tfidf(docs, cfg, metrics=metrics, doc_names=names, device=device)
 
     if args.output:
         with open(args.output, "w") as f:

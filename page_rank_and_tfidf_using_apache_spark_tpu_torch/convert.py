@@ -25,6 +25,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops.pagerank import (
     DeviceGraph,
     HybridLayout,
     ShuffleLayout,
+    segment_pointers,
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops.tfidf import TfidfResult
 
@@ -52,10 +53,22 @@ def _convert(cls, record: Any, device) -> Any:
 def device_graph(record: Any, *, device: str | torch.device = "cuda") -> DeviceGraph:
     """A ``DeviceGraph``-shaped record as this package's ``DeviceGraph``
     on ``device``; each array keeps its dtype (int32 indices, the run's
-    float type)."""
+    float type).  The layouts' CSR pointers over ``head_row_node`` and
+    ``bucket_node``, which the JAX package has no need of, are built from
+    those ids where the record lacks them."""
     fields = _fields(record)
     hybrid = fields.pop("hybrid", None)
     shuffle = fields.pop("shuffle", None)
+    if hybrid is not None:
+        hybrid = _fields(hybrid)
+        if hybrid.get("head_row_ptr") is None:
+            hybrid["head_row_ptr"] = segment_pointers(np.asarray(hybrid["head_row_node"]),
+                                                      np.asarray(hybrid["head_ids"]).shape[0])
+    if shuffle is not None:
+        shuffle = _fields(shuffle)
+        if shuffle.get("bucket_ptr") is None:
+            shuffle["bucket_ptr"] = segment_pointers(np.asarray(shuffle["bucket_node"]),
+                                                     np.asarray(fields["inv_outdeg"]).shape[0])
     dg = _convert(DeviceGraph, fields, device)
     return dg._replace(
         hybrid=None if hybrid is None else _convert(HybridLayout, hybrid, device),

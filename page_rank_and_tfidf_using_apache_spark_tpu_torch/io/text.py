@@ -23,6 +23,7 @@ from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 
+from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import native
 
 _TOKEN_RE = re.compile(r"[A-Za-z0-9]+")
@@ -148,12 +149,17 @@ def tokenize_corpus(
     numpy FNV sweep (:func:`tokenize_and_hash`); the result's ``native``
     says which ran.  ``doc_id_offset`` lets streaming ingest assign
     globally unique doc ids chunk by chunk.
+
+    Each call is an ``io.tokenize`` span, as in the JAX package: the
+    tokenizer is the host's bottleneck, so its share of a traced run must
+    be separable in the timeline.
     """
     kw = dict(vocab_bits=vocab_bits, ngram=ngram, lowercase=lowercase,
               min_token_len=min_token_len)
-    res = native.tokenize_and_hash(docs, **kw)
-    is_native = res is not None
-    doc_ids, term_ids, doc_lengths = res if is_native else tokenize_and_hash(docs, **kw)
+    with obs.span("io.tokenize", docs=len(docs)):
+        res = native.tokenize_and_hash(docs, **kw)
+        is_native = res is not None
+        doc_ids, term_ids, doc_lengths = res if is_native else tokenize_and_hash(docs, **kw)
 
     names = tuple(doc_names) if doc_names is not None else tuple(
         f"doc{doc_id_offset + i}" for i in range(len(docs))

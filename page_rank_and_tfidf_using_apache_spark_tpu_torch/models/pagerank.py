@@ -4,16 +4,21 @@ pull the ranks back, and record metrics.
 Counterpart of the JAX package's ``models/pagerank.py`` single-device path.
 The numeric loop is ``ops/pagerank.py``.  Checkpointed segments, resume
 and the recovery ladder are not part of the port yet: a config that asks
-for checkpoints is refused.
+for checkpoints is refused.  The host syncs are obs spans under the JAX
+package's names: ``pagerank.delta_sync`` (where ``tol`` makes the loop
+read its delta, the loop's own syncs are not spanned: the last one is)
+and ``pagerank.result_pull``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
 
+from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import Graph
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.models import driver
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pagerank as ops
@@ -75,16 +80,21 @@ def run_pagerank(
 
     make = ops.make_spark_exact_runner if cfg.spark_exact else ops.make_pagerank_runner
     runner = make(n, cfg)
+    # without tol the loop runs with no host sync and this read waits for
+    # all of it, so only a tol run's last delta read is a delta_sync span
+    sync = obs.span("pagerank.delta_sync") if cfg.tol > 0 else contextlib.nullcontext()
     with Timer() as t:
         ranks, done, delta = runner(dg, ranks0, e)
-        last_delta = float(delta)  # the host sync that ends the loop
+        with sync:
+            last_delta = float(delta)  # the host sync that ends the loop
     metrics.record(
         iter=done, l1_delta=last_delta, secs=t.elapsed,
         iters_per_sec=done / t.elapsed if t.elapsed > 0 else float("inf"),
     )
     metrics.scalar("iterations", done)
     metrics.scalar("l1_delta", last_delta)
+    with obs.span("pagerank.result_pull"):
+        ranks_np = ranks.cpu().numpy()
     return PageRankResult(
-        ranks=ranks.cpu().numpy(), iterations=done, l1_delta=last_delta,
-        metrics=metrics,
+        ranks=ranks_np, iterations=done, l1_delta=last_delta, metrics=metrics,
     )

@@ -14,6 +14,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io import text as tio
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import tfidf as ops
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import TfidfConfig
@@ -79,7 +80,9 @@ def run_tfidf(
 ) -> TfidfOutput:
     """Batch TF-IDF on one device: ``cuda`` unless ``device`` says
     otherwise.  Records a ``tokenize`` event (with ``native``: whether the
-    C++ tokenizer ran) and a ``pipeline`` event."""
+    C++ tokenizer ran) and a ``pipeline`` event; the tokenizer opens its
+    own ``io.tokenize`` span and the device part is a ``tfidf.pipeline``
+    span, as in the JAX package."""
     dev = resolve_device(device)
     metrics = metrics or MetricsRecorder()
     with Timer() as t_tok:
@@ -94,7 +97,7 @@ def run_tfidf(
     metrics.record(event="tokenize", docs=corpus.n_docs, tokens=corpus.n_tokens,
                    secs=t_tok.elapsed, native=corpus.native)
 
-    with Timer() as t_dev:
+    with Timer() as t_dev, obs.span("tfidf.pipeline"):
         result = pipeline(corpus, cfg, dev)
     metrics.record(
         event="pipeline", pairs=result.n_pairs, secs=t_dev.elapsed,

@@ -50,6 +50,15 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "rowsum_plan": (_I, [_I, _I, _PLL, _PLL]),
         "rowsum_error_string": (ctypes.c_char_p, [_I]),
     },
+    "segment": {
+        "segment_scratch_len": (_LL, [_LL, _LL]),
+        "segment_block_items": (_I, []),
+        "segment_gather_f32": (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL, _P]),
+        "segment_gather_f64": (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL, _P]),
+        "segment_values_f32": (_I, [_P, _P, _P, _P, _LL, _LL, _P]),
+        "segment_values_f64": (_I, [_P, _P, _P, _P, _LL, _LL, _P]),
+        "segment_error_string": (ctypes.c_char_p, [_I]),
+    },
     "gather": {
         "gather_f32": (_I, [_P, _P, _P, _I, _LL, _I, _I, _I, _P]),
         "gather_table_limit": (_I, []),

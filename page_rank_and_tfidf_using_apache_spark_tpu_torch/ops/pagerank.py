@@ -5,9 +5,13 @@ sparse matvec plus an axpy — ``contribs = Aᵀ · (ranks / outdeg)``;
 ``ranks' = base + d·(contribs [+ dangling])`` — over destination-sorted
 edges.  The static layouts (``plan_hybrid_head``, ``build_hybrid_layout``,
 ``build_shuffle_layout``) are host numpy code copied from the JAX package;
-the seven SpMV impls are plain PyTorch except ``pallas``, whose prefix sum is
-the hand-written ``csrc/cumsum.cu``, and the ``hybrid`` head's row reduction,
-``csrc/rowsum.cu`` (``ops/pallas_kernels.py``).
+the seven SpMV impls run on the hand-written kernels of ``csrc/``: every
+segmented sum on ``csrc/segment.cu`` (``ops/segment_kernels.py``), every
+prefix sum on ``csrc/cumsum.cu``, the ``pallas`` SpMV on ``csrc/spmv.cu`` and
+the ``hybrid`` head's row reduction on ``csrc/rowsum.cu``
+(``ops/pallas_kernels.py``); ``bcoo`` is the library's sparse product.
+Each of those kernels adds in an order fixed by the shapes, so two runs of
+any impl but ``bcoo`` give the same bits on the card.
 
 Index tensors stay int32 on the device, as in the JAX package; PyTorch's
 indexing, ``index_select`` and ``index_add_`` take them as they are.
@@ -30,6 +34,7 @@ import torch
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.fixpoint import iterate
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import Graph
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pallas_kernels as pk
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import segment_kernels as sk
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
     TUNABLE_DEFAULTS,
     DanglingMode,
@@ -56,6 +61,7 @@ class HybridLayout(NamedTuple):
     tail_indptr: torch.Tensor  # int32 [N+1] CSR pointers over the tail edges
     head_w: torch.Tensor | None = None  # f [R, W] edge weights (0 at sentinels)
     tail_w: torch.Tensor | None = None  # f [Et] edge weights
+    head_row_ptr: torch.Tensor | None = None  # int32 [H+1] CSR pointers over head_row_node
 
 
 class ShuffleLayout(NamedTuple):
@@ -66,6 +72,7 @@ class ShuffleLayout(NamedTuple):
     bucket_src: torch.Tensor  # int32 [NB, B] per-bucket edge sources
     bucket_node: torch.Tensor  # int32 [NB] bucket -> dst node, non-decreasing
     bucket_w: torch.Tensor | None = None  # f [NB, B] edge weights (0 at pads)
+    bucket_ptr: torch.Tensor | None = None  # int32 [N+1] CSR pointers over bucket_node
 
 
 class DeviceGraph(NamedTuple):
@@ -214,6 +221,12 @@ def build_shuffle_layout(
     return bucket_src, bucket_node, bucket_w
 
 
+def segment_pointers(ids: np.ndarray, n: int) -> np.ndarray:
+    """int32 ``[n+1]`` CSR pointers over the sorted segment ids ``ids``:
+    ``ptr[r]`` is the position of the first id ``>= r``."""
+    return np.searchsorted(ids, np.arange(n + 1)).astype(np.int32)
+
+
 def put_graph(
     graph: Graph,
     dtype: str = "float32",
@@ -231,7 +244,9 @@ def put_graph(
     ``"hybrid"`` or ``"sort_shuffle"`` (see :func:`layout_for_impl`).
     ``keep_edge_arrays=False`` uploads zero-length ``src``/``dst``/``indptr``
     placeholders instead of the raw edge arrays, which the layout impls
-    never read."""
+    never read.  The layouts' CSR pointers over ``head_row_node`` and
+    ``bucket_node``, which the segmented-sum kernel reads, are built here,
+    once per graph."""
     if not keep_edge_arrays and layout is None:
         raise ValueError("keep_edge_arrays=False requires a static layout")
 
@@ -255,6 +270,7 @@ def put_graph(
             tail_indptr=put(hl.tail_indptr),
             head_w=put(hl.head_w, dtype) if hl.head_w is not None else None,
             tail_w=put(hl.tail_w, dtype) if hl.tail_w is not None else None,
+            head_row_ptr=put(segment_pointers(hl.head_row_node, hl.head_ids.shape[0])),
         )
     elif layout == "sort_shuffle":
         bucket_src, bucket_node, bucket_w = build_shuffle_layout(
@@ -264,6 +280,7 @@ def put_graph(
             bucket_src=put(bucket_src),
             bucket_node=put(bucket_node),
             bucket_w=put(bucket_w, dtype) if bucket_w is not None else None,
+            bucket_ptr=put(segment_pointers(bucket_node, graph.n_nodes)),
         )
     elif layout is not None:
         raise ValueError(f"unknown graph layout {layout!r}")
@@ -318,22 +335,15 @@ def _edge_values(dg: DeviceGraph, weighted_ranks: torch.Tensor) -> torch.Tensor:
     return per_edge
 
 
-def _segment_sum(values: torch.Tensor, segment_ids: torch.Tensor, n: int) -> torch.Tensor:
-    """``out[s] = Σ values[segment_ids == s]`` for ``s < n``, accumulated in
-    float64.  ``index_add_`` adds one value at a time into its segment,
-    and a power-law hub's segment holds a large share of all edges at
-    web-Google scale: a float32 running sum over it loses the float32
-    accuracy the segment impl is held to (L1 1e-3 from a float64 run over
-    20 iterations), which float64 accumulation keeps."""
-    acc = torch.float64 if values.dtype == torch.float32 else values.dtype
-    out = torch.zeros(n, dtype=acc, device=values.device)
-    return out.index_add_(0, segment_ids, values.to(acc)).to(values.dtype)
-
-
 def spmv_segment(dg: DeviceGraph, weighted_ranks: torch.Tensor, n: int) -> torch.Tensor:
     """contribs[v] = Σ_{(u,v)∈E} w(u,v)·weighted_ranks[u] as one segmented
-    reduction over the dst ids (``index_add_``)."""
-    return _segment_sum(_edge_values(dg, weighted_ranks), dg.dst, n)
+    reduction over the dst-sorted edges' CSR pointers: the gather, the
+    product and the sum in one call of the segmented-sum kernel
+    (``segment_kernels.segment_sum_kernel``, float32 summed in float64)."""
+    if dg.indptr is None:
+        raise ValueError("spmv_impl='segment' needs DeviceGraph.indptr (use put_graph)")
+    return sk.segment_sum_kernel(weighted_ranks, dg.indptr, n, src=dg.src,
+                                 edge_weight=dg.edge_weight)
 
 
 def spmv_bcoo(dg: DeviceGraph, weighted_ranks: torch.Tensor, n: int) -> torch.Tensor:
@@ -351,12 +361,13 @@ def spmv_bcoo(dg: DeviceGraph, weighted_ranks: torch.Tensor, n: int) -> torch.Te
     return torch.mv(mat, weighted_ranks)
 
 
-def cumsum_diff_spmv(per_edge, indptr, cumsum_fn=pk.cumsum_plain) -> torch.Tensor:
+def cumsum_diff_spmv(per_edge, indptr, cumsum_fn=pk.cumsum_kernel) -> torch.Tensor:
     """Prefix-sum segmented reduction: ``out[v] = c[indptr[v+1]] -
     c[indptr[v]]`` with ``c`` the prefix sum of ``per_edge`` behind a
-    leading zero.  ``cumsum_fn`` is the prefix-sum primitive (plain
-    ``torch.cumsum`` by default); ``spmv_impl='pallas'`` runs all of this
-    in one fused kernel, with this composite as its plain version."""
+    leading zero.  ``cumsum_fn`` is the prefix-sum primitive: by default
+    the deterministic scan kernel (``csrc/cumsum.cu``; ``torch.cumsum`` on
+    the CPU).  ``spmv_impl='pallas'`` runs all of this in one fused kernel,
+    with this composite over ``torch.cumsum`` as its plain version."""
     c0 = torch.cat([per_edge.new_zeros(1), cumsum_fn(per_edge)])
     return c0[indptr[1:]] - c0[indptr[:-1]]
 
@@ -367,8 +378,8 @@ def cumsum_blocked(x: torch.Tensor, block: int = 128) -> torch.Tensor:
     B×-smaller recursive carry.  Error is the blocked-summation order, no
     worse than the sequential scan's."""
     n = x.shape[0]
-    if n <= 4 * block:
-        return torch.cumsum(x, dim=0)
+    if n <= 4 * block:  # the carry is a strided column: the scan kernel takes it contiguous
+        return pk.cumsum_kernel(x.contiguous())
     m = -(-n // block)
     xp = torch.cat([x, x.new_zeros(m * block - n)]).reshape(m, block)
     # T[k, j] = 1 for k <= j: row-cumsum via one matrix product.  TF32 stays
@@ -384,10 +395,10 @@ def cumsum_blocked(x: torch.Tensor, block: int = 128) -> torch.Tensor:
 
 
 def spmv_cumsum(dg: DeviceGraph, weighted_ranks: torch.Tensor, n: int) -> torch.Tensor:
-    """Prefix-sum SpMV through ``torch.cumsum``.  Accuracy cost in float32:
-    the prefix sum accumulates to the full vector mass before differencing,
-    so the per-SpMV error is larger than segment's; in float64 both are
-    exact to 1e-12."""
+    """Prefix-sum SpMV through the scan kernel (``csrc/cumsum.cu``).
+    Accuracy cost in float32: the prefix sum accumulates to the full vector
+    mass before differencing, so the per-SpMV error is larger than
+    segment's; in float64 both are exact to 1e-12."""
     if dg.indptr is None:
         raise ValueError("spmv_impl='cumsum' needs DeviceGraph.indptr (use put_graph)")
     return cumsum_diff_spmv(_edge_values(dg, weighted_ranks), dg.indptr)
@@ -406,9 +417,12 @@ def spmv_hybrid(dg: DeviceGraph, weighted_ranks: torch.Tensor, n: int) -> torch.
     """Degree-aware hybrid SpMV: the high-in-degree head as a dense
     ``[R, W]`` gather reduced by the row-sum kernel, the tail through the
     prefix-sum/monotone-diff path over its own CSR pointers, combined with
-    one ``index_add_`` of the H head totals (``head_ids`` are unique)."""
+    one ``index_add_`` of the H head totals (``head_ids`` are unique, so
+    each slot takes one add and the result does not depend on its order).
+    The head's rows sum into their nodes through the segmented-sum
+    kernel over ``head_row_ptr``."""
     hl = dg.hybrid
-    if hl is None:
+    if hl is None or hl.head_row_ptr is None:
         raise ValueError("spmv_impl='hybrid' needs put_graph(layout='hybrid')")
     if hl.tail_src.shape[0]:
         per_tail = weighted_ranks[hl.tail_src]
@@ -425,7 +439,7 @@ def spmv_hybrid(dg: DeviceGraph, weighted_ranks: torch.Tensor, n: int) -> torch.
         if hl.head_w is not None:
             rows = rows * hl.head_w  # sentinel slots carry weight 0
         row_sums = pk.rowsum_kernel(rows)
-        head = _segment_sum(row_sums, hl.head_row_node, h)
+        head = sk.segment_sum_kernel(row_sums, hl.head_row_ptr, h)
         contribs = contribs.index_add_(0, hl.head_ids, head)
     return contribs
 
@@ -434,9 +448,10 @@ def spmv_sort_shuffle(
     dg: DeviceGraph, weighted_ranks: torch.Tensor, n: int
 ) -> torch.Tensor:
     """Sort-based static-shuffle SpMV: a ``reshape -> reduce`` over the
-    bucket matrix plus a bucket-granular segmented sum."""
+    bucket matrix plus a bucket-granular segmented sum (the segmented-sum
+    kernel over ``bucket_ptr``)."""
     sl = dg.shuffle
-    if sl is None:
+    if sl is None or sl.bucket_ptr is None:
         raise ValueError(
             "spmv_impl='sort_shuffle' needs put_graph(layout='sort_shuffle')"
         )
@@ -446,7 +461,7 @@ def spmv_sort_shuffle(
     vals = w_ext[sl.bucket_src]
     if sl.bucket_w is not None:
         vals = vals * sl.bucket_w  # pad slots carry weight 0
-    return _segment_sum(vals.sum(dim=1), sl.bucket_node, n)
+    return sk.segment_sum_kernel(vals.sum(dim=1), sl.bucket_ptr, n)
 
 
 def spmv(dg: DeviceGraph, weighted: torch.Tensor, n: int, impl: str) -> torch.Tensor:

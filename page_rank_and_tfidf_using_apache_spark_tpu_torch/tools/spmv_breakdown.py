@@ -25,6 +25,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch import tools
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import Graph, synthetic_powerlaw
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pagerank as ops
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pallas_kernels as pk
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import segment_kernels as sk
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import DanglingMode
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.timing import Stage, run_stages
 
@@ -60,13 +61,15 @@ def stages(graph: Graph, device: torch.device, *, dtype: str = "float32",
         "gather_w_src_sorted": Stage(lambda: w[src_sorted], (src_sorted,)),
         "cumsum_E": Stage(lambda: torch.cumsum(pe, 0), (pe,)),
         "cumsum_blocked_E": Stage(lambda: ops.cumsum_blocked(pe), (pe,)),
-        # the segment impl's own reduction (float64 accumulation)
-        "segment_sum_E_to_N": Stage(lambda: ops._segment_sum(pe, dg.dst, n), (pe, dg.dst)),
+        # the segment impl's own reduction (the segmented-sum kernel, float32
+        # summed in float64)
+        "segment_sum_E_to_N": Stage(lambda: sk.segment_sum_kernel(pe, dg.indptr, n),
+                                    (pe, dg.indptr)),
         # the diff gathers from an (E+1)-long prefix sum, as the real stage does
         "monotone_diff_N": Stage(lambda: ce[dg.indptr[1:]] - ce[dg.indptr[:-1]], (dg.indptr,)),
         "spmv_cumsum": Stage(lambda: ops.spmv_cumsum(dg, w, n), (dg.src, dg.indptr)),
         "spmv_cumsum_mxu": Stage(lambda: ops.spmv_cumsum_mxu(dg, w, n), (dg.src, dg.indptr)),
-        "spmv_segment": Stage(lambda: ops.spmv_segment(dg, w, n), (dg.src, dg.dst)),
+        "spmv_segment": Stage(lambda: ops.spmv_segment(dg, w, n), (dg.src, dg.indptr)),
     }
     if h.head_ids.shape[0]:
         # as spmv_hybrid does: the sentinel id n reads an appended zero
@@ -74,9 +77,9 @@ def stages(graph: Graph, device: torch.device, *, dtype: str = "float32",
             lambda: pk.rowsum_kernel(torch.cat([w, w.new_zeros(1)])[h.head_src]), (h.head_src,))
     st["spmv_hybrid"] = Stage(
         lambda: ops.spmv_hybrid(hl, w, n),
-        (h.tail_src, h.tail_indptr, h.head_src, h.head_row_node, h.head_ids))
+        (h.tail_src, h.tail_indptr, h.head_src, h.head_row_ptr, h.head_ids))
     st["spmv_sort_shuffle"] = Stage(lambda: ops.spmv_sort_shuffle(sl, w, n),
-                                    (s.bucket_src, s.bucket_node))
+                                    (s.bucket_src, s.bucket_ptr))
     st["full_step_cumsum"] = Stage(
         lambda: ops.pagerank_step(w, dg, e, n=n, damping=0.85,
                                   dangling=DanglingMode.REDISTRIBUTE, total_mass=1.0,

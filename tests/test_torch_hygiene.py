@@ -67,6 +67,15 @@ def test_no_jax_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+def test_scan_covers_the_obs_core_and_the_segment_kernel():
+    """The scan globs the package, so the obs copies, the profiling layer
+    and the segmented-sum kernel's wrapper are among the files it reads."""
+    scanned = {p.relative_to(PORT).as_posix() for p in FILES if p.is_relative_to(PORT)}
+    assert {f"obs/{m}.py" for m in ("__init__", "events", "runtime", "metrics", "export",
+                                    "federation", "trace", "manifest")} <= scanned
+    assert {"ops/segment_kernels.py", "utils/profiling.py", "utils/metrics.py"} <= scanned
+
+
 @pytest.mark.parametrize("source, flagged", [
     ("import page_rank_and_tfidf_using_apache_spark_tpu_torch.ops", set()),
     ("from page_rank_and_tfidf_using_apache_spark_tpu_torch import api", set()),
