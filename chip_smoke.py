@@ -22,8 +22,9 @@ Phases, each of which exits non-zero on failure:
    ``torch.sparse_csr_tensor @ w``; ``cumsum`` timed at the ``hybrid``
    tail's length, whose run launches it, and swept over lengths around its
    tile and at ``cumsum_mxu``'s base case; two calls of ``cumsum`` and of
-   ``spmv`` on one input must agree bit for bit, and so must kernel and
-   plain version on small integers, whose sums are exact;
+   ``spmv`` on one input must agree bit for bit (``spmv`` and ``segment``
+   twice through the input's plan and twice without one), and so must
+   kernel and plain version on small integers, whose sums are exact;
    ``rowsum`` also over widths 1 to 1000, row counts around one block's
    run of rows and one wave, and unaligned row slices, in float32 and
    float64, and timed beside its scalar loop; the ``segment`` kernel (the
@@ -35,8 +36,10 @@ Phases, each of which exits non-zero on failure:
    float64 rows within 1e-12 of the row's sum of |x| of plain, integers
    equal, two calls equal, then timed at the main path's shapes against
    its plain float64 ``index_add_`` and ``torch.segment_reduce``, and at the
-   ``hybrid`` head's and ``sort_shuffle``'s shapes; and, once, the launch
-   floor of the timing protocol;
+   ``hybrid`` head's and ``sort_shuffle``'s shapes with their bounds (each
+   call site also timed without a plan); the plans' tile sizes and
+   scratch against the kernels'; and, once, the launch floor of the
+   timing protocol;
 3b. the gather kernel of the SpMV cost probe against its plain version,
    bit for bit, in every mode of the probe at its default shapes (timed
    beside the L2 loop alone), at edge shapes, and on both sides of each
@@ -45,10 +48,14 @@ Phases, each of which exits non-zero on failure:
    edges, 20 iterations), through the ``segment``, ``pallas`` and
    ``hybrid`` SpMV impls, checked against an f64 run and counting kernel
    launches (``segment`` launches the segment kernel, ``hybrid`` the
-   ``cumsum`` and segment kernels, 20 times or more each); every impl is
-   also held against a dense f64 power iteration on a small graph; the
-   ``pallas`` loop's profile must show no index widening, ``cat`` or
-   index kernel, the ``segment`` loop's no ``index_add_``;
+   ``cumsum`` and segment kernels, 20 times or more each) and the plans
+   built (one a pointer array, at ``put_graph``: a run builds what one
+   ``put_graph`` builds); every impl is also held against a dense f64
+   power iteration on a small graph; the ``pallas`` loop's profile must
+   show no index widening, ``cat`` or index kernel, the ``segment`` loop's
+   no ``index_add_``; neither shows ``segment_fixup``, ``row_diff`` or a
+   memset beyond the loop's own, and each stays below the device ops a
+   step of its two- and three-op calls (11.3 and 12.3);
 4d. every SpMV impl, and ``spark_exact``, run twice at full width in
    float32 and float64: all but ``bcoo`` (the library's sparse product)
    must give equal bits;
@@ -139,6 +146,13 @@ TFIDF_RTOL, TFIDF_REPS, QUERY_K = 2e-6, 5, 10
 # cat, the index gathers) that the fused spmv kernel removes from the loop.
 WIDENING_KERNELS = ("direct_copy_kernel", "CatArrayBatchedCopy", "index_elementwise_kernel")
 MAIN_IMPLS = ("segment", "pallas", "hybrid")
+# The segment kernel's second kernel and the spmv difference kernel, gone
+# since each call became one kernel; and the device ops per step of the loops
+# before, which those loops now stay below.  The spmv descriptors' memset went
+# too: a loop's own sums set one memset a step and one for the last delta, and
+# the memset of each spmv call came on top of those.
+RETIRED_OPS = ("segment_fixup", "row_diff")
+ONE_OP_LIMITS = {"segment": 11.3, "pallas": 12.3}
 
 # What the JAX package's probes print (tools/gather_micro.py:174-178,
 # tools/spmv_breakdown.py:114-180, tools/xla_cost_micro.py:106-149), beside
@@ -169,20 +183,24 @@ def check(ok: bool, msg: str) -> None:
 
 
 def check_segment(sk, values, ptr, n: int, label: str, *, src=None, ew=None,
-                  exact: bool = False) -> tuple[float, float]:
-    """``segment_sum_kernel`` against ``segment_sum_plain`` on one input, two
-    calls bit for bit.  With ``exact`` (integer inputs whose sums are exact)
+                  exact: bool = False, plan=None) -> tuple[float, float]:
+    """``segment_sum_kernel`` against ``segment_sum_plain`` on one input: two
+    calls through ``ptr``'s plan (built here unless given) and two without
+    one, all four bit for bit.  With ``exact`` (integer inputs whose sums are exact)
     kernel, plain and the float64 sum must be equal; else float32 rows must
     lie within 1 ulp of plain (both sum in float64 and round once) and
     float64 rows within SEGMENT_F64_RTOL of the row's sum of |x|.  Returns
     the max abs difference and the largest ratio to the row's limit."""
-    got = sk.segment_sum_kernel(values, ptr, n, src=src, edge_weight=ew)
-    again = sk.segment_sum_kernel(values, ptr, n, src=src, edge_weight=ew)
+    plan = sk.segment_plan(ptr) if plan is None else plan
+    got = sk.segment_sum_kernel(values, ptr, n, src=src, edge_weight=ew, plan=plan)
+    again = sk.segment_sum_kernel(values, ptr, n, src=src, edge_weight=ew, plan=plan)
+    bare = [sk.segment_sum_kernel(values, ptr, n, src=src, edge_weight=ew) for _ in range(2)]
     want = sk.segment_sum_plain(values, ptr, n, src=src, edge_weight=ew)
     torch.cuda.synchronize()
     check(got.shape == (n,) and got.dtype == values.dtype, f"segment {label}: shape/dtype")
     check(bool(torch.isfinite(got).all()), f"segment {label}: not finite")
     check(torch.equal(got, again), f"segment {label}: two calls differ")
+    check(all(torch.equal(got, b) for b in bare), f"segment {label}: calls without a plan differ")
     if n == 0:
         return 0.0, 0.0
     if exact:
@@ -247,6 +265,7 @@ def sweep_segment(sk, graphs: dict, rng) -> dict:
         table = int(src_np.max()) + 1 if e else 1
         ptr = torch.from_numpy(np.asarray(ptr_np, np.int32)).to("cuda")
         src = torch.from_numpy(np.asarray(src_np, np.int32)).to("cuda")
+        plan = sk.segment_plan(ptr)
         inputs = {"real": (rng.random(e), rng.random(table), rng.uniform(0.5, 2.0, e)),
                   "integer": (rng.integers(-3, 4, e).astype(np.float64),
                               rng.integers(1, 4, table).astype(np.float64),
@@ -259,33 +278,41 @@ def sweep_segment(sk, graphs: dict, rng) -> dict:
                                    ("gather", dict(values=w, src=src)),
                                    ("gather weighted", dict(values=w, src=src, ew=ew))):
                     label = f"{name} {loader} {kind} {dtype}"
-                    _, worst = check_segment(sk, ptr=ptr, n=n, label=label, exact=exact, **kw)
+                    _, worst = check_segment(sk, ptr=ptr, n=n, label=label, exact=exact,
+                                             plan=plan, **kw)
                     most[dtype] = max(most[dtype], worst)
         print(f"segment {name} (n={n}, E={e}): values and gather loaders, unweighted and "
               f"weighted, float32 within 1 ulp and float64 within {SEGMENT_F64_RTOL} of "
-              f"sum |x| of plain; integers equal to plain and float64; two calls equal")
+              f"sum |x| of plain; integers equal to plain and float64; two calls with the "
+              f"plan and two without equal")
     return most
 
 
 def measure_segment(sk, src, ptr, w, label: str) -> dict:
     """The segment kernel's gather loader at the main path's shapes (the
-    ``segment`` impl's SpMV), against its plain version (float64
-    ``index_add_``), one library call (``torch.segment_reduce`` over the
-    same pointers, on the gathered values) and its byte bound: src, ptr, w
-    read once and the output written once."""
+    ``segment`` impl's SpMV, through its graph's plan), against its plain
+    version (float64 ``index_add_``), one library call
+    (``torch.segment_reduce`` over the same pointers, on the gathered
+    values) and its byte bound: src, ptr, w read once and the output
+    written once.  The call without a plan is timed beside it."""
     n, e = w.shape[0], src.shape[0]
-    err, worst = check_segment(sk, w, ptr, n, label, src=src)
+    plan = sk.segment_plan(ptr)
+    check(plan.state.numel() == _build.library("segment").segment_scratch_len(n, e),
+          "segment plan scratch differs from segment_scratch_len")
+    err, worst = check_segment(sk, w, ptr, n, label, src=src, plan=plan)
     per_edge = w[src]  # gathered before timing
-    got = sk.segment_sum_kernel(w, ptr, n, src=src)
+    got = sk.segment_sum_kernel(w, ptr, n, src=src, plan=plan)
     exact = sk.segment_sum_plain(w.double(), ptr, n, src=src)
     rel = float(((got.double() - exact).abs() / exact.abs().clamp_min(1e-300)).max())
     b, by = bound_ms(src.nbytes + ptr.nbytes + w.nbytes + got.nbytes, e, torch.float64)
-    row = {"ms": time_ms(lambda: sk.segment_sum_kernel(w, ptr, n, src=src)),
+    bare = time_ms(lambda: sk.segment_sum_kernel(w, ptr, n, src=src))
+    row = {"ms": time_ms(lambda: sk.segment_sum_kernel(w, ptr, n, src=src, plan=plan)),
            "plain_ms": time_ms(lambda: sk.segment_sum_plain(w, ptr, n, src=src)),
            "library_ms": time_ms(lambda: torch.segment_reduce(per_edge, "sum", offsets=ptr,
                                                               unsafe=True)),
            "bound_ms": b, "bound_by": by, "max_abs_err": err}
-    print(f"segment {label}: kernel {row['ms']:.4f} ms, plain (float64 index_add_) "
+    print(f"segment {label}: kernel {row['ms']:.4f} ms (without a plan {bare:.4f}), plain "
+          f"(float64 index_add_) "
           f"{row['plain_ms']:.4f} ms, library (torch.segment_reduce) {row['library_ms']:.4f} ms, "
           f"bound {b:.4f} ms ({by}); vs plain max abs diff {err:.3g} ({worst:.3g} of 1 ulp), "
           f"largest relative error vs float64 {rel:.3g}")
@@ -527,19 +554,24 @@ def spmv_error(got, want, src, indptr, w, ew, label: str) -> tuple[float, float,
     return float(diff.max()), worst, l1
 
 
-def check_spmv(pk, src, indptr, w, ew, label: str, exact: bool) -> tuple[float, float, float]:
-    """The fused ``spmv`` kernel against ``spmv_pallas_plain`` on one input,
-    two calls bit for bit.  With ``exact`` (integer inputs whose sum is
+def check_spmv(pk, src, indptr, w, ew, label: str, exact: bool,
+               plan=None) -> tuple[float, float, float]:
+    """The fused ``spmv`` kernel against ``spmv_pallas_plain`` on one input:
+    two calls through ``indptr``'s plan (built here unless given) and two
+    without one, all four bit for bit.  With ``exact`` (integer inputs whose sum is
     exact in ``w``'s type) kernel, plain and the float64 sum must be equal;
     else :func:`spmv_error` holds kernel to plain."""
     n = w.shape[0]
-    got = pk.spmv_pallas(src, indptr, w, n=n, edge_weight=ew)
-    again = pk.spmv_pallas(src, indptr, w, n=n, edge_weight=ew)
+    plan = pk.spmv_plan(indptr) if plan is None else plan
+    got = pk.spmv_pallas(src, indptr, w, n=n, edge_weight=ew, plan=plan)
+    again = pk.spmv_pallas(src, indptr, w, n=n, edge_weight=ew, plan=plan)
+    bare = [pk.spmv_pallas(src, indptr, w, n=n, edge_weight=ew) for _ in range(2)]
     want = pk.spmv_pallas_plain(src, indptr, w, n=n, edge_weight=ew)
     torch.cuda.synchronize()
     check(got.shape == (n,) and got.dtype == w.dtype, f"spmv {label}: shape/dtype")
     check(bool(torch.isfinite(got).all()), f"spmv {label}: not finite")
     check(torch.equal(got, again), f"spmv {label}: two calls differ")
+    check(all(torch.equal(got, b) for b in bare), f"spmv {label}: calls without a plan differ")
     if not exact:
         return spmv_error(got, want, src, indptr, w, ew, label)
     exact_sum = pk.spmv_pallas_plain(src, indptr, w.double(), n=n,
@@ -581,20 +613,23 @@ def sweep_spmv(pk, graphs: dict, rng) -> dict:
         w_int, ew_int = values["integer"]
         check(float((w_int[np.asarray(src_np)] * ew_int).sum()) < 2.0 ** 24,
               f"spmv {name}: integer sum not exact in float32")
+        plan = pk.spmv_plan(indptr)
         parts = []
         for kind, (w64, ew64) in values.items():
             for dtype in (torch.float32, torch.float64):
                 w = torch.from_numpy(w64).to("cuda", dtype)
                 for ew in (None, torch.from_numpy(ew64).to("cuda", dtype)):
                     label = f"{name} {kind} {dtype} {'un' if ew is None else ''}weighted"
-                    err, worst, l1 = check_spmv(pk, src, indptr, w, ew, label, kind == "integer")
+                    err, worst, l1 = check_spmv(pk, src, indptr, w, ew, label, kind == "integer",
+                                                plan)
                     most[dtype] = [max(most[dtype][0], worst), max(most[dtype][1], l1)]
                     if kind == "real":
                         parts.append(f"{str(dtype)[6:]} {'un' if ew is None else ''}weighted "
                                      f"{err:.3g} ({worst:.3g} u, L1 {l1:.3g} u)")
         print(f"spmv {name} (N={n}, E={e}): max abs diff from plain (largest row / L1 in "
               f"units u of the scale): " + "; ".join(parts)
-              + "; integers equal to plain and float64; two calls equal")
+              + "; integers equal to plain and float64; two calls with the plan and two "
+              "without equal")
     return most
 
 
@@ -605,19 +640,24 @@ def measure_spmv_pallas(pk, ops, src, indptr, w) -> dict:
     (a CSR sparse matrix-vector product) and its byte bound: src, w, indptr
     read once and the output written once."""
     n, e = w.shape[0], src.shape[0]
-    got = pk.spmv_pallas(src, indptr, w, n=n)
+    plan = pk.spmv_plan(indptr)
+    check(plan.state.numel() == _build.library("spmv").spmv_scratch_len(e),
+          "spmv plan scratch differs from spmv_scratch_len")
+    got = pk.spmv_pallas(src, indptr, w, n=n, plan=plan)
     plain = pk.spmv_pallas_plain(src, indptr, w, n=n)
     mat = torch.sparse_csr_tensor(indptr, src, torch.ones(e, dtype=w.dtype, device=w.device),
                                   size=(n, n), check_invariants=False)
     want = ops.cumsum_diff_spmv(w.double()[src], indptr)
     err, worst, l1 = spmv_error(got, want, src, indptr, w, None, "main path vs float64")
     b, by = bound_ms(src.nbytes + w.nbytes + indptr.nbytes + got.nbytes)
-    row = {"ms": time_ms(lambda: pk.spmv_pallas(src, indptr, w, n=n)),
+    bare = time_ms(lambda: pk.spmv_pallas(src, indptr, w, n=n))
+    row = {"ms": time_ms(lambda: pk.spmv_pallas(src, indptr, w, n=n, plan=plan)),
            "plain_ms": time_ms(lambda: pk.spmv_pallas_plain(src, indptr, w, n=n)),
            "library_ms": time_ms(lambda: mat @ w),
            "bound_ms": b, "bound_by": by, "max_abs_err": float((got - plain).abs().max())}
     composite = time_ms(lambda: ops.cumsum_diff_spmv(w[src], indptr, pk.cumsum_kernel))
-    print(f"spmv E={e} N={n}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+    print(f"spmv E={e} N={n}: kernel {row['ms']:.4f} ms (without a plan {bare:.4f}), plain "
+          f"{row['plain_ms']:.4f} ms, "
           f"composite around cumsum {composite:.4f} ms, library (sparse CSR @ w) "
           f"{row['library_ms']:.4f} ms, bound {b:.4f} ms ({by}), max abs err vs float64 "
           f"{err:.3g} (largest row {worst:.3g} u, L1 {l1:.3g} u), vs plain "
@@ -1069,6 +1109,9 @@ def main() -> int:
     def counts() -> dict:
         return {**pk.LAUNCHES, **gk.LAUNCHES, **sk.LAUNCHES}
 
+    def plans() -> dict:
+        return {**pk.PLANS_BUILT, **sk.PLANS_BUILT}
+
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1150,6 +1193,8 @@ def main() -> int:
     # the segment kernel: edge cases, the spmv sweep's graphs, the 300-node
     # graph and the main path's, then its three call sites' shapes
     block = _build.library("segment").segment_block_items()
+    check(block == sk.BLOCK_ITEMS and tile == pk.TILE,
+          f"kernel tile sizes {block}, {tile} differ from the plans' {sk.BLOCK_ITEMS}, {pk.TILE}")
     seg_graphs = dict(segment_cases(rng, block))
     seg_graphs.update({f"spmv case {k}": (ip, s) for k, (s, ip) in spmv_cases(rng, tile).items()})
     seg_graphs["power-law 300 nodes"] = (small.csr_indptr(), small.src)
@@ -1168,11 +1213,16 @@ def main() -> int:
     for label, vals, ptr_t in (("hybrid head", head_sums, head_ptr),
                                ("sort_shuffle buckets", bucket_sums, bucket_ptr)):
         n_seg = ptr_t.shape[0] - 1
-        err, worst = check_segment(sk, vals, ptr_t, n_seg, label)
+        plan = sk.segment_plan(ptr_t)
+        err, worst = check_segment(sk, vals, ptr_t, n_seg, label, plan=plan)
+        # the value loader's bound: the values and the pointers read once,
+        # the sums written once
+        b, by = bound_ms(vals.nbytes + ptr_t.nbytes + n_seg * vals.element_size())
         print(f"segment {label} ({vals.shape[0]} values into {n_seg} segments): kernel "
-              f"{time_ms(lambda: sk.segment_sum_kernel(vals, ptr_t, n_seg)):.4f} ms, plain "
-              f"{time_ms(lambda: sk.segment_sum_plain(vals, ptr_t, n_seg)):.4f} ms; max abs diff "
-              f"{err:.3g} ({worst:.3g} of 1 ulp)")
+              f"{time_ms(lambda: sk.segment_sum_kernel(vals, ptr_t, n_seg, plan=plan)):.4f} ms "
+              f"(without a plan {time_ms(lambda: sk.segment_sum_kernel(vals, ptr_t, n_seg)):.4f}), "
+              f"plain {time_ms(lambda: sk.segment_sum_plain(vals, ptr_t, n_seg)):.4f} ms, bound "
+              f"{b:.5f} ms ({by}); max abs diff {err:.3g} ({worst:.3g} of 1 ulp)")
 
     # 3b. the probe's gather kernel against its plain version: every mode at
     # the probe's default shapes, then one block of 8 rows, and W = 4
@@ -1211,10 +1261,16 @@ def main() -> int:
     loop_ms = {}
     for impl in MAIN_IMPLS:
         cfg = PageRankConfig(**base, dtype="float32", spmv_impl=impl)
+        reset_counts()
+        put_graph_for(graph, cfg, "cuda")
+        per_graph = plans()
         run_pagerank(graph, cfg, device="cuda")  # warm-up, not counted
         reset_counts()
         res = run_pagerank(graph, cfg, device="cuda")
         launched = counts()
+        built = plans()
+        check(built == per_graph and sum(built.values()) <= 3,
+              f"{impl}: the run built plans {built}, one graph's put_graph builds {per_graph}")
         ranks = res.ranks
         ranks_by_impl[impl] = ranks
         step = res.metrics.records[-1]
@@ -1228,7 +1284,7 @@ def main() -> int:
               f"(min {min(rates):.2f}, max {max(rates):.2f}; counted run "
               f"{step['secs'] * 1e3:.2f} ms for {res.iterations}), put_graph "
               f"{put['preprocess_secs']:.2f} s, sum {total:.9f}, L1 vs f64 segment "
-              f"{l1:.3g}, launches {launched}")
+              f"{l1:.3g}, launches {launched}, plans built {built} (one graph's)")
         check(ranks.shape == (graph.n_nodes,) and bool(np.isfinite(ranks).all()),
               f"{impl}: ranks not finite or wrong shape")
         check(res.iterations == ITERS, f"{impl}: ran {res.iterations} iterations")
@@ -1254,10 +1310,20 @@ def main() -> int:
         e = torch.from_numpy(ops.restart_vector(graph.n_nodes, cfg)).to("cuda")
         r0 = torch.from_numpy(ops.init_ranks(graph.n_nodes, cfg)).to("cuda")
         device_ms, rows = profile_loop(ops.make_pagerank_runner(graph.n_nodes, cfg), dg, r0, e)
+        ops_per_step = sum(r[2] for r in rows) / ITERS
         print(f"profile {impl}: device {device_ms:.3f} ms of a {loop_ms[impl]:.3f} ms loop "
-              f"(busy {device_ms / loop_ms[impl]:.3f}), {sum(r[2] for r in rows) / ITERS:g} "
+              f"(busy {device_ms / loop_ms[impl]:.3f}), {ops_per_step:g} "
               f"device ops per step; top kernels, ms per run: "
               + "; ".join(f"{k[:60]} {t:.3f} x{c}" for k, t, c in rows[:8]))
+        if impl in ONE_OP_LIMITS:  # one device op a call: no second kernel, no memset
+            bad = [r[0] for r in rows if any(s in r[0] for s in RETIRED_OPS)]
+            check(not bad, f"{impl} loop still runs {bad}")
+            memsets = sum(r[2] for r in rows if r[0].startswith("Memset"))
+            check(memsets <= ITERS + 1, f"{impl} loop runs {memsets} memsets, more than the "
+                                        f"loop's own {ITERS + 1}")
+            check(ops_per_step < ONE_OP_LIMITS[impl],
+                  f"{impl} loop: {ops_per_step:g} device ops per step, not below "
+                  f"{ONE_OP_LIMITS[impl]:g}")
         if impl == "pallas":
             bad = [r[0] for r in rows if any(s in r[0] for s in WIDENING_KERNELS)]
             check(not bad, f"pallas loop still runs {bad}")

@@ -27,6 +27,8 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops.pagerank import (
     ShuffleLayout,
     segment_pointers,
 )
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops.pallas_kernels import spmv_plan
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops.segment_kernels import segment_plan
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops.tfidf import TfidfResult
 
 
@@ -55,25 +57,37 @@ def device_graph(record: Any, *, device: str | torch.device = "cuda") -> DeviceG
     on ``device``; each array keeps its dtype (int32 indices, the run's
     float type).  The layouts' CSR pointers over ``head_row_node`` and
     ``bucket_node``, which the JAX package has no need of, are built from
-    those ids where the record lacks them."""
+    those ids where the record lacks them; the kernels' plans of those
+    pointers and of ``indptr`` are built anew, as ``put_graph`` builds
+    them, and a record's own plans are not read."""
     fields = _fields(record)
+    for name in ("segment_plan", "spmv_plan"):
+        fields.pop(name, None)
     hybrid = fields.pop("hybrid", None)
     shuffle = fields.pop("shuffle", None)
     if hybrid is not None:
         hybrid = _fields(hybrid)
+        hybrid.pop("head_row_plan", None)
         if hybrid.get("head_row_ptr") is None:
             hybrid["head_row_ptr"] = segment_pointers(np.asarray(hybrid["head_row_node"]),
                                                       np.asarray(hybrid["head_ids"]).shape[0])
     if shuffle is not None:
         shuffle = _fields(shuffle)
+        shuffle.pop("bucket_plan", None)
         if shuffle.get("bucket_ptr") is None:
             shuffle["bucket_ptr"] = segment_pointers(np.asarray(shuffle["bucket_node"]),
                                                      np.asarray(fields["inv_outdeg"]).shape[0])
     dg = _convert(DeviceGraph, fields, device)
-    return dg._replace(
-        hybrid=None if hybrid is None else _convert(HybridLayout, hybrid, device),
-        shuffle=None if shuffle is None else _convert(ShuffleLayout, shuffle, device),
-    )
+    if hybrid is not None:
+        hybrid = _convert(HybridLayout, hybrid, device)
+        hybrid = hybrid._replace(head_row_plan=segment_plan(hybrid.head_row_ptr))
+    if shuffle is not None:
+        shuffle = _convert(ShuffleLayout, shuffle, device)
+        shuffle = shuffle._replace(bucket_plan=segment_plan(shuffle.bucket_ptr))
+    indptr = dg.indptr
+    plans = {} if indptr is None or indptr.shape[0] == 0 else dict(
+        segment_plan=segment_plan(indptr), spmv_plan=spmv_plan(indptr))
+    return dg._replace(hybrid=hybrid, shuffle=shuffle, **plans)
 
 
 def ranks_tensor(ranks, *, device: str | torch.device = "cuda") -> torch.Tensor:

@@ -16,96 +16,100 @@
 //
 // Bound on the H100: bytes.  For the main path, float32, unweighted: src 4E,
 // ptr 4(N+1), w 4N and out 4N: 24.7 MB, 7.4 us at 3.35 TB/s (E = 3,563,796,
-// N = 872,513).  The gathers of w hit the 3.5 MB table in L2.
+// N = 872,513).  The gathers of w hit the 3.5 MB table in L2.  There is
+// about one addition per 4 bytes, so the limit is bytes in flight.
 //
-// Design (simple and right first; wgmma, TMA and tuning wait):
+// Design:
 //   1. Merge path (Merrill and Garland, SC'16): the n row ends and the E
 //      values are one list of n + E items, ordered so that row r's values
-//      come before its end.  Block b takes items [b*kBlockItems, +kBlockItems),
-//      so a hub's segment spans many blocks and a run of empty rows costs
-//      one item each, like a value.  Warps 0 and 1 find the block's first
-//      and last (row, value) coordinates with a 32-way search of ptr.
-//   2. The block stages its row ends and its values (gathered, coalesced
-//      over src) in shared memory.  Each thread finds its own coordinate in
-//      shared memory and walks kItems items in order: a value adds to its
-//      running sum, a row end writes the row (the thread's first row end is
-//      held back: earlier threads may hold part of that row).
-//   3. The threads' trailing partial sums, keyed by row, go through a block
+//      come before its end.  Tile b takes items [b*kBlockItems, +kBlockItems),
+//      so a hub's segment spans many tiles and a run of empty rows costs
+//      one item each, like a value.  The plan (ops/segment_kernels.py,
+//      built once per graph) holds each tile's first coordinate: the row
+//      ends x before its first item, so its values start at y = d - x.
+//   2. Persistent blocks, one wave of them, take tiles in ticket order.  As
+//      soon as a block holds a tile, thread 0 starts two TMA bulk copies
+//      into shared memory: the tile's slice of ptr and its slice of src
+//      (gather loader) or of the values.  The gather loader then issues all
+//      of a thread's kItems gathers of w from the staged src before it
+//      stores any (a float takes its index's place).  A block takes its
+//      next ticket only when its tile is done: with the split rows of (5)
+//      finished at once, tickets taken while the tile before was walked
+//      made the tiles after them wait, and a ring of two stages (tile i+1's
+//      copies in flight while tile i is walked) measured slower, its
+//      doubled shared memory also taking L1 from the gathers (PERF.md §6).
+//   3. Each thread finds its own coordinate among the staged row ends and
+//      walks kItems items in order: a value adds to its running sum, a row
+//      end writes the row (the thread's first row end is held back: earlier
+//      threads may hold part of that row).
+//   4. The threads' trailing partial sums, keyed by row, go through a block
 //      segmented scan of fixed shape (warp shuffles, then warp 0 over the
 //      warp totals); each thread adds the partial its predecessors carried
-//      into its first row.  The block writes the partial of the row it ends
-//      in (its carry) and, when its first row began in an earlier block,
-//      that row's partial too instead of the row.
-//   4. A second kernel, one warp per block, finishes each row that began in
-//      an earlier block: it adds the carries of the blocks before in a fixed
-//      order (lane l takes blocks b-1-l, b-1-l-32, ..., then a butterfly),
-//      then the block's own partial.
+//      into its first row.  The tile publishes its carry: the row it ends
+//      in and its partial sum of that row, flagged with the call's epoch.
+//   5. A row that began in an earlier tile and ends in tile b gets the
+//      carries of the tiles before b, in a fixed order (lane l of a warp
+//      takes tiles b-1-l, b-1-l-32, ..., then a butterfly), each read once
+//      its flag shows, then b's own part.  The block puts such rows off to
+//      its end, when the tiles before are done, and finishes them a warp
+//      each (at once, past kPending of them).  Earlier tiles hold earlier
+//      tickets, so a wait never deadlocks (csrc/plan.cuh).
 // Every addition is in an order fixed by ptr and the sizes alone, so two
 // calls on one input give the same bits; nothing is added by atomics.  A
-// call is the two kernels, with no memset: every block writes its slots.
-// ptr must be a CSR over the E values (ptr[0] = 0, nondecreasing,
-// ptr[n] = E) and src must lie inside w: neither is checked here.
+// call is one kernel, with no memset: the plan's scratch was zeroed once,
+// and each call flags its carries with a new epoch.  ptr must be a CSR over
+// the E values (ptr[0] = 0, nondecreasing, ptr[n] = E), src must lie inside
+// w, and the plan must be ptr's: none of this is checked here.
 //
 // C interface (loaded with ctypes): device pointers (ew may be null), a
-// cudaStream_t, and the cudaError_t of the launches as the return value.
+// cudaStream_t, and the cudaError_t of the launch as the return value.
 
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstdint>
+#include <type_traits>
+
+#include "plan.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 8;                         // merge-path items a thread
-constexpr int kBlockItems = kThreads * kItems;   // 2048 items a block
+constexpr int kItems = 8;                        // merge-path items a thread
+constexpr int kBlockItems = kThreads * kItems;  // 2048 items a tile
+// At most 32 registers a thread, so 8 blocks fit an SM, as the 16.5 KB of
+// shared memory a block of the float gather loader allows (PERF.md §6).
+constexpr int kMinBlocks = 8;
+constexpr int kPending = 16;  // split rows a block puts off to its end
+constexpr int kAhead = 4;     // rounds of 32 carries a warp reads at once
+constexpr int kMaxDevices = 64;
 
-template <typename T>
-struct LoadGather {
-  const int* src;
-  const T* w;
-  const T* ew;
-  __device__ T operator()(long long e) const {
-    const T v = __ldg(w + src[e]);
-    return ew != nullptr ? v * ew[e] : v;
-  }
-};
+__host__ __device__ constexpr int align16(long long b) {
+  return static_cast<int>((b + 15) / 16 * 16);
+}
+// A tile stages ptr[x0 .. min(x1, n - 1) + 1], at most kBlockItems + 2 ints,
+// and at most kBlockItems elements of src or the values, each as a 16-byte
+// aligned span (plan::span_of: up to 12 bytes more at either end).
+constexpr int kEndBytes = align16(4 * (kBlockItems + 2) + 24);
+template <typename In>
+__host__ __device__ constexpr int in_bytes() {
+  return align16(static_cast<long long>(sizeof(In)) * kBlockItems + 24);
+}
 
-template <typename T>
-struct LoadValues {
-  const T* x;
-  __device__ T operator()(long long e) const { return x[e]; }
-};
-
-// Per-block slots of the second pass.
+// A tile's carry: the row it ends in (n when it ends after row n-1) and its
+// partial sum of that row.  The value is written, then __threadfence(),
+// then the tag: the call's epoch above the row.
 struct Carry {
-  int* key;           // the row the block ends in (n when it ends after row n-1)
-  double* val;        // the block's partial sum of that row
-  int* first_key;     // the block's first row where it began earlier and ends here, else -1
-  double* first_val;  // the block's partial sum of that row
+  double val;
+  unsigned long long tag;  // epoch << 32 | row
 };
 
-// The merge-path coordinate at diagonal d: the number x of row ends among
-// the first d items, searched in [lo, hi].  Row end p comes before item
-// d iff ptr[p + 1] + p + 1 <= d.  Called by a whole warp; each round probes
-// 32 evenly spaced rows.
-__device__ long long path_row(const int* __restrict__ ptr, long long lo, long long hi,
-                              long long d) {
-  const int lane = threadIdx.x & 31;
-  while (lo < hi) {
-    const long long step = (hi - lo + 31) / 32;
-    const long long p = lo + lane * step;
-    const bool before = p < hi && ptr[p + 1] + p + 1 <= d;
-    const int c = __popc(__ballot_sync(0xffffffffu, before));  // probes 0..c-1 come before
-    if (c == 0) {
-      hi = lo;
-    } else {
-      const long long last = lo + (c - 1) * step;
-      lo = last + 1;
-      if (last + step < hi) hi = last + step;
-    }
-  }
-  return lo;
+__device__ __forceinline__ void publish_carry(Carry* c, int key, double val, unsigned int epoch) {
+  *reinterpret_cast<volatile double*>(&c->val) = val;
+  __threadfence();
+  *reinterpret_cast<volatile unsigned long long*>(&c->tag) =
+      static_cast<unsigned long long>(epoch) << 32 | static_cast<unsigned int>(key);
 }
 
 struct KeyVal {
@@ -163,147 +167,297 @@ __device__ KeyVal block_segmented_scan(KeyVal kv, KeyVal* last) {
   return out;
 }
 
-template <typename T, typename Load>
-__global__ void __launch_bounds__(kThreads)
-segment_blocks(const int* __restrict__ ptr, Load load, T* __restrict__ out, int n, long long e,
-               Carry carry) {
-  __shared__ int s_end[kBlockItems + 1];  // ptr[x0 + 1 + k]: row x0 + k ends after value s_end[k]
-  __shared__ T s_val[kBlockItems];        // the values [y0, y1)
-  __shared__ long long s_x[2];
-  __shared__ int s_split;
+template <typename T>
+struct Args {
+  const int* src;     // gather loader: [E] indices into w; null for the value loader
+  const T* w;         // gather loader: the table; value loader: the E values
+  const T* ew;        // gather loader: optional [E] edge weights
+  const int* ptr;     // [n + 1]
+  const int* coords;  // [tiles + 1]: row ends before each tile's first item
+  T* out;             // [n]
+  plan::CallState* cs;
+  Carry* carry;  // [tiles]
+  int n;
+  long long e;
+  int tiles;
+};
+
+// What thread 0 tells the block about the tile it stages.
+struct TileMeta {
+  int t;             // the tile, or >= tiles when the block is done
+  int x0, x1;        // it ends rows [x0, x1)
+  long long y0, y1;  // it holds values [y0, y1)
+  int end_lead;      // ptr[x0] is element end_lead of the staged ptr span
+  int in_lead;       // src[y0] or x[y0] is element in_lead of the staged span
+};
+
+template <typename T, bool kGather>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+segment_tiles(Args<T> a) {
+  using In = typename std::conditional<kGather, int, T>::type;
+  // a float gathered from a staged src takes its index's place
+  constexpr bool kInPlace = sizeof(T) == sizeof(In);
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto* bar = reinterpret_cast<std::uint64_t*>(smem);
+  int* s_ptr = reinterpret_cast<int*>(smem + 16);                // the ptr span
+  unsigned char* s_in = smem + 16 + kEndBytes;                  // the src or values span
+  T* s_wide = reinterpret_cast<T*>(s_in + in_bytes<In>());     // double gathers
+  __shared__ TileMeta meta;
   __shared__ KeyVal s_last;
   __shared__ int s_first_key;
   __shared__ double s_first_val;
+  // split rows whose carries are added after the block's last tile
+  __shared__ int pend_tile[kPending], pend_row[kPending], pend_lo[kPending], s_pending;
+  __shared__ double pend_part[kPending];
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const long long total = n + e;
-  const long long d0 = static_cast<long long>(blockIdx.x) * kBlockItems;
-  const long long d1 = d0 + kBlockItems < total ? d0 + kBlockItems : total;
-  if (warp < 2) {
-    const long long d = warp == 0 ? d0 : d1;
-    const long long lo = d - e > 0 ? d - e : 0;
-    const long long hi = d < n ? d : n;
-    const long long x = path_row(ptr, lo, hi, d);
-    if ((tid & 31) == 0) {
-      s_x[warp] = x;
-      // the first row began in an earlier block: some of its values come
-      // before d0 (x0 < n, since d0 < n + E)
-      if (warp == 0) s_split = d0 - x > ptr[x];
-    }
-  }
-  if (tid == 0) s_first_key = -1;
-  __syncthreads();
-  const long long x0 = s_x[0], x1 = s_x[1];
-  const long long y0 = d0 - x0, y1 = d1 - x1;
-  const int ends = static_cast<int>((x1 < n ? x1 : n - 1) - x0 + 1);
-  for (int k = tid; k < ends; k += kThreads) s_end[k] = ptr[x0 + 1 + k];
-  for (int k = tid; k < y1 - y0; k += kThreads) s_val[k] = load(y0 + k);
-  __syncthreads();
-
-  // this thread's coordinate, searched among the block's row ends
-  long long d = d0 + static_cast<long long>(tid) * kItems;
-  if (d > d1) d = d1;
-  long long lo = d - e > x0 ? d - e : x0;
-  long long hi = d < x1 ? d : x1;
-  while (lo < hi) {
-    const long long p = (lo + hi) >> 1;
-    if (s_end[p - x0] + p + 1 <= d) lo = p + 1; else hi = p;
-  }
-  const int first_row = static_cast<int>(lo);
-  int x = first_row;
-  long long y = d - lo;
-  const long long dend = d + kItems < d1 ? d + kItems : d1;
-  double acc = 0.0, first = 0.0;
-  bool ended = false;
-  for (long long k = d; k < dend; ++k) {
-    if (y < s_end[x - x0]) {
-      acc += static_cast<double>(s_val[y - y0]);
-      ++y;
-    } else {
-      if (ended) {
-        out[x] = static_cast<T>(acc);
-      } else {
-        first = acc;
-        ended = true;
-      }
-      acc = 0.0;
-      ++x;
-    }
+  const long long total = a.n + a.e;
+  const unsigned int epoch = plan::call_epoch(a.cs);
+  const In* in_base;
+  if constexpr (kGather) {
+    in_base = a.src;
+  } else {
+    in_base = a.w;
   }
 
-  const KeyVal in = block_segmented_scan(KeyVal{x, acc}, &s_last);
-  if (ended) {
-    const double v = (tid > 0 ? in.val : 0.0) + first;
-    if (first_row == x0 && s_split) {
-      s_first_key = first_row;
-      s_first_val = v;
-    } else {
-      out[first_row] = static_cast<T>(v);
-    }
-  }
-  __syncthreads();
-  if (tid == 0) {
-    carry.key[blockIdx.x] = s_last.key;
-    carry.val[blockIdx.x] = s_last.val;
-    carry.first_key[blockIdx.x] = s_first_key;
-    carry.first_val[blockIdx.x] = s_first_key >= 0 ? s_first_val : 0.0;
-  }
-}
+  // Thread 0: stage tile t, taken from the ticket counter.
+  auto stage = [&](int t) {
+    meta.t = t;
+    if (t >= a.tiles) return;
+    const long long d0 = static_cast<long long>(t) * kBlockItems;
+    const long long d1 = d0 + kBlockItems < total ? d0 + kBlockItems : total;
+    const int x0 = a.coords[t], x1 = a.coords[t + 1];
+    const long long y0 = d0 - x0, y1 = d1 - x1;
+    const int xe = (x1 < a.n ? x1 : a.n - 1) + 1;
+    const plan::Span se = plan::span_of(a.ptr + x0, xe - x0 + 1, 4);
+    const plan::Span sv = y1 > y0 ? plan::span_of(in_base + y0, y1 - y0, sizeof(In))
+                                  : plan::Span{nullptr, 0, 0};
+    plan::barrier_expect(bar, se.bytes + sv.bytes);
+    plan::bulk_copy(s_ptr, se.start, se.bytes, bar);
+    if (sv.bytes) plan::bulk_copy(s_in, sv.start, sv.bytes, bar);
+    meta = {t, x0, x1, y0, y1, se.lead, sv.lead};
+  };
 
-// One warp per block b: the row that began before block b and ends in it
-// gets the carries of the blocks before, in a fixed order, then b's part.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-segment_fixup(Carry carry, T* __restrict__ out, int blocks) {
-  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (b >= blocks) return;
-  const int r = carry.first_key[b];
-  if (r < 0) return;
-  double part = 0.0;
-  for (int base = b - 1;; base -= 32) {
-    const int bb = base - lane;
-    const bool mine = bb >= 0 && carry.key[bb] == r;
-    if (mine) part += carry.val[bb];
-    if (__ballot_sync(0xffffffffu, mine) != 0xffffffffu) break;
-  }
+  // One warp: row r began before tile t and ends in it with part `own`;
+  // add the carries of the tiles before t in a fixed order (lane l takes
+  // tiles t-1-l, t-1-l-32, ... while all 32 tiles of a round end in row r,
+  // then a butterfly), then `own`.  Row r's first value lies in tile
+  // (ptr[r] + r) / kBlockItems, so no tile below `lo`, the one before that,
+  // ends in row r: each lane reads kAhead rounds of carries at once, all in
+  // flight together, and adds them round by round as above.
+  const int lane = tid & 31;
+  auto finish_row = [&](int t, int r, double own, int lo) {
+    double part = 0.0;
+    for (int base = t - 1;; base -= 32 * kAhead) {
+      unsigned long long tag[kAhead];
+      double val[kAhead];
+      bool ready[kAhead];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-  if (lane == 0) out[r] = static_cast<T>(part + carry.first_val[b]);
+      for (int j = 0; j < kAhead; ++j) ready[j] = base - 32 * j - lane < lo;
+      for (unsigned int tries = 0;; ++tries) {
+        bool done = true;
+#pragma unroll
+        for (int j = 0; j < kAhead; ++j) {
+          if (!ready[j]) {
+            tag[j] = *reinterpret_cast<const volatile unsigned long long*>(
+                &a.carry[base - 32 * j - lane].tag);
+            ready[j] = static_cast<unsigned int>(tag[j] >> 32) == epoch;
+            done = done && ready[j];
+          }
+        }
+        if (done) break;
+        if (tries == plan::kSpinLimit) __trap();
+      }
+      __threadfence();
+#pragma unroll
+      for (int j = 0; j < kAhead; ++j) {
+        const int bb = base - 32 * j - lane;
+        val[j] = bb >= lo ? *reinterpret_cast<const volatile double*>(&a.carry[bb].val) : 0.0;
+      }
+      bool more = true;
+#pragma unroll
+      for (int j = 0; j < kAhead; ++j) {
+        const bool mine = base - 32 * j - lane >= lo && static_cast<int>(tag[j]) == r;
+        if (mine) part += val[j];
+        if (__ballot_sync(0xffffffffu, mine) != 0xffffffffu) {
+          more = false;
+          break;
+        }
+      }
+      if (!more) break;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (lane == 0) a.out[r] = static_cast<T>(part + own);
+  };
+
+  if (tid == 0) {
+    plan::barrier_init(bar);
+    s_pending = 0;
+    stage(static_cast<int>(plan::take_ticket(a.cs)));
+  }
+  __syncthreads();
+  for (unsigned int phase = 0;; phase ^= 1u) {
+    const TileMeta m = meta;
+    if (m.t >= a.tiles) break;
+    if (tid == 0) s_first_key = -1;
+    plan::barrier_wait(bar, phase);
+    const int* send = s_ptr + m.end_lead;  // send[k] = ptr[x0 + k]
+    In* sin = reinterpret_cast<In*>(s_in) + m.in_lead;
+    const long long d0 = static_cast<long long>(m.t) * kBlockItems;
+    const long long d1 = d0 + kBlockItems < total ? d0 + kBlockItems : total;
+    const long long x0 = m.x0, x1 = m.x1, y0 = m.y0;
+    const T* vals;
+    if constexpr (kGather) {
+      // every gather of this thread in flight before any is stored
+      const int count = static_cast<int>(m.y1 - y0);
+      T* dst = kInPlace ? reinterpret_cast<T*>(sin) : s_wide;
+      T v[kItems];
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        const int k = i * kThreads + tid;
+        if (k < count) {
+          const T g = __ldg(a.w + sin[k]);
+          v[i] = a.ew == nullptr ? g : g * __ldg(a.ew + y0 + k);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        const int k = i * kThreads + tid;
+        if (k < count) dst[k] = v[i];
+      }
+      __syncthreads();
+      vals = dst;
+    } else {
+      vals = sin;
+    }
+    // the tile's first row began in an earlier tile: some of its values
+    // come before d0 (x0 < n, since d0 < n + E)
+    const bool split = y0 > send[0];
+
+    // this thread's coordinate, searched among the tile's row ends
+    long long d = d0 + static_cast<long long>(tid) * kItems;
+    if (d > d1) d = d1;
+    long long lo = d - a.e > x0 ? d - a.e : x0;
+    long long hi = d < x1 ? d : x1;
+    while (lo < hi) {
+      const long long p = (lo + hi) >> 1;
+      if (send[p - x0 + 1] + p + 1 <= d) lo = p + 1; else hi = p;
+    }
+    const int first_row = static_cast<int>(lo);
+    int x = first_row;
+    long long y = d - lo;
+    const long long dend = d + kItems < d1 ? d + kItems : d1;
+    double acc = 0.0, first = 0.0;
+    bool ended = false;
+    for (long long k = d; k < dend; ++k) {
+      if (y < send[x - x0 + 1]) {
+        acc += static_cast<double>(vals[y - y0]);
+        ++y;
+      } else {
+        if (ended) {
+          a.out[x] = static_cast<T>(acc);
+        } else {
+          first = acc;
+          ended = true;
+        }
+        acc = 0.0;
+        ++x;
+      }
+    }
+
+    const KeyVal in = block_segmented_scan(KeyVal{x, acc}, &s_last);
+    if (ended) {
+      const double v = (tid > 0 ? in.val : 0.0) + first;
+      if (first_row == x0 && split) {
+        s_first_key = first_row;
+        s_first_val = v;
+      } else {
+        a.out[first_row] = static_cast<T>(v);
+      }
+    }
+    __syncthreads();
+    if (tid < 32) {
+      if (tid == 0) publish_carry(a.carry + m.t, s_last.key, s_last.val, epoch);
+      // a row that began before this tile waits on the tiles before it: put
+      // off to the block's end, when they are done, unless the list is full
+      const int r = s_first_key;
+      if (r >= 0) {
+        const int k = s_pending;
+        // the tile before the one that holds row r's first value, item
+        // ptr[r] + r
+        const int from = static_cast<int>((send[0] + x0) / kBlockItems) - 1;
+        __syncwarp();
+        if (k < kPending) {
+          if (tid == 0) {
+            pend_tile[k] = m.t;
+            pend_row[k] = r;
+            pend_lo[k] = from > 0 ? from : 0;
+            pend_part[k] = s_first_val;
+            s_pending = k + 1;
+          }
+        } else {
+          finish_row(m.t, r, s_first_val, from > 0 ? from : 0);
+        }
+      }
+    }
+    // the staged spans are free: the next ticket, taken only now (2)
+    __syncthreads();
+    if (tid == 0) stage(static_cast<int>(plan::take_ticket(a.cs)));
+    __syncthreads();
+  }
+  // the rows put off, a warp each
+  for (int k = tid >> 5; k < s_pending; k += kWarps) {
+    finish_row(pend_tile[k], pend_row[k], pend_part[k], pend_lo[k]);
+  }
+  plan::finish_call(a.cs, epoch);
 }
 
-inline long long blocks_for(long long n, long long e) {
+inline long long tiles_for(long long n, long long e) {
   return (n + e + kBlockItems - 1) / kBlockItems;
 }
 
-inline long long align256(long long b) { return (b + 255) / 256 * 256; }
-
-inline Carry carry_at(void* scratch, long long blocks) {
-  char* p = static_cast<char*>(scratch);
-  const long long ints = align256(blocks * static_cast<long long>(sizeof(int)));
-  const long long dbls = align256(blocks * static_cast<long long>(sizeof(double)));
-  return {reinterpret_cast<int*>(p), reinterpret_cast<double*>(p + ints),
-          reinterpret_cast<int*>(p + ints + dbls),
-          reinterpret_cast<double*>(p + 2 * ints + dbls)};
+// The plan's scratch: the CallState, then one Carry a tile.
+inline long long state_len(long long tiles) {
+  return static_cast<long long>(sizeof(plan::CallState)) +
+         tiles * static_cast<long long>(sizeof(Carry));
 }
 
-template <typename T, typename Load>
-int segment_launch(const int* ptr, Load load, T* out, void* scratch, long long n, long long e,
-                   cudaStream_t stream) {
-  if (e < 0 || n < 0 || n >= INT_MAX || e >= INT_MAX) {
+template <typename T, bool kGather>
+int segment_launch(Args<T> a, void* state, long long state_bytes, cudaStream_t stream) {
+  if (a.e < 0 || a.n < 0 || a.n >= INT_MAX || a.e >= INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (n == 0) return 0;
-  if (e == 0) return static_cast<int>(cudaMemsetAsync(out, 0, n * sizeof(T), stream));
-  const long long blocks = blocks_for(n, e);
-  const Carry carry = carry_at(scratch, blocks);
-  segment_blocks<T, Load><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      ptr, load, out, static_cast<int>(n), e, carry);
-  cudaError_t err = cudaGetLastError();
+  if (a.n == 0) return 0;
+  if (a.e == 0) return static_cast<int>(cudaMemsetAsync(a.out, 0, a.n * sizeof(T), stream));
+  const long long tiles = tiles_for(a.n, a.e);
+  if (state_bytes < state_len(tiles)) return static_cast<int>(cudaErrorInvalidValue);
+  a.tiles = static_cast<int>(tiles);
+  a.cs = static_cast<plan::CallState*>(state);
+  a.carry = reinterpret_cast<Carry*>(static_cast<char*>(state) + sizeof(plan::CallState));
+  using In = typename std::conditional<kGather, int, T>::type;
+  const int smem = 16 + kEndBytes + in_bytes<In>() +
+                   (sizeof(T) != sizeof(In) ? kBlockItems * static_cast<int>(sizeof(T)) : 0);
+  auto kernel = segment_tiles<T, kGather>;
+  // one wave of resident blocks, measured once per device
+  static int resident[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned fix_blocks = static_cast<unsigned>((blocks + kWarps - 1) / kWarps);
-  segment_fixup<T><<<fix_blocks, kThreads, 0, stream>>>(carry, out, static_cast<int>(blocks));
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    }
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    resident[dev] = per_sm * sms;
+  }
+  const long long grid = resident[dev] < tiles ? resident[dev] : tiles;
+  kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -311,46 +465,55 @@ int segment_launch(const int* ptr, Load load, T* out, void* scratch, long long n
 
 extern "C" {
 
-// Bytes of scratch a call over n rows and e values needs: four slots a
-// block (two int, two double).
+// Bytes of the plan's scratch for n rows and e values: the call state and
+// one carry slot a tile.
 long long segment_scratch_len(long long n, long long e) {
   if (n <= 0 || e <= 0) return 0;
-  const long long blocks = blocks_for(n, e);
-  return 2 * align256(blocks * static_cast<long long>(sizeof(int))) +
-         2 * align256(blocks * static_cast<long long>(sizeof(double)));
+  return state_len(tiles_for(n, e));
 }
 
-// Merge-path items (row ends and values) a block takes.
+// Merge-path items (row ends and values) a tile takes.
 int segment_block_items() { return kBlockItems; }
 
+// coords: the plan's int32 [tiles + 1] first coordinates; state: its
+// scratch of state_bytes, zeroed when the plan was built.
 int segment_gather_f32(const void* src, const void* w, const void* ew, const void* ptr,
-                       void* out, void* scratch, long long n, long long e, void* stream) {
-  const LoadGather<float> load{static_cast<const int*>(src), static_cast<const float*>(w),
-                               static_cast<const float*>(ew)};
-  return segment_launch(static_cast<const int*>(ptr), load, static_cast<float*>(out), scratch,
-                        n, e, static_cast<cudaStream_t>(stream));
+                       const void* coords, void* out, void* state, long long state_bytes,
+                       long long n, long long e, void* stream) {
+  Args<float> a{static_cast<const int*>(src), static_cast<const float*>(w),
+                static_cast<const float*>(ew), static_cast<const int*>(ptr),
+                static_cast<const int*>(coords), static_cast<float*>(out), nullptr, nullptr,
+                static_cast<int>(n), e, 0};
+  return segment_launch<float, true>(a, state, state_bytes, static_cast<cudaStream_t>(stream));
 }
 
 int segment_gather_f64(const void* src, const void* w, const void* ew, const void* ptr,
-                       void* out, void* scratch, long long n, long long e, void* stream) {
-  const LoadGather<double> load{static_cast<const int*>(src), static_cast<const double*>(w),
-                                static_cast<const double*>(ew)};
-  return segment_launch(static_cast<const int*>(ptr), load, static_cast<double*>(out), scratch,
-                        n, e, static_cast<cudaStream_t>(stream));
+                       const void* coords, void* out, void* state, long long state_bytes,
+                       long long n, long long e, void* stream) {
+  Args<double> a{static_cast<const int*>(src), static_cast<const double*>(w),
+                 static_cast<const double*>(ew), static_cast<const int*>(ptr),
+                 static_cast<const int*>(coords), static_cast<double*>(out), nullptr, nullptr,
+                 static_cast<int>(n), e, 0};
+  return segment_launch<double, true>(a, state, state_bytes, static_cast<cudaStream_t>(stream));
 }
 
-int segment_values_f32(const void* x, const void* ptr, void* out, void* scratch, long long n,
-                       long long e, void* stream) {
-  const LoadValues<float> load{static_cast<const float*>(x)};
-  return segment_launch(static_cast<const int*>(ptr), load, static_cast<float*>(out), scratch,
-                        n, e, static_cast<cudaStream_t>(stream));
+int segment_values_f32(const void* x, const void* ptr, const void* coords, void* out,
+                       void* state, long long state_bytes, long long n, long long e,
+                       void* stream) {
+  Args<float> a{nullptr, static_cast<const float*>(x), nullptr, static_cast<const int*>(ptr),
+                static_cast<const int*>(coords), static_cast<float*>(out), nullptr, nullptr,
+                static_cast<int>(n), e, 0};
+  return segment_launch<float, false>(a, state, state_bytes, static_cast<cudaStream_t>(stream));
 }
 
-int segment_values_f64(const void* x, const void* ptr, void* out, void* scratch, long long n,
-                       long long e, void* stream) {
-  const LoadValues<double> load{static_cast<const double*>(x)};
-  return segment_launch(static_cast<const int*>(ptr), load, static_cast<double*>(out), scratch,
-                        n, e, static_cast<cudaStream_t>(stream));
+int segment_values_f64(const void* x, const void* ptr, const void* coords, void* out,
+                       void* state, long long state_bytes, long long n, long long e,
+                       void* stream) {
+  Args<double> a{nullptr, static_cast<const double*>(x), nullptr, static_cast<const int*>(ptr),
+                 static_cast<const int*>(coords), static_cast<double*>(out), nullptr, nullptr,
+                 static_cast<int>(n), e, 0};
+  return segment_launch<double, false>(a, state, state_bytes,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 const char* segment_error_string(int code) {

@@ -38,10 +38,10 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "cumsum_error_string": (ctypes.c_char_p, [_I]),
     },
     "spmv": {
-        "spmv_scratch_len": (_LL, [_LL, _LL, _I]),
+        "spmv_scratch_len": (_LL, [_LL]),
         "spmv_tile_len": (_I, []),
-        "spmv_f32": (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL, _P]),
-        "spmv_f64": (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL, _P]),
+        "spmv_f32": (_I, [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P]),
+        "spmv_f64": (_I, [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P]),
         "spmv_error_string": (ctypes.c_char_p, [_I]),
     },
     "rowsum": {
@@ -53,10 +53,10 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
     "segment": {
         "segment_scratch_len": (_LL, [_LL, _LL]),
         "segment_block_items": (_I, []),
-        "segment_gather_f32": (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL, _P]),
-        "segment_gather_f64": (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL, _P]),
-        "segment_values_f32": (_I, [_P, _P, _P, _P, _LL, _LL, _P]),
-        "segment_values_f64": (_I, [_P, _P, _P, _P, _LL, _LL, _P]),
+        "segment_gather_f32": (_I, [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P]),
+        "segment_gather_f64": (_I, [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P]),
+        "segment_values_f32": (_I, [_P, _P, _P, _P, _P, _LL, _LL, _LL, _P]),
+        "segment_values_f64": (_I, [_P, _P, _P, _P, _P, _LL, _LL, _LL, _P]),
         "segment_error_string": (ctypes.c_char_p, [_I]),
     },
     "gather": {

@@ -62,6 +62,7 @@ class HybridLayout(NamedTuple):
     head_w: torch.Tensor | None = None  # f [R, W] edge weights (0 at sentinels)
     tail_w: torch.Tensor | None = None  # f [Et] edge weights
     head_row_ptr: torch.Tensor | None = None  # int32 [H+1] CSR pointers over head_row_node
+    head_row_plan: sk.SegmentPlan | None = None  # the segment kernel's plan of head_row_ptr
 
 
 class ShuffleLayout(NamedTuple):
@@ -73,6 +74,7 @@ class ShuffleLayout(NamedTuple):
     bucket_node: torch.Tensor  # int32 [NB] bucket -> dst node, non-decreasing
     bucket_w: torch.Tensor | None = None  # f [NB, B] edge weights (0 at pads)
     bucket_ptr: torch.Tensor | None = None  # int32 [N+1] CSR pointers over bucket_node
+    bucket_plan: sk.SegmentPlan | None = None  # the segment kernel's plan of bucket_ptr
 
 
 class DeviceGraph(NamedTuple):
@@ -89,6 +91,10 @@ class DeviceGraph(NamedTuple):
     # Per-edge weights in dst-sorted order (weighted PageRank): the SpMV
     # contribution becomes ``w(u,v) * rank[u] / strength[u]``.
     edge_weight: torch.Tensor | None = None
+    # The kernels' plans of indptr (segment, spark_exact; pallas), built
+    # with it, once per graph.
+    segment_plan: sk.SegmentPlan | None = None
+    spmv_plan: pk.SpmvPlan | None = None
 
 
 def _pow2_floor(x: int) -> int:
@@ -246,7 +252,8 @@ def put_graph(
     placeholders instead of the raw edge arrays, which the layout impls
     never read.  The layouts' CSR pointers over ``head_row_node`` and
     ``bucket_node``, which the segmented-sum kernel reads, are built here,
-    once per graph."""
+    once per graph, and so are the kernels' plans of all three pointer
+    arrays."""
     if not keep_edge_arrays and layout is None:
         raise ValueError("keep_edge_arrays=False requires a static layout")
 
@@ -261,6 +268,7 @@ def put_graph(
         hl = build_hybrid_layout(
             graph, coverage=head_coverage, row_width=head_row_width
         )
+        head_ptr = segment_pointers(hl.head_row_node, hl.head_ids.shape[0])
         hybrid = HybridLayout(
             head_ids=put(hl.head_ids),
             head_src=put(hl.head_src),
@@ -270,20 +278,24 @@ def put_graph(
             tail_indptr=put(hl.tail_indptr),
             head_w=put(hl.head_w, dtype) if hl.head_w is not None else None,
             tail_w=put(hl.tail_w, dtype) if hl.tail_w is not None else None,
-            head_row_ptr=put(segment_pointers(hl.head_row_node, hl.head_ids.shape[0])),
+            head_row_ptr=put(head_ptr),
+            head_row_plan=sk.segment_plan(head_ptr, device=device),
         )
     elif layout == "sort_shuffle":
         bucket_src, bucket_node, bucket_w = build_shuffle_layout(
             graph, bucket_width=bucket_width
         )
+        bucket_ptr = segment_pointers(bucket_node, graph.n_nodes)
         shuffle = ShuffleLayout(
             bucket_src=put(bucket_src),
             bucket_node=put(bucket_node),
             bucket_w=put(bucket_w, dtype) if bucket_w is not None else None,
-            bucket_ptr=put(segment_pointers(bucket_node, graph.n_nodes)),
+            bucket_ptr=put(bucket_ptr),
+            bucket_plan=sk.segment_plan(bucket_ptr, device=device),
         )
     elif layout is not None:
         raise ValueError(f"unknown graph layout {layout!r}")
+    indptr = graph.csr_indptr() if keep_edge_arrays else None
     return DeviceGraph(
         src=put(graph.src if keep_edge_arrays else empty),
         dst=put(graph.dst if keep_edge_arrays else empty),
@@ -291,11 +303,13 @@ def put_graph(
         inv_outdeg=put(graph.inv_out_strength(dtype)),
         dangling=put(graph.out_degree == 0, dtype),
         has_outlinks=put(graph.out_degree > 0, dtype),
-        indptr=put(graph.csr_indptr() if keep_edge_arrays else empty, "int32"),
+        indptr=put(empty if indptr is None else indptr, "int32"),
         hybrid=hybrid,
         shuffle=shuffle,
         edge_weight=(put(graph.weight, dtype)
                      if weighted and keep_edge_arrays else None),
+        segment_plan=None if indptr is None else sk.segment_plan(indptr, device=device),
+        spmv_plan=None if indptr is None else pk.spmv_plan(indptr, device=device),
     )
 
 
@@ -343,7 +357,7 @@ def spmv_segment(dg: DeviceGraph, weighted_ranks: torch.Tensor, n: int) -> torch
     if dg.indptr is None:
         raise ValueError("spmv_impl='segment' needs DeviceGraph.indptr (use put_graph)")
     return sk.segment_sum_kernel(weighted_ranks, dg.indptr, n, src=dg.src,
-                                 edge_weight=dg.edge_weight)
+                                 edge_weight=dg.edge_weight, plan=dg.segment_plan)
 
 
 def spmv_bcoo(dg: DeviceGraph, weighted_ranks: torch.Tensor, n: int) -> torch.Tensor:
@@ -439,7 +453,7 @@ def spmv_hybrid(dg: DeviceGraph, weighted_ranks: torch.Tensor, n: int) -> torch.
         if hl.head_w is not None:
             rows = rows * hl.head_w  # sentinel slots carry weight 0
         row_sums = pk.rowsum_kernel(rows)
-        head = sk.segment_sum_kernel(row_sums, hl.head_row_ptr, h)
+        head = sk.segment_sum_kernel(row_sums, hl.head_row_ptr, h, plan=hl.head_row_plan)
         contribs = contribs.index_add_(0, hl.head_ids, head)
     return contribs
 
@@ -461,7 +475,7 @@ def spmv_sort_shuffle(
     vals = w_ext[sl.bucket_src]
     if sl.bucket_w is not None:
         vals = vals * sl.bucket_w  # pad slots carry weight 0
-    return sk.segment_sum_kernel(vals.sum(dim=1), sl.bucket_ptr, n)
+    return sk.segment_sum_kernel(vals.sum(dim=1), sl.bucket_ptr, n, plan=sl.bucket_plan)
 
 
 def spmv(dg: DeviceGraph, weighted: torch.Tensor, n: int, impl: str) -> torch.Tensor:
@@ -483,7 +497,7 @@ def spmv(dg: DeviceGraph, weighted: torch.Tensor, n: int, impl: str) -> torch.Te
         if dg.indptr is None:
             raise ValueError("spmv_impl='pallas' needs DeviceGraph.indptr (use put_graph)")
         return pk.spmv_pallas(dg.src, dg.indptr, weighted, n=n,
-                              edge_weight=dg.edge_weight)
+                              edge_weight=dg.edge_weight, plan=dg.spmv_plan)
     raise ValueError(f"unknown spmv impl {impl!r}")
 
 

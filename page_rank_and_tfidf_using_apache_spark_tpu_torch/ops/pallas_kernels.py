@@ -5,8 +5,9 @@ are CUDA C++ here, built for ``sm_90a`` on first use (``ops/_build.py``):
 
 - :func:`spmv_pallas` replaces ``spmv_pallas``, the SpMV under
   ``spmv_impl='pallas'``: gather, prefix sum and CSR-row difference fused
-  into one scan kernel plus a difference kernel (``csrc/spmv.cu``), reading
-  the int32 ``src`` and ``indptr`` as they are.
+  into one kernel a call (``csrc/spmv.cu``), reading the int32 ``src`` and
+  ``indptr`` as they are, with each tile's CSR pointers and the call's
+  scratch from a :class:`SpmvPlan` built once per graph.
 - :func:`cumsum_kernel` replaces ``cumsum_pallas``: the same single-pass,
   deterministic scan on its own (``csrc/cumsum.cu``; both share
   ``csrc/scan.cuh``).  On the main path its scan runs inside the fused
@@ -24,6 +25,9 @@ wrapper, so a run can show that it went through the kernels.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import _build
@@ -32,9 +36,20 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import _build
 LAUNCHES: dict[str, int] = {"cumsum": 0, "rowsum": 0, "spmv": 0}
 
 
+# Plans built since the last reset_launches().
+PLANS_BUILT: dict[str, int] = {"spmv": 0}
+
+# Edges per tile of csrc/spmv.cu, as its spmv_tile_len() reports; and its
+# scratch: a 16-byte call state, then three 16-byte descriptors a tile
+# (spmv_scratch_len()).
+TILE = 4096
+_STATE_BYTES, _SLOTS_BYTES = 16, 48
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, PLANS_BUILT):
+        for k in counts:
+            counts[k] = 0
 
 
 _FLOATS = (torch.float32, torch.float64)
@@ -114,7 +129,56 @@ def rowsum_kernel(rows: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _check_spmv(src, indptr, w, n: int, edge_weight) -> None:
+class SpmvPlan(NamedTuple):
+    """The fused SpMV's partition of one CSR pointer array, built once per
+    graph by :func:`spmv_plan`, with the scratch of every call.
+
+    Tile ``t`` takes edges ``[t·TILE, (t+1)·TILE)`` and the CSR pointers
+    ``[rows[t], rows[t+1])``: those with ``indptr[i]`` in ``(t·TILE,
+    (t+1)·TILE]`` (tile 0 also those equal to 0; the last tile's end is E).
+    ``state`` holds the kernel's call state and its descriptors, zeroed
+    once: each call flags them with a new epoch, so a call clears nothing.
+    A plan serves one stream at a time: calls on it must follow each other
+    on one stream."""
+
+    n: int  # rows
+    e: int  # edges
+    rows: torch.Tensor  # int32 [tiles + 1]
+    state: torch.Tensor  # uint8 [16 + 48·tiles], zeroed once
+
+
+def spmv_rows(indptr, tile: int = TILE) -> np.ndarray:
+    """int64 ``[tiles + 1]`` first CSR pointer of each tile of ``tile``
+    edges, and ``n + 1`` last: ``np.searchsorted(indptr, t·tile, 'right')``
+    for the tiles after the first."""
+    indptr = np.asarray(indptr, np.int64)
+    n, e = indptr.shape[0] - 1, int(indptr[-1])
+    tiles = -(-e // tile)
+    rows = np.zeros(tiles + 1, np.int64)
+    if tiles:
+        rows[1:tiles] = np.searchsorted(indptr, np.arange(1, tiles, dtype=np.int64) * tile,
+                                        side="right")
+        rows[tiles] = n + 1
+    return rows
+
+
+def spmv_plan(indptr, *, device: str | torch.device | None = None) -> SpmvPlan:
+    """The :class:`SpmvPlan` of the CSR pointers ``indptr`` (a numpy array
+    or an int32 tensor), on ``device`` (default: the tensor's, else the
+    CPU).  A tensor on the card is read back to the host once."""
+    if device is None:
+        device = indptr.device if isinstance(indptr, torch.Tensor) else "cpu"
+    host = indptr.cpu().numpy() if isinstance(indptr, torch.Tensor) else np.asarray(indptr)
+    rows = spmv_rows(host)
+    PLANS_BUILT["spmv"] += 1
+    return SpmvPlan(
+        n=host.shape[0] - 1, e=int(host[-1]),
+        rows=torch.from_numpy(rows.astype(np.int32)).to(device),
+        state=torch.zeros(_STATE_BYTES + _SLOTS_BYTES * (rows.shape[0] - 1), dtype=torch.uint8,
+                          device=device))
+
+
+def _check_spmv(src, indptr, w, n: int, edge_weight, plan) -> None:
     for name, idx in (("src", src), ("indptr", indptr)):
         if not isinstance(idx, torch.Tensor):
             raise TypeError(f"spmv_pallas {name} takes a torch.Tensor, got {type(idx).__name__}")
@@ -138,6 +202,14 @@ def _check_spmv(src, indptr, w, n: int, edge_weight) -> None:
         tensors.append(edge_weight)
     if len({t.device for t in tensors}) != 1:
         raise ValueError("spmv_pallas takes all its tensors on one device")
+    if plan is not None:
+        if not isinstance(plan, SpmvPlan):
+            raise TypeError(f"spmv_pallas plan takes a SpmvPlan, got {type(plan).__name__}")
+        if (plan.n, plan.e) != (n, src.shape[0]):
+            raise ValueError(f"spmv_pallas plan is for n={plan.n}, E={plan.e}, the call has "
+                             f"n={n}, E={src.shape[0]}")
+        if plan.rows.device != w.device or plan.state.device != w.device:
+            raise ValueError("spmv_pallas takes its plan on w's device")
 
 
 def spmv_pallas_plain(
@@ -169,10 +241,12 @@ def spmv_pallas(
     *,
     n: int,
     edge_weight: torch.Tensor | None = None,
+    plan: SpmvPlan | None = None,
 ) -> torch.Tensor:
     """``contribs[v] = Σ_{e: dst-sorted, dst[e]=v} w[src[e]] (· edge_weight[e])``:
-    ``csrc/spmv.cu`` on CUDA (one memset and two kernels), and
-    :func:`spmv_pallas_plain` on the CPU.  With no edges it returns zeros.
+    ``csrc/spmv.cu`` on CUDA (one kernel a call, given ``indptr``'s plan),
+    and :func:`spmv_pallas_plain` on the CPU.  With no edges it returns
+    zeros.
 
     Args:
       src: int32 [E] edge sources in dst-sorted order.
@@ -181,23 +255,27 @@ def spmv_pallas(
         float64.
       n: number of nodes.
       edge_weight: optional f[E] of ``w``'s type.
+      plan: ``indptr``'s :class:`SpmvPlan` on ``w``'s device.  A call
+        without one on the card builds one, which reads ``indptr`` back to
+        the host and allocates: it stays right and costs more.  The CPU
+        ignores it.
     """
-    _check_spmv(src, indptr, w, n, edge_weight)
+    _check_spmv(src, indptr, w, n, edge_weight, plan)
     if w.device.type == "cpu":
         return spmv_pallas_plain(src, indptr, w, n=n, edge_weight=edge_weight)
     e = src.shape[0]
     if e == 0 or n == 0:
         return torch.zeros(n, dtype=w.dtype, device=w.device)
     lib = _build.library("spmv")
+    if plan is None:
+        plan = spmv_plan(indptr)
     out = torch.empty(n, dtype=w.dtype, device=w.device)
-    scratch = torch.empty(lib.spmv_scratch_len(e, n, w.element_size()), dtype=torch.uint8,
-                          device=w.device)
     launch = lib.spmv_f32 if w.dtype == torch.float32 else lib.spmv_f64
     ew = None if edge_weight is None else edge_weight.data_ptr()
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = launch(src.data_ptr(), indptr.data_ptr(), w.data_ptr(), ew, out.data_ptr(),
-                    scratch.data_ptr(), e, n, stream)
+        rc = launch(src.data_ptr(), indptr.data_ptr(), plan.rows.data_ptr(), w.data_ptr(), ew,
+                    out.data_ptr(), plan.state.data_ptr(), plan.state.numel(), e, n, stream)
     _raise_on(rc, lib, "spmv_error_string", "spmv")
     LAUNCHES["spmv"] += 1
     return out

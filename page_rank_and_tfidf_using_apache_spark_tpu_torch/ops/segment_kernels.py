@@ -10,10 +10,12 @@ pointers ``put_graph`` builds over ``head_row_node`` and ``bucket_node``.
 
 On the card it is ``csrc/segment.cu``, built for ``sm_90a`` on first use
 (``ops/_build.py``): a merge-path split over rows and values, so a hub's
-segment spans many blocks, with every partial sum added in an order fixed
-by the shapes.  Two calls give the same bits, which the float64
-``index_add_`` of :func:`segment_sum_plain` does not promise on CUDA.  On
-the CPU the wrapper runs :func:`segment_sum_plain`.
+segment spans many tiles, with every partial sum added in an order fixed
+by the shapes, in one launch a call.  Two calls give the same bits, which
+the float64 ``index_add_`` of :func:`segment_sum_plain` does not promise on
+CUDA.  The split is a :class:`SegmentPlan`, built once per pointer array
+(``put_graph`` builds one for each of its three) and passed to every call.
+On the CPU the wrapper runs :func:`segment_sum_plain` and ignores the plan.
 
 ``LAUNCHES`` counts kernel launches, so a run can show that it went
 through the kernel.
@@ -21,6 +23,9 @@ through the kernel.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import _build
@@ -32,10 +37,73 @@ LAUNCHES: dict[str, int] = {"segment": 0}
 # The kernel indexes values and rows with 32-bit ints.
 _INT_LIMIT = 2 ** 31 - 1
 
+# Merge-path items (row ends and values) a tile of csrc/segment.cu takes, as
+# its segment_block_items() reports; and its scratch: a 16-byte call state,
+# then one 16-byte carry slot a tile (segment_scratch_len()).
+BLOCK_ITEMS = 2048
+_STATE_BYTES, _SLOT_BYTES = 16, 16
+
+# Plans built per pointer array since the last reset_launches().
+PLANS_BUILT: dict[str, int] = {"segment": 0}
+
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, PLANS_BUILT):
+        for k in counts:
+            counts[k] = 0
+
+
+class SegmentPlan(NamedTuple):
+    """The kernel's partition of one CSR pointer array, built once per graph
+    by :func:`segment_plan`, with the scratch of every call.
+
+    ``coords[b]`` is the merge-path coordinate of tile ``b``'s first item
+    ``d = b·BLOCK_ITEMS``: the number of row ends among the first ``d``
+    items (its values start at ``d - coords[b]``).  ``state`` is the
+    kernel's call state and one carry slot a tile, zeroed once: each call
+    flags its slots with a new epoch, so a call clears nothing.  A plan
+    serves one stream at a time: calls on it must follow each other on one
+    stream."""
+
+    n: int  # rows
+    e: int  # values
+    coords: torch.Tensor  # int32 [tiles + 1]
+    state: torch.Tensor  # uint8 [16 + 16·tiles], zeroed once
+
+
+def segment_tiles(n: int, e: int, block_items: int = BLOCK_ITEMS) -> int:
+    """Tiles of ``block_items`` merge-path items over ``n`` rows and ``e``
+    values; 0 where the kernel launches nothing."""
+    return -(-(n + e) // block_items) if n > 0 and e > 0 else 0
+
+
+def segment_coords(ptr, block_items: int = BLOCK_ITEMS) -> np.ndarray:
+    """int64 ``[tiles + 1]`` merge-path coordinates of the CSR pointers
+    ``ptr``: entry ``b`` counts the row ends among the first ``d =
+    min(b·block_items, n + E)`` items.  Row ``p``'s end comes before item
+    ``d`` iff ``ptr[p+1] + p + 1 <= d``, and those keys rise strictly, so
+    one ``searchsorted`` finds every tile's coordinate."""
+    ptr = np.asarray(ptr, np.int64)
+    n, e = ptr.shape[0] - 1, int(ptr[-1])
+    d = np.minimum(np.arange(segment_tiles(n, e, block_items) + 1, dtype=np.int64) * block_items,
+                   n + e)
+    return np.searchsorted(ptr[1:] + np.arange(1, n + 1), d, side="right")
+
+
+def segment_plan(ptr, *, device: str | torch.device | None = None) -> SegmentPlan:
+    """The :class:`SegmentPlan` of the CSR pointers ``ptr`` (a numpy array
+    or an int32 tensor), on ``device`` (default: the tensor's, else the
+    CPU).  A tensor on the card is read back to the host once."""
+    if device is None:
+        device = ptr.device if isinstance(ptr, torch.Tensor) else "cpu"
+    host = ptr.cpu().numpy() if isinstance(ptr, torch.Tensor) else np.asarray(ptr)
+    n, e = host.shape[0] - 1, int(host[-1])
+    coords = segment_coords(host)
+    PLANS_BUILT["segment"] += 1
+    return SegmentPlan(
+        n=n, e=e, coords=torch.from_numpy(coords.astype(np.int32)).to(device),
+        state=torch.zeros(_STATE_BYTES + _SLOT_BYTES * segment_tiles(n, e), dtype=torch.uint8,
+                          device=device))
 
 
 def _check_index(t, name: str) -> None:
@@ -47,7 +115,7 @@ def _check_index(t, name: str) -> None:
         raise ValueError(f"segment_sum {name} takes a contiguous 1-D tensor")
 
 
-def _check_segment(values, ptr, n: int, src, edge_weight) -> int:
+def _check_segment(values, ptr, n: int, src, edge_weight, plan) -> int:
     """Raises on anything the kernel does not take; returns E, the number of
     values summed."""
     _check(values, 1, "segment_sum values")
@@ -75,6 +143,14 @@ def _check_segment(values, ptr, n: int, src, edge_weight) -> int:
         raise ValueError("segment_sum takes all its tensors on one device")
     if e > _INT_LIMIT or n >= _INT_LIMIT:
         raise ValueError(f"segment_sum takes fewer than 2^31 values and rows, got E={e}, n={n}")
+    if plan is not None:
+        if not isinstance(plan, SegmentPlan):
+            raise TypeError(f"segment_sum plan takes a SegmentPlan, got {type(plan).__name__}")
+        if (plan.n, plan.e) != (n, e):
+            raise ValueError(f"segment_sum plan is for n={plan.n}, E={plan.e}, "
+                             f"the call has n={n}, E={e}")
+        if plan.coords.device != values.device or plan.state.device != values.device:
+            raise ValueError("segment_sum takes its plan on the values' device")
     return e
 
 
@@ -110,13 +186,15 @@ def segment_sum_kernel(
     *,
     src: torch.Tensor | None = None,
     edge_weight: torch.Tensor | None = None,
+    plan: SegmentPlan | None = None,
 ) -> torch.Tensor:
     """``out[r] = Σ_{e in [ptr[r], ptr[r+1])} v[e]`` for ``r < n``, with
     ``v = values`` or, given ``src``, ``v[e] = values[src[e]] (·
     edge_weight[e])``, the product taken in ``values``' type.  float32 sums
     in float64 and rounds once a row; float64 stays float64.
-    ``csrc/segment.cu`` on CUDA (two kernels a call), and
-    :func:`segment_sum_plain` on the CPU.  With no values it returns zeros.
+    ``csrc/segment.cu`` on CUDA (one kernel a call, given ``ptr``'s plan),
+    and :func:`segment_sum_plain` on the CPU.  With no values it returns
+    zeros.
 
     Args:
       values: f[E] values, or f[N] per-node values gathered through ``src``;
@@ -127,26 +205,31 @@ def segment_sum_kernel(
       src: optional int32 [E] indices into ``values``, each in range (not
         checked on the card).
       edge_weight: optional f[E] of ``values``' type, only with ``src``.
+      plan: ``ptr``'s :class:`SegmentPlan` on the values' device.  A call
+        without one on the card builds one, which reads ``ptr`` back to the
+        host and allocates: it stays right and costs more.  The CPU
+        ignores it.
     """
-    e = _check_segment(values, ptr, n, src, edge_weight)
+    e = _check_segment(values, ptr, n, src, edge_weight, plan)
     if values.device.type == "cpu":
         return segment_sum_plain(values, ptr, n, src=src, edge_weight=edge_weight)
     out = torch.empty(n, dtype=values.dtype, device=values.device)
     lib = _build.library("segment")  # it returns at once for n = 0, zeros out for E = 0
-    scratch = torch.empty(lib.segment_scratch_len(n, e), dtype=torch.uint8,
-                          device=values.device)
+    if plan is None:
+        plan = segment_plan(ptr)
     f32 = values.dtype == torch.float32
+    coords, state = plan.coords.data_ptr(), plan.state.data_ptr()
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream().cuda_stream
         if src is None:
             launch = lib.segment_values_f32 if f32 else lib.segment_values_f64
-            rc = launch(values.data_ptr(), ptr.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                        n, e, stream)
+            rc = launch(values.data_ptr(), ptr.data_ptr(), coords, out.data_ptr(), state,
+                        plan.state.numel(), n, e, stream)
         else:
             launch = lib.segment_gather_f32 if f32 else lib.segment_gather_f64
             ew = None if edge_weight is None else edge_weight.data_ptr()
-            rc = launch(src.data_ptr(), values.data_ptr(), ew, ptr.data_ptr(), out.data_ptr(),
-                        scratch.data_ptr(), n, e, stream)
+            rc = launch(src.data_ptr(), values.data_ptr(), ew, ptr.data_ptr(), coords,
+                        out.data_ptr(), state, plan.state.numel(), n, e, stream)
     _raise_on(rc, lib, "segment_error_string", "segment")
     if n and e:
         LAUNCHES["segment"] += 1

@@ -63,8 +63,9 @@ def stages(graph: Graph, device: torch.device, *, dtype: str = "float32",
         "cumsum_blocked_E": Stage(lambda: ops.cumsum_blocked(pe), (pe,)),
         # the segment impl's own reduction (the segmented-sum kernel, float32
         # summed in float64)
-        "segment_sum_E_to_N": Stage(lambda: sk.segment_sum_kernel(pe, dg.indptr, n),
-                                    (pe, dg.indptr)),
+        "segment_sum_E_to_N": Stage(
+            lambda: sk.segment_sum_kernel(pe, dg.indptr, n, plan=dg.segment_plan),
+            (pe, dg.indptr)),
         # the diff gathers from an (E+1)-long prefix sum, as the real stage does
         "monotone_diff_N": Stage(lambda: ce[dg.indptr[1:]] - ce[dg.indptr[:-1]], (dg.indptr,)),
         "spmv_cumsum": Stage(lambda: ops.spmv_cumsum(dg, w, n), (dg.src, dg.indptr)),

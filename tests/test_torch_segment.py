@@ -176,6 +176,17 @@ def test_layout_pointers_are_searchsorted_over_the_jax_ids(kind, weighted):
         assert (np.diff(bucket_ptr) == 0).sum() > 0
 
 
+def _same(a, b) -> bool:
+    """Equal tensors, or equal plans (sizes and tensors), or both None."""
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, int):
+        return a == b
+    return type(a) is type(b) and all(_same(x, y) for x, y in zip(a, b))
+
+
 @pytest.mark.parametrize("layout", ["hybrid", "sort_shuffle"])
 def test_convert_builds_the_pointers_of_put_graph(layout):
     """A JAX ``DeviceGraph`` carries no pointers; the converted one gets
@@ -189,8 +200,7 @@ def test_convert_builds_the_pointers_of_put_graph(layout):
     got_l, want_l = (dg.hybrid, want.hybrid) if layout == "hybrid" else (dg.shuffle,
                                                                           want.shuffle)
     for name in got_l._fields:
-        a, b = getattr(got_l, name), getattr(want_l, name)
-        assert (a is None and b is None) or torch.equal(a, b), name
+        assert _same(getattr(got_l, name), getattr(want_l, name)), name
     w = torch.from_numpy(np.random.default_rng(2).random(tgr.n_nodes))
     assert torch.equal(tops.spmv(dg, w, tgr.n_nodes, layout), tops.spmv(want, w, tgr.n_nodes,
                                                                         layout))
