@@ -80,6 +80,27 @@ Phases, each of which exits non-zero on failure:
    the TF-IDF CLI (``python -m``) against ``api.tfidf`` on the tiny
    fixture; and the PageRank loaders' native parse and sort against their
    numpy paths, on the tiny fixture and on the main path's graph;
+9. streaming TF-IDF, which reaches no kernel either: (9a)
+   ``ops.tfidf.chunk_counts_carry`` on the card against the CPU on the same
+   padded chunks (a real one, one with no valid token, one whose every
+   token is its own pair), outputs and carry equal; (9b) the config-2
+   stand-in in chunks of 512 documents re-packed and padded to 2^18 tokens
+   (``bench.py``'s streaming knobs), serial (``prefetch`` 0,
+   ``pipeline_depth`` 0) and pipelined (2, 2), raw/classic and smooth/L2:
+   the COO sorted by (term, doc), counts, weights, DF and IDF equal to
+   ``run_tfidf``'s on the card bit for bit, with tokens/s, chunks, cap
+   bumps and ``h2d_overlap_frac`` beside the batch path's tokens/s and the
+   host's part alone (packing, then tokenizing the packed chunks); (9c)
+   the config-5 stand-in (100,000 documents, bigrams, about 36M tokens),
+   pipelined, checked the same way; (9d) ``torch.profiler`` over one
+   pipelined config-2 run: every chunk's copy ``Pinned -> Device`` on a
+   stream other than the sort's, and the device's busy share; (9e) a run
+   whose source dies after chunk 10, checkpointing every 4, resumed: equal
+   to an unbroken run bit for bit; no kernel of the port launches;
+10. the servable index: ``cli.tfidf --streaming --save-index`` on the
+   config-2 stand-in, read back by ``serving.load_index``, every array equal
+   to ``save_index`` of ``api.tfidf``'s output, BM25 weights within 2e-6
+   of float64 numpy;
 7. one JSON line describing every kernel, then the result line.
 
 Without a CUDA device, or without the port's package beside it, it exits
@@ -1076,6 +1097,312 @@ def tfidf_phase(device, reset_counts, counts, n_docs: int = TFIDF_DOCS,
     check_tfidf_cli(tapi, tops, tio, device)
 
 
+# Streaming TF-IDF (phase 9) at bench.py's streaming knobs (bench.py:271-285):
+# documents in chunks of 512, re-packed to 2^18 tokens, padded to 2^18.  The
+# config-5 stand-in is cut from ~6M Wikipedia documents to 100,000 (bigrams
+# on) to fit the run's time.
+STREAM_CHUNK_DOCS, STREAM_CHUNK_TOKENS = 512, 1 << 18
+WIKI_DOCS, WIKI_TOKENS, WIKI_SEED = 100_000, 180, 11
+KILL_AFTER, KILL_EVERY = 10, 4
+
+
+class Killed(Exception):
+    """The source of phase 9e's killed run."""
+
+
+def chunked(docs, size: int) -> list:
+    return [docs[i:i + size] for i in range(0, len(docs), size)]
+
+
+def sorted_coo(out, device) -> dict:
+    """A TfidfOutput's COO in (term, doc) order (the batch path's), sorted
+    on ``device``; a dense matrix is too large at 2^18 columns."""
+    doc, term = (torch.from_numpy(a).to(device) for a in (out.doc, out.term))
+    order = torch.sort((term.long() << 31) | doc.long()).indices.cpu().numpy()
+    return {"doc": out.doc[order], "term": out.term[order], "count": out.count[order],
+            "weight": out.weight[order], "df": out.df, "idf": out.idf}
+
+
+def check_same_coo(got, want, label: str) -> None:
+    """Streaming against batch: the sorted COO, counts, weights, DF and IDF
+    equal bit for bit."""
+    a = sorted_coo(got, got.device)
+    b = {f: getattr(want, f) for f in ("doc", "term", "count", "weight", "df", "idf")}
+    check(got.n_docs == want.n_docs and got.nnz == want.nnz,
+          f"{label}: {got.n_docs} docs, {got.nnz} pairs; batch {want.n_docs}, {want.nnz}")
+    for f in ("doc", "term", "count", "weight", "df", "idf"):
+        check(a[f].dtype == b[f].dtype and a[f].tobytes() == b[f].tobytes(),
+              f"{label}: {f} differs from the batch path's")
+
+
+def batch_rate(out) -> str:
+    """A batch run's tokens/s with its tokenizer, from its records."""
+    ev = {r["event"]: r for r in out.metrics.records if "event" in r}
+    tok, dev = ev["tokenize"]["secs"], ev["pipeline"]["secs"]
+    return (f"{ev['tokenize']['tokens']} tokens, tokenize {tok:.3f} s + pipeline {dev:.4f} s, "
+            f"{ev['tokenize']['tokens'] / (tok + dev):.4g} tokens/s")
+
+
+def stream_records(metrics) -> dict:
+    recs = metrics.records
+    return {"chunks": sum(r.get("event") == "chunk" for r in recs),
+            "bumps": sum(r.get("event") == "chunk_cap_bump" for r in recs),
+            "overlap": next(r for r in recs if r.get("event") == "ingest_overlap")}
+
+
+def check_chunk_counts_carry(tops, corpus, device) -> None:
+    """9a. ``chunk_counts_carry`` on ``device`` against the CPU on the same
+    padded chunks (a real one at the run's capacity, one with no valid
+    token, one whose every token is its own pair): outputs and carry are
+    integers, so equal."""
+    cap, vocab = STREAM_CHUNK_TOKENS, 1 << corpus.vocab_bits
+    n = min(corpus.n_tokens, cap)
+    real = (corpus.doc_ids[:n], corpus.term_ids[:n], n)
+    ids = np.arange(cap, dtype=np.int32)
+    cases = {"real chunk": real, "no valid token": real[:2] + (0,),
+             "n_pairs == cap": (ids, ids % vocab, cap)}
+    carries = {d: torch.zeros(vocab, device=d) for d in ("cpu", device)}
+    for label, (doc, term, n_valid) in cases.items():
+        outs = {}
+        for d in carries:
+            pad = [torch.zeros(cap, dtype=torch.int32) for _ in range(2)]
+            pad[0][:len(doc)], pad[1][:len(term)] = torch.from_numpy(doc), torch.from_numpy(term)
+            valid = torch.arange(cap) < n_valid
+            counts, _ = tops.chunk_counts_carry(pad[0].to(d), pad[1].to(d), valid.to(d),
+                                                carries[d], vocab=vocab)
+            outs[d] = [t.cpu() for t in counts]
+        equal = all(torch.equal(a, b) for a, b in zip(outs["cpu"], outs[device]))
+        check(equal and torch.equal(carries["cpu"], carries[device].cpu()),
+              f"chunk_counts_carry {label}: {device} differs from the CPU")
+        print(f"chunk_counts_carry {label}: n_pairs {int(outs['cpu'][3])} of {cap}; outputs "
+              f"and carry on {device} equal to the CPU's")
+
+
+def profile_stream(run, cap: int, label: str, card_label: str) -> None:
+    """9d. ``torch.profiler`` over one pipelined run: every chunk's H2D
+    copy (``cap`` int32 doc and term ids) is ``Pinned -> Device`` and runs
+    on a stream other than the one that sorts; the device's busy share of
+    the run."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    traces = []
+    with tempfile.TemporaryDirectory() as tmp:
+        def ready(p):
+            path = os.path.join(tmp, "trace.json")
+            p.export_chrome_trace(path)
+            with open(path) as f:
+                traces.append(json.load(f))
+
+        walls = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=ready) as prof:
+            for _ in range(2):
+                t0 = time.perf_counter()
+                out, m = run()
+                walls.append(time.perf_counter() - t0)
+                prof.step()
+    check(len(traces) == 1, f"profiler delivered {len(traces)} traces, wanted 1")
+    events = [e for e in traces[0]["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    h2d = [e for e in events if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]]
+    chunk_bytes = 2 * cap * 4
+    chunk_copies = [e for e in h2d if e.get("args", {}).get("bytes") == chunk_bytes]
+    sorts = [e for e in events if e["cat"] == "kernel" and "sort" in e["name"].lower()]
+    n_chunks = stream_records(m)["chunks"]
+    check(len(chunk_copies) == n_chunks,
+          f"{label}: {len(chunk_copies)} chunk copies of {chunk_bytes} bytes, {n_chunks} chunks")
+    kinds = sorted({e["name"] for e in chunk_copies})
+    check(kinds == ["Memcpy HtoD (Pinned -> Device)"], f"{label}: chunk copies are {kinds}")
+    copy_streams = {e["args"]["stream"] for e in chunk_copies}
+    sort_streams = {e["args"]["stream"] for e in sorts}
+    check(bool(sorts) and not copy_streams & sort_streams,
+          f"{label}: chunk copies on streams {copy_streams}, sorts on {sort_streams}")
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    busy, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    other = sorted({e["name"] for e in h2d} - set(kinds))
+    print(f"profile {label}: {len(chunk_copies)} chunk copies, all Pinned -> Device, on "
+          f"streams {sorted(copy_streams)}; {len(sorts)} sort kernels on streams "
+          f"{sorted(sort_streams)}; other H2D copies {other}; device busy "
+          f"{busy / 1e3:.3f} ms of the {walls[1] * 1e3:.3f} ms run "
+          f"({busy / 1e6 / walls[1]:.3f}) on {card_label}")
+
+
+def streaming_phase(device, reset_counts, counts, card_label: str, *,
+                    n_docs: int = TFIDF_DOCS, wiki_docs: int = WIKI_DOCS,
+                    chunk_docs: int = STREAM_CHUNK_DOCS, bits: int = TFIDF_BITS,
+                    profile: bool = True) -> dict:
+    """Phase 9, streaming TF-IDF (see the module docstring); every check
+    raises on failure.  Returns what phase 10 reuses."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow import ingest as dflow
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.io import text as tio
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models import tfidf as tm
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import tfidf as tops
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder
+
+    knobs = dict(vocab_bits=bits, chunk_tokens=STREAM_CHUNK_TOKENS,
+                 pack_target_tokens=STREAM_CHUNK_TOKENS)
+    docs = tio.synthetic_corpus_lines(n_docs, TFIDF_TOKENS, TFIDF_SEED)
+    corpus = tio.tokenize_corpus(docs, vocab_bits=bits)
+    chunks = chunked(docs, chunk_docs)
+
+    # 9a.
+    check_chunk_counts_carry(tops, corpus, str(device))
+
+    # the host's part alone, on this thread: packing, then tokenizing the
+    # packed chunks
+    t0 = time.perf_counter()
+    packed = list(dflow.pack_doc_chunks(iter(chunks), knobs["pack_target_tokens"]))
+    pack_secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for c in packed:
+        tio.tokenize_corpus(c, vocab_bits=bits)
+    tok_secs = time.perf_counter() - t0
+    print(f"stream config-2 host only: pack {pack_secs:.3f} s into {len(packed)} chunks, "
+          f"tokenize them {tok_secs:.3f} s, {corpus.n_tokens / (pack_secs + tok_secs):.4g} "
+          f"tokens/s on {card_label}")
+
+    # 9b. the config-2 stand-in, serial and pipelined, two modes, against
+    # batch, after one untimed run (the caching allocators' first blocks)
+    tm.run_tfidf_streaming(iter(chunks), tcfg.TfidfConfig(**knobs), device=device)
+    reset_counts()
+    for mode in ({}, {"idf_mode": "smooth", "l2_normalize": True}):
+        batch = tm.run_tfidf(docs, tcfg.TfidfConfig(vocab_bits=bits, **mode), device=device)
+        print(f"batch config-2 {mode or 'raw/classic'}: {batch_rate(batch)} on {card_label}")
+        for prefetch, depth in ((0, 0), (2, 2)):
+            m = MetricsRecorder()
+            cfg = tcfg.TfidfConfig(**knobs, prefetch=prefetch, pipeline_depth=depth, **mode)
+            t0 = time.perf_counter()
+            out = tm.run_tfidf_streaming(iter(chunks), cfg, metrics=m, device=device)
+            secs = time.perf_counter() - t0
+            label = (f"stream config-2 {mode or 'raw/classic'} prefetch {prefetch} "
+                     f"depth {depth}")
+            check_same_coo(out, batch, label)
+            rec = stream_records(m)
+            print(f"{label}: {corpus.n_tokens} tokens in {secs:.3f} s, "
+                  f"{corpus.n_tokens / secs:.4g} tokens/s on {card_label}; "
+                  f"{rec['chunks']} chunks, {rec['bumps']} cap bumps, h2d_overlap_frac "
+                  f"{rec['overlap']['h2d_overlap_frac']}, tokenize {rec['overlap']['tokenize_secs']}"
+                  f" s, h2d {rec['overlap']['h2d_secs']} s, compute "
+                  f"{rec['overlap']['compute_secs']} s; sorted COO, counts, weights, df and idf "
+                  f"equal to batch bit for bit")
+    launched = counts()
+    check(not any(launched.values()), f"streaming path launched kernels {launched}")
+
+    # 9c. the config-5 stand-in: bigrams, pipelined
+    t0 = time.perf_counter()
+    wiki = tio.synthetic_corpus_lines(wiki_docs, WIKI_TOKENS, WIKI_SEED)
+    gen_secs = time.perf_counter() - t0
+    wcfg = dict(knobs, ngram=2)
+    batch = tm.run_tfidf(wiki, tcfg.TfidfConfig(vocab_bits=bits, ngram=2), device=device)
+    n_tok = sum(r["tokens"] for r in batch.metrics.records if r.get("event") == "tokenize")
+    print(f"batch config-5: {batch_rate(batch)} on {card_label}")
+    m = MetricsRecorder()
+    t0 = time.perf_counter()
+    out = tm.run_tfidf_streaming(iter(chunked(wiki, chunk_docs)),
+                                 tcfg.TfidfConfig(**wcfg), metrics=m, device=device)
+    secs = time.perf_counter() - t0
+    check_same_coo(out, batch, "stream config-5")
+    rec = stream_records(m)
+    print(f"stream config-5 (bigrams, {wiki_docs} docs built in {gen_secs:.1f} s): {n_tok} "
+          f"tokens, {out.nnz} pairs in {secs:.3f} s, {n_tok / secs:.4g} tokens/s on "
+          f"{card_label}; {rec['chunks']} chunks, {rec['bumps']} cap bumps, h2d_overlap_frac "
+          f"{rec['overlap']['h2d_overlap_frac']}; equal to batch bit for bit")
+    del wiki, batch, out
+
+    # 9d. pinned copies on their own stream, shown by the profiler
+    if profile:
+        def run():
+            m = MetricsRecorder()
+            return tm.run_tfidf_streaming(iter(chunks), tcfg.TfidfConfig(**knobs), metrics=m,
+                                          device=device), m
+
+        profile_stream(run, STREAM_CHUNK_TOKENS, "stream config-2 pipelined", card_label)
+
+    # 9e. kill after chunk KILL_AFTER, resume from the last checkpoint
+    kcfg = dict(vocab_bits=bits, idf_mode="smooth", l2_normalize=True)
+    whole = tm.run_tfidf_streaming(iter(chunks), tcfg.TfidfConfig(**kcfg), device=device)
+
+    def killed():
+        yield from chunks[:KILL_AFTER]
+        raise Killed(f"killed after chunk {KILL_AFTER}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = tcfg.TfidfConfig(**kcfg, checkpoint_every=KILL_EVERY, checkpoint_dir=tmp)
+        try:
+            tm.run_tfidf_streaming(killed(), cfg, device=device)
+            check(False, "the killed run did not raise")
+        except Killed:
+            pass
+        start = tm.resume_point(cfg)
+        resumed = tm.run_tfidf_streaming(iter(chunks), cfg, resume=True, device=device)
+    check(0 < start < KILL_AFTER, f"kill and resume: resume point {start}")
+    same = all(getattr(resumed, f).tobytes() == getattr(whole, f).tobytes()
+               for f in ("doc", "term", "count", "weight", "df", "idf", "doc_lengths"))
+    check(same, "kill and resume: the resumed run differs from an unbroken one")
+    print(f"kill and resume: killed after chunk {KILL_AFTER} of {len(chunks)}, resumed at "
+          f"checkpoint {start} (every {KILL_EVERY}); equal to an unbroken run bit for bit")
+    return {"docs": docs, "knobs": knobs, "chunk_docs": chunk_docs}
+
+
+def index_phase(device, docs, knobs: dict, chunk_docs: int, card_label: str) -> None:
+    """Phase 10: ``cli.tfidf --streaming --save-index`` on the config-2
+    stand-in, read back by ``load_index`` and held to ``save_index`` of
+    ``api.tfidf``'s output; BM25 against float64 numpy."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch import api as tapi
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch import serving
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
+
+    bits = knobs["vocab_bits"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "corpus.txt")
+        with open(path, "w") as f:
+            f.writelines(d + "\n" for d in docs)
+        cmd = [sys.executable, "-m", "page_rank_and_tfidf_using_apache_spark_tpu_torch.cli.tfidf",
+               path, "--lines", "--streaming", "--vocab-bits", str(bits),
+               "--chunk-docs", str(chunk_docs), "--chunk-tokens", str(knobs["chunk_tokens"]),
+               "--pack-target", str(knobs["pack_target_tokens"]),
+               "--save-index", os.path.join(tmp, "cli")]
+        if device.type == "cpu":
+            cmd += ["--device", "cpu"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cli_secs = time.perf_counter() - t0
+        check(proc.returncode == 0, f"tfidf CLI --save-index exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        got = serving.load_index(os.path.join(tmp, "cli"))
+        cfg, bm = tcfg.TfidfConfig(vocab_bits=bits), tcfg.Bm25Config()
+        out = tapi.tfidf(docs, cfg, device=device)
+        serving.save_index(os.path.join(tmp, "api"), out, cfg, bm25=bm)
+        want = serving.load_index(os.path.join(tmp, "api"))
+        for f in ("doc", "term", "weight", "idf", "df", "term_offsets", "bm25_weight"):
+            a, b = np.asarray(getattr(got, f)), np.asarray(getattr(want, f))
+            check(a.dtype == b.dtype and a.tobytes() == b.tobytes(),
+                  f"index: {f} of the CLI's streaming build differs from save_index(api.tfidf)")
+        check(got.cfg.config_hash() == cfg.config_hash() and got.n_docs == len(docs),
+              "index: config or document count differs")
+        # float64 BM25 on the same postings (api.tfidf's COO is in the
+        # index's (term, doc) order)
+        lengths = out.doc_lengths.astype(np.float64)
+        n, k1, b = float(out.n_docs), bm.k1, bm.b
+        dfp = got.df.astype(np.float64)[got.term]
+        c = out.count.astype(np.float64)
+        avgdl = max(lengths.sum() / n, 1.0)
+        want_bm25 = (np.log1p((n - dfp + 0.5) / (dfp + 0.5)) * c * (k1 + 1.0)
+                     / (c + k1 * (1.0 - b + b * lengths[got.doc] / avgdl)))
+        err = rel_err(got.bm25_weight, want_bm25)
+        check(err <= TFIDF_RTOL, f"index: bm25_weight {err:.3g} from float64 > {TFIDF_RTOL}")
+    print(f"index: the CLI's streaming --save-index ({cli_secs:.1f} s with start-up on "
+          f"{card_label}) loads with {got.nnz} postings, {got.n_docs} docs; doc, term, "
+          f"weight, idf, df, term_offsets, bm25_weight equal to save_index(api.tfidf) bit "
+          f"for bit; bm25_weight within {err:.3g} of float64 (rtol {TFIDF_RTOL})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs one CUDA GPU",
@@ -1405,6 +1732,19 @@ def main() -> int:
     tfidf_phase(torch.device("cuda"), reset_counts, counts)
     check_graph_loaders(tg, native, graph)
     print(f"phase 8 (tfidf, loaders): {time.perf_counter() - t0:.1f} s")
+
+    # 9. streaming TF-IDF: the chunk step against the CPU, the config-2 and
+    # config-5 stand-ins against batch, the pinned copies, kill and resume
+    card_label = f"{smi['device']}, {smi['power_limit']}"
+    t0 = time.perf_counter()
+    stream = streaming_phase(torch.device("cuda"), reset_counts, counts, card_label)
+    print(f"phase 9 (streaming): {time.perf_counter() - t0:.1f} s")
+
+    # 10. the servable index through the CLI
+    t0 = time.perf_counter()
+    index_phase(torch.device("cuda"), stream["docs"], stream["knobs"], stream["chunk_docs"],
+                card_label)
+    print(f"phase 10 (index): {time.perf_counter() - t0:.1f} s")
 
     # 7. the kernels line, then the result line; launches are those of the
     # kernel's own path: cumsum's from the hybrid run (its tail's prefix

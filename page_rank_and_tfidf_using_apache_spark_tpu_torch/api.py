@@ -7,7 +7,7 @@ CLIs (``cli/``) are thin argv wrappers over the same drivers.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Iterable, Sequence
 
 import torch
 
@@ -16,7 +16,11 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import (
     PageRankResult,
     run_pagerank,
 )
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import TfidfOutput, run_tfidf
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import (
+    TfidfOutput,
+    run_tfidf,
+    run_tfidf_streaming,
+)
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
     PageRankConfig,
     TfidfConfig,
@@ -46,25 +50,26 @@ def pagerank(
 
 
 def tfidf(
-    docs: Sequence[str],
+    docs: Sequence[str] | Iterable[Sequence[str]],
     cfg: TfidfConfig | None = None,
     *,
     streaming: bool = False,
     device: str | torch.device | None = None,
     **kwargs,
 ) -> TfidfOutput:
-    """Compute TF-IDF over a sequence of document strings, on ``cuda``
-    unless ``device`` says otherwise.
+    """Compute TF-IDF over a corpus, on ``cuda`` unless ``device`` says
+    otherwise.
 
-    Defaults match the 20-Newsgroups configuration: unigrams, hashed vocab
-    2^18, raw TF, classic ``log(N/df)`` IDF.  Keyword args construct/override
-    the config: ``tfidf(docs, idf_mode="smooth", l2_normalize=True)``.
+    ``docs`` is a sequence of document strings (batch) or, with
+    ``streaming=True``, an iterable of document chunks.  Defaults match the
+    20-Newsgroups configuration: unigrams, hashed vocab 2^18, raw TF,
+    classic ``log(N/df)`` IDF.  Keyword args construct/override the config:
+    ``tfidf(docs, idf_mode="smooth", l2_normalize=True)``.
     """
     if cfg is None:
         cfg = TfidfConfig(**kwargs)
     elif kwargs:
         cfg = dataclasses.replace(cfg, **kwargs)
     if streaming:
-        raise NotImplementedError(
-            "streaming TF-IDF is not ported to PyTorch yet (ROADMAP Queue 1 item 8)")
+        return run_tfidf_streaming(docs, cfg, device=device)
     return run_tfidf(docs, cfg, device=device)

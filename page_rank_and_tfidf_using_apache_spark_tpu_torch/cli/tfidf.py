@@ -1,16 +1,19 @@
 """TF-IDF CLI — the reference's ``spark-submit tfidf.py <corpus>`` entry
-point, batch path.  Runs on ``cuda`` unless ``--device`` says otherwise.
+point.  Runs on ``cuda`` unless ``--device`` says otherwise.
 
 Usage::
 
     python -m page_rank_and_tfidf_using_apache_spark_tpu_torch.cli.tfidf \
         corpus_dir --output weights.tsv --idf-mode classic
     python -m ...cli.tfidf corpus.txt --lines --query someword --top-k 3
+    python -m ...cli.tfidf corpus.txt --lines --streaming --chunk-docs 1000 \
+        --checkpoint-dir ck --checkpoint-every 4 [--resume] --save-index idx
 
-The JAX package's flags for paths the port does not run yet (streaming,
-checkpoints, the serving index, BM25, the mesh, the tuned profile) are
-accepted and refused: the command exits non-zero naming the ROADMAP item
-that ports them.
+The flags and defaults are the JAX CLI's (``--tuned-profile off``: no
+tuned profile exists for CUDA, so an unset knob takes its
+``TUNABLE_DEFAULTS`` value).  Its flags for paths the port does not run yet
+(the mesh, the tuned profile) are accepted and refused: the command exits
+non-zero naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -26,12 +29,21 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.text import (
     fnv1a_64,
     hash_to_vocab,
+    iter_corpus_chunks,
+    iter_corpus_dir,
+    iter_corpus_lines,
     load_corpus_dir,
     load_corpus_lines,
 )
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import run_tfidf
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import (
+    resume_point,
+    run_tfidf,
+    run_tfidf_streaming,
+)
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops.tfidf import TfidfResult, score_query
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import TfidfConfig
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import save_index
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import checkpoint as ckpt
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import Bm25Config, TfidfConfig
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import resolve_device
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.profiling import trace
@@ -40,24 +52,9 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.profiling import tra
 # needs, ROADMAP Queue 1 item).  Each defaults to None, so a given flag is
 # one that is not None.
 LATER_FLAGS = {
-    "--streaming": ("streaming ingest", 8),
-    "--chunk-docs": ("streaming ingest", 8),
-    "--chunk-tokens": ("streaming ingest", 8),
-    "--prefetch": ("streaming ingest", 8),
-    "--pipeline-depth": ("streaming ingest", 8),
-    "--pack-target": ("streaming ingest", 8),
-    "--checkpoint-dir": ("streaming checkpoints", 8),
-    "--checkpoint-every": ("streaming checkpoints", 8),
-    "--resume": ("streaming checkpoints", 8),
-    "--save-index": ("the serving index", 9),
-    "--index-ranks": ("the serving index", 9),
-    "--no-index-bm25": ("BM25", 10),
-    "--bm25-k1": ("BM25", 10),
-    "--bm25-b": ("BM25", 10),
     "--mesh": ("multi-GPU ingest", 11),
     "--tuned-profile": ("the tuned profile", 5),
 }
-_SWITCHES = {"--streaming", "--resume", "--no-index-bm25"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -75,6 +72,41 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--idf-mode", choices=["classic", "mllib", "smooth"], default="classic")
     p.add_argument("--l2-normalize", action="store_true")
     p.add_argument("--min-token-len", type=int, default=1)
+    p.add_argument("--streaming", action="store_true")
+    p.add_argument("--chunk-docs", type=int, default=1024,
+                   help="docs per streaming chunk")
+    p.add_argument("--chunk-tokens", type=int, default=0,
+                   help="fixed token capacity per chunk (0 = auto)")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="chunks between checkpoints")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--prefetch", type=int, default=None,
+                   help="tokenized chunks the tokenizer thread may run ahead, "
+                        "and launches in flight (0 = serial; default: "
+                        "TUNABLE_DEFAULTS)")
+    p.add_argument("--pipeline-depth", type=int, default=None,
+                   help="H2D-staged chunks the transfer thread may hold: "
+                        "chunk N+1's copy runs under chunk N's compute "
+                        "(0 = stage inline; default: TUNABLE_DEFAULTS)")
+    p.add_argument("--pack-target", type=int, default=None, metavar="TOKENS",
+                   help="re-pack incoming chunks to ~TOKENS tokens each "
+                        "before padding (0 = keep the source chunking; a "
+                        "resume must use the same value; default: "
+                        "TUNABLE_DEFAULTS)")
+    p.add_argument("--save-index", default=None, metavar="DIR",
+                   help="write the result as the next servable index "
+                        "version under DIR (serving/artifact.py)")
+    p.add_argument("--index-ranks", default=None, metavar="NPY",
+                   help="with --save-index: bundle this [n_docs] PageRank "
+                        "prior (.npy) into the index")
+    p.add_argument("--no-index-bm25", action="store_true",
+                   help="with --save-index: skip the BM25 weights (bundled "
+                        "by default: same postings, another weighting)")
+    p.add_argument("--bm25-k1", type=float, default=1.5,
+                   help="BM25 k1 (term-frequency saturation; default 1.5)")
+    p.add_argument("--bm25-b", type=float, default=0.75,
+                   help="BM25 b (length normalization; default 0.75)")
     p.add_argument("--query", nargs="+", default=None, metavar="TERM",
                    help="score docs against these terms, print top-k")
     p.add_argument("--top-k", type=int, default=10)
@@ -88,11 +120,8 @@ def build_parser() -> argparse.ArgumentParser:
                         " + manifest here (default: $GRAFT_TRACE_DIR)")
     later = p.add_argument_group("not ported yet (each exits non-zero naming its ROADMAP item)")
     for flag, (what, item) in LATER_FLAGS.items():
-        help_ = f"{what}: ROADMAP Queue 1 item {item}"
-        if flag in _SWITCHES:
-            later.add_argument(flag, action="store_true", default=None, help=help_)
-        else:
-            later.add_argument(flag, default=None, metavar="VALUE", help=help_)
+        later.add_argument(flag, default=None, metavar="VALUE",
+                           help=f"{what}: ROADMAP Queue 1 item {item}")
     return p
 
 
@@ -113,7 +142,15 @@ def _main(args) -> int:
     device = resolve_device(args.device)
     metrics = MetricsRecorder()
 
-    docs, names = (load_corpus_lines if args.lines else load_corpus_dir)(args.input)
+    if args.streaming:
+        # lazy iteration: the corpus never materializes on the host
+        docs = (iter_corpus_lines if args.lines else iter_corpus_dir)(args.input)
+        names: list[str] = []
+    else:
+        docs, names = (load_corpus_lines if args.lines else load_corpus_dir)(args.input)
+    # an unset knob takes the config's default (TUNABLE_DEFAULTS)
+    knobs = {"prefetch": args.prefetch, "pipeline_depth": args.pipeline_depth,
+             "pack_target_tokens": args.pack_target}
     cfg = TfidfConfig(
         vocab_bits=args.vocab_bits,
         ngram=args.ngram,
@@ -121,9 +158,37 @@ def _main(args) -> int:
         idf_mode=args.idf_mode,
         l2_normalize=args.l2_normalize,
         min_token_len=args.min_token_len,
+        chunk_tokens=args.chunk_tokens,
+        checkpoint_every=args.checkpoint_every,
+        checkpoint_dir=args.checkpoint_dir,
+        **{k: v for k, v in knobs.items() if v is not None},
     )
+    # On resume, probe the checkpoint for the restart chunk so the chunker
+    # never reads the ingested prefix into memory; its document count rides
+    # along, so a changed --chunk-docs raises instead of skipping the
+    # wrong documents.
+    skip, skip_docs = 0, None
+    if args.streaming and args.resume:
+        skip = resume_point(cfg)
+        if skip:
+            meta = ckpt.peek_meta(ckpt.latest_checkpoint(cfg.checkpoint_dir))
+            skip_docs = int(meta["extra"]["n_docs"])
     with trace(args.profile_dir):
-        out = run_tfidf(docs, cfg, metrics=metrics, doc_names=names, device=device)
+        if args.streaming:
+            out = run_tfidf_streaming(
+                iter_corpus_chunks(docs, args.chunk_docs, skip_chunks=skip,
+                                   expect_skipped_docs=skip_docs),
+                cfg, metrics=metrics, resume=args.resume, device=device,
+            )
+        else:
+            out = run_tfidf(docs, cfg, metrics=metrics, doc_names=names, device=device)
+
+    if args.save_index:
+        ranks = np.load(args.index_ranks) if args.index_ranks else None
+        bm25 = (None if args.no_index_bm25 or out.count is None
+                else Bm25Config(k1=args.bm25_k1, b=args.bm25_b))
+        path = save_index(args.save_index, out, cfg, ranks=ranks, bm25=bm25)
+        print(json.dumps({"index": path, "bm25": bm25 is not None}), file=sys.stderr)
 
     if args.output:
         with open(args.output, "w") as f:

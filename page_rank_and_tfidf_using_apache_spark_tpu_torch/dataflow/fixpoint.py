@@ -1,8 +1,9 @@
-"""``iterate``: the iterate-to-convergence loop under every PageRank runner.
+"""``iterate``, the iterate-to-convergence loop under every PageRank
+runner, and ``commit_barrier``, the commit point of the streaming ingest.
 
-Counterpart of the JAX package's ``dataflow/fixpoint.py`` ``iterate`` and
-``default_delta``.  PyTorch runs eagerly, so the loop is a Python loop
-that enqueues one step after another on the device.
+Counterpart of the JAX package's ``dataflow/fixpoint.py`` ``iterate``,
+``default_delta`` and ``commit_barrier``.  PyTorch runs eagerly, so the
+loop is a Python loop that enqueues one step after another on the device.
 """
 
 from __future__ import annotations
@@ -10,6 +11,26 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
+
+
+def commit_barrier(
+    drain_all: Callable[[], None],
+    commit: Callable[[], None],
+    save_checkpoint: Callable[[], None] | None = None,
+) -> None:
+    """The drain-before-commit barrier of the staged ingest pipeline: every
+    in-flight launch drains, then the device carry is pulled, then
+    (optionally) the snapshot is written, so a checkpoint never holds carry
+    contributions from chunks it does not record as ingested.  The
+    ``ingest.commit_barrier`` span makes the drain's stall visible in a
+    trace."""
+    with obs.span("ingest.commit_barrier"):
+        drain_all()
+        commit()
+        if save_checkpoint is not None:
+            save_checkpoint()
 
 
 def default_delta(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,21 @@
 """TF-IDF numeric core: hashed-vocabulary TF / DF / weight passes on device.
 
-Counterpart of the JAX package's ``ops/tfidf.py`` batch path.  Tokens
-arrive as flat hashed ``(doc_id, term_id)`` int32 arrays (``io/text.py``).
-The Spark reference's two ``reduceByKey`` passes become one sort and one
-run-length encoding of the int64 key ``term << 31 | doc``: each run of
-equal keys is one (term, doc) pair, so TF is the run lengths, DF the number
-of runs per term, and the ``tf.join(idf)`` weight join a gather of
-``idf[term]``.
+Counterpart of the JAX package's ``ops/tfidf.py``.  Tokens arrive as flat
+hashed ``(doc_id, term_id)`` int32 arrays (``io/text.py``).  The Spark
+reference's two ``reduceByKey`` passes become one sort and one run-length
+encoding of the int64 key ``term << 31 | doc``: each run of equal keys is
+one (term, doc) pair, so TF is the run lengths, DF the number of runs per
+term, and the ``tf.join(idf)`` weight join a gather of ``idf[term]``.
 
-PyTorch has no static shapes to keep, so every array is exact-length
-(``nnz`` rows, sorted by (term, doc)) where the JAX package pads to the
-token count with an ``n_pairs``/``valid`` pair.  No TPU kernel sits on this
-path: the JAX package leaves all of it to XLA, and it is plain PyTorch here.
+The batch path keeps no static shapes: its arrays are exact-length (``nnz``
+rows, sorted by (term, doc)) where the JAX package pads to the token count
+with an ``n_pairs``/``valid`` pair, and ``count_pairs`` learns ``nnz`` with
+one host sync.  The streaming path cannot wait on the device once a chunk:
+``count_pairs(..., token_valid=...)`` and ``chunk_counts_carry`` are
+fixed-shape, with rows in the chunk's capacity and ``n_pairs`` a 0-d
+tensor on the device, and the DF carry is updated in place.  No TPU kernel
+sits on either path: the JAX package leaves all of it to XLA, and it is
+plain PyTorch here.
 
 Reductions are deterministic, so the same postings give the same bits on
 every run: counts and DF are integer sums; the per-document sums (the L2
@@ -31,6 +35,9 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import IdfMod
 # Bits of a doc id in the sort key ``term << DOC_BITS | doc``: every int32
 # doc id fits, and at vocab_bits <= 30 the key stays under 2^61.
 DOC_BITS = 31
+# The key of a masked (padding) token: past every real key, so the sort
+# puts padding last.
+MASKED_KEY = torch.iinfo(torch.int64).max
 
 
 class SparseCounts(NamedTuple):
@@ -44,6 +51,18 @@ class SparseCounts(NamedTuple):
     @property
     def n_pairs(self) -> int:
         return int(self.doc.shape[0])
+
+
+class PaddedCounts(NamedTuple):
+    """Fixed-shape COO of one padded chunk's per-(doc, term) counts: rows
+    ``[0, n_pairs)`` sorted by (term, doc), the rest zero, and ``n_pairs``
+    a 0-d tensor on the device, so nothing waits for it."""
+
+    doc: torch.Tensor  # int32 [cap]
+    term: torch.Tensor  # int32 [cap]
+    count: torch.Tensor  # float32 [cap]
+    n_pairs: torch.Tensor  # int64 0-d
+    valid: torch.Tensor  # bool [cap]: row < n_pairs
 
 
 class TfidfResult(NamedTuple):
@@ -63,13 +82,22 @@ class TfidfResult(NamedTuple):
         return int(self.doc.shape[0])
 
 
-def count_pairs(doc_ids: torch.Tensor, term_ids: torch.Tensor) -> SparseCounts:
+def count_pairs(doc_ids: torch.Tensor, term_ids: torch.Tensor, *,
+                token_valid: torch.Tensor | None = None) -> SparseCounts | PaddedCounts:
     """The TF pass: ((term, doc), 1) → reduceByKey(add), as one sort + RLE of
     the key ``term << 31 | doc`` (non-negative int32 ids).  Pairs that tie
     on the key are the same pair, so the order of the COO is the key's.
 
-    ``torch.unique`` learns the number of pairs on the host: one device
-    sync per call."""
+    Without ``token_valid`` (the batch path) the result is exact-length:
+    ``torch.unique`` learns the number of pairs on the host, one device
+    sync per call.  With it (a padded streaming chunk) the result is a
+    :class:`PaddedCounts` of the chunk's capacity and nothing waits for
+    the device: masked tokens take :data:`MASKED_KEY`, one sort puts them
+    last, run starts come from neighbour differences and run ids from a
+    cumulative sum; each run's first token writes its doc and term, and
+    its count is an integer ``index_add_``."""
+    if token_valid is not None:
+        return _count_padded(doc_ids, term_ids, token_valid)
     key = (term_ids.long() << DOC_BITS) | doc_ids.long()
     pairs, count = torch.unique(key, sorted=True, return_counts=True)
     return SparseCounts(
@@ -79,12 +107,40 @@ def count_pairs(doc_ids: torch.Tensor, term_ids: torch.Tensor) -> SparseCounts:
     )
 
 
-def document_frequency(counts: SparseCounts, vocab: int) -> torch.Tensor:
+def _count_padded(doc_ids: torch.Tensor, term_ids: torch.Tensor,
+                  token_valid: torch.Tensor) -> PaddedCounts:
+    cap = doc_ids.shape[0]
+    dev = doc_ids.device
+    key = (term_ids.long() << DOC_BITS) | doc_ids.long()
+    key = torch.sort(torch.where(token_valid, key, MASKED_KEY)).values
+    real = key != MASKED_KEY
+    start = real.clone()
+    start[1:] &= key[1:] != key[:-1]
+    run = torch.cumsum(start, 0) - 1
+    n_pairs = start.sum()
+    # one write per run into rows [0, n_pairs); every other token writes
+    # the spare row `cap`, which is cut off
+    row = torch.where(start, run, cap)
+    doc = torch.zeros(cap + 1, dtype=torch.int32, device=dev).scatter_(
+        0, row, (key & ((1 << DOC_BITS) - 1)).int())
+    term = torch.zeros(cap + 1, dtype=torch.int32, device=dev).scatter_(
+        0, row, (key >> DOC_BITS).int())
+    count = torch.zeros(cap + 1, dtype=torch.int32, device=dev).index_add_(
+        0, torch.where(real, run, cap), real.int())
+    return PaddedCounts(doc=doc[:cap], term=term[:cap], count=count[:cap].float(),
+                        n_pairs=n_pairs,
+                        valid=torch.arange(cap, device=dev) < n_pairs)
+
+
+def document_frequency(counts: SparseCounts | PaddedCounts, vocab: int) -> torch.Tensor:
     """The DF pass: distinct (term, doc) → (term, 1) → reduceByKey(add).
-    Each COO row is one distinct pair, so DF counts rows per term (an
-    integer sum, exact in float32 below 2^24 documents)."""
+    Each COO row (each valid row, for :class:`PaddedCounts`) is one
+    distinct pair, so DF counts rows per term (an integer sum, exact in
+    float32 below 2^24 documents)."""
+    ones = (counts.valid.int() if isinstance(counts, PaddedCounts)
+            else torch.ones_like(counts.term))
     df = torch.zeros(vocab, dtype=torch.int32, device=counts.term.device)
-    return df.index_add_(0, counts.term, torch.ones_like(counts.term)).float()
+    return df.index_add_(0, counts.term, ones).float()
 
 
 def idf_vector(df: torch.Tensor, n_docs: int, mode: IdfMode) -> torch.Tensor:
@@ -110,14 +166,17 @@ def idf_vector(df: torch.Tensor, n_docs: int, mode: IdfMode) -> torch.Tensor:
 
 def tf_values(counts: SparseCounts, doc_lengths: torch.Tensor, mode: TfMode) -> torch.Tensor:
     """TF variants over the raw per-pair counts."""
+    return _tf(counts.count, counts.doc, doc_lengths, mode)
+
+
+def _tf(count: torch.Tensor, doc: torch.Tensor, doc_lengths: torch.Tensor,
+        mode: TfMode) -> torch.Tensor:
     if mode is TfMode.RAW:
-        return counts.count
+        return count
     if mode is TfMode.FREQ:
-        dl = doc_lengths[counts.doc].to(counts.count.dtype).clamp_min(1.0)
-        return counts.count / dl
+        return count / doc_lengths[doc].to(count.dtype).clamp_min(1.0)
     if mode is TfMode.LOGNORM:
-        c = counts.count
-        return torch.where(c > 0, 1.0 + torch.log(c), torch.zeros_like(c))
+        return torch.where(count > 0, 1.0 + torch.log(count), torch.zeros_like(count))
     raise ValueError(f"unknown tf mode {mode}")
 
 
@@ -148,12 +207,63 @@ def tfidf_pipeline(
     counts = count_pairs(doc_ids, term_ids)
     df = document_frequency(counts, vocab)
     idf = idf_vector(df, n_docs, idf_mode)
-    w = tf_values(counts, doc_lengths, tf_mode) * idf[counts.term]
-    if l2_normalize:
-        sq = doc_sums(w.double() ** 2, counts.doc, n_docs)
-        w = (w.double() / sq.clamp_min(1e-30).sqrt()[counts.doc]).float()
+    w = finalize_weights(counts.doc, counts.count, doc_lengths, idf[counts.term],
+                         n_docs=n_docs, tf_mode=tf_mode, l2_normalize=l2_normalize)
     return TfidfResult(doc=counts.doc, term=counts.term, weight=w, idf=idf, df=df,
                        count=counts.count)
+
+
+def finalize_weights(
+    doc: torch.Tensor,  # int32 [nnz]
+    count: torch.Tensor,  # float32 [nnz]
+    doc_lengths: torch.Tensor,  # int32 [n_docs]
+    idf_per_pair: torch.Tensor,  # float32 [nnz]: idf[term]
+    *,
+    n_docs: int,
+    tf_mode: TfMode,
+    l2_normalize: bool,
+) -> torch.Tensor:
+    """TF weighting, the idf join and the optional per-document L2 norm
+    over a COO, the batch pipeline's last step and the streaming path's
+    second pass.  A document's rows are summed in their order in the COO,
+    so a COO whose rows of each document come in the same order (term
+    ascending, as both paths give them) gets the same bits."""
+    w = _tf(count, doc, doc_lengths, tf_mode) * idf_per_pair
+    if l2_normalize:
+        sq = doc_sums(w.double() ** 2, doc, n_docs)
+        w = (w.double() / sq.clamp_min(1e-30).sqrt()[doc]).float()
+    return w
+
+
+def chunk_counts(
+    doc_ids: torch.Tensor,
+    term_ids: torch.Tensor,
+    token_valid: torch.Tensor,
+    *,
+    vocab: int,
+) -> tuple[PaddedCounts, torch.Tensor]:
+    """One padded chunk → (per-pair counts, the chunk's DF increment,
+    float32 [vocab])."""
+    counts = count_pairs(doc_ids, term_ids, token_valid=token_valid)
+    return counts, document_frequency(counts, vocab)
+
+
+def chunk_counts_carry(
+    doc_ids: torch.Tensor,
+    term_ids: torch.Tensor,
+    token_valid: torch.Tensor,
+    df_carry: torch.Tensor,
+    *,
+    vocab: int,
+) -> tuple[PaddedCounts, torch.Tensor]:
+    """The streaming-ingest step: one padded chunk → (per-pair counts, the
+    DF carry with this chunk added).  ``df_carry`` (float32 [vocab]) lives
+    on the device for the whole stream and is updated in place, where the
+    JAX package donates its buffer; nothing here waits for the device.  The
+    increment is an integer ``index_add_``, so the carry is exact and the
+    same on every run below 2^24 documents."""
+    counts, df = chunk_counts(doc_ids, term_ids, token_valid, vocab=vocab)
+    return counts, df_carry.add_(df)
 
 
 def score_query(

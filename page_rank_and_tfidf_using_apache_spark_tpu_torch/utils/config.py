@@ -2,12 +2,14 @@
 flags.
 
 Counterpart of the JAX package's ``utils/config.py`` (``PageRankConfig``,
-``DanglingMode``, ``RankInit``, ``TfidfConfig``, ``IdfMode``, ``TfMode``,
-the keys of ``TUNABLE_DEFAULTS`` they read and ``config_hash``), copied so
-the port never imports that package.  Field names, defaults, validation
-and hashes are held equal to the JAX package by
-``tests/test_torch_graph.py`` (PageRank) and ``tests/test_torch_tfidf.py``
-(TF-IDF).
+``DanglingMode``, ``RankInit``, ``IngestConfig``, ``TfidfConfig``,
+``IdfMode``, ``TfMode``, ``Bm25Config``, the keys of ``TUNABLE_DEFAULTS``
+they read, ``config_hash`` and ``config_to_json``), copied so the port
+never imports that package.  Field names, defaults, validation and hashes
+are held equal to the JAX package by ``tests/test_torch_graph.py``
+(PageRank), ``tests/test_torch_tfidf.py`` (TF-IDF) and
+``tests/test_torch_ingest.py`` / ``tests/test_torch_artifact.py``
+(ingest, BM25).
 """
 
 from __future__ import annotations
@@ -29,9 +31,8 @@ TUNABLE_DEFAULTS: dict = {
     "shuffle_bucket_width": 8,
     # strategy="owned" replicated hub-head cap (sharded path, not ported)
     "owned_max_head": 4096,
-    # staged streaming-ingest depths and chunk re-packing target (TfidfConfig;
-    # the streaming path is not ported, the fields keep configs and hashes
-    # equal to the JAX package's)
+    # staged streaming-ingest depths and chunk re-packing target
+    # (IngestConfig, TfidfConfig)
     "prefetch": 2,
     "pipeline_depth": 2,
     "pack_target_tokens": 0,
@@ -174,6 +175,35 @@ class IdfMode(str, enum.Enum):
     SMOOTH = "smooth"
 
 
+@dataclasses.dataclass(frozen=True)
+class IngestConfig:
+    """Knobs of the staged ingest pipeline (``dataflow.ingest.chunked_ingest``):
+    tokenize, H2D staging and compute run as overlapped stages, and these
+    two depths bound how far each stage may run ahead.
+
+    - ``prefetch``: tokenized chunks the tokenizer thread may buffer ahead
+      of the H2D stage, and launched chunks in flight before the host
+      drains the oldest.  0 = no tokenizer thread, every chunk drains
+      before the next launches.
+    - ``pipeline_depth``: H2D-staged chunks (copies issued on the copy
+      stream, compute not yet launched) the transfer thread may hold.  0 =
+      staging runs inline on the calling thread.
+
+    Results are bit-identical at every depth; only scheduling changes.
+    """
+
+    prefetch: int = TUNABLE_DEFAULTS["prefetch"]
+    pipeline_depth: int = TUNABLE_DEFAULTS["pipeline_depth"]
+
+    def __post_init__(self) -> None:
+        if self.prefetch < 0:
+            raise ValueError(f"prefetch must be >= 0, got {self.prefetch}")
+        if self.pipeline_depth < 0:
+            raise ValueError(
+                f"pipeline_depth must be >= 0, got {self.pipeline_depth}"
+            )
+
+
 class TfMode(str, enum.Enum):
     """TF variant: RAW counts (Spark canonical), FREQ = count/doc_len,
     LOGNORM = 1 + log(count)."""
@@ -188,8 +218,9 @@ class TfidfConfig:
     """Configuration for a TF-IDF run over a corpus.
 
     ``vocab_bits`` fixes the hashed vocabulary to ``2**vocab_bits`` ids
-    (2^18 for the 20-Newsgroups configuration).  The batch pipeline runs in
-    float32 whatever ``dtype`` says, as the JAX package's does.
+    (2^18 for the 20-Newsgroups configuration).  The batch and streaming
+    pipelines run in float32 whatever ``dtype`` says; the batch one does in
+    the JAX package too.
     """
 
     vocab_bits: int = 18
@@ -199,19 +230,17 @@ class TfidfConfig:
     l2_normalize: bool = False
     lowercase: bool = True
     min_token_len: int = 1
-    # Streaming ingest: docs are fed in fixed-size chunks of this many
-    # tokens; 0 = single batch.  This and the fields below it down to
-    # checkpoint_dir belong to the streaming path, which the port does not
-    # run yet; they are kept so configs and their hashes match the JAX
-    # package's.
+    # Streaming ingest: chunks are padded to this many tokens; 0 = the
+    # first chunk's size rounded up to a power of two.
     chunk_tokens: int = 0
-    # Staged ingest pipeline: tokenized chunks the tokenizer thread may run
-    # ahead (prefetch), and H2D-staged chunks held on the device
-    # (pipeline_depth).
+    # Staged ingest pipeline (IngestConfig above): tokenized chunks the
+    # tokenizer thread may run ahead and launches in flight (prefetch), and
+    # H2D-staged chunks held on the device (pipeline_depth).
     prefetch: int = TUNABLE_DEFAULTS["prefetch"]
     pipeline_depth: int = TUNABLE_DEFAULTS["pipeline_depth"]
     # Re-pack incoming document chunks to ~this many tokens each; 0 = take
-    # the caller's chunking as-is.
+    # the caller's chunking as-is.  Checkpoint chunk indices count packed
+    # chunks, so a resume re-packs with the same target.
     pack_target_tokens: int = TUNABLE_DEFAULTS["pack_target_tokens"]
     checkpoint_every: int = 0  # chunks between checkpoints (0 = off)
     checkpoint_dir: str | None = None
@@ -239,6 +268,11 @@ class TfidfConfig:
     def vocab_size(self) -> int:
         return 1 << self.vocab_bits
 
+    def ingest(self) -> IngestConfig:
+        """The staged-pipeline knobs as the dataflow core's IngestConfig."""
+        return IngestConfig(prefetch=self.prefetch,
+                            pipeline_depth=self.pipeline_depth)
+
     def config_hash(self) -> str:
         """Semantic fields only (chunking/checkpoint placement excluded —
         the accumulated DF/TF state is chunk-boundary-independent)."""
@@ -250,6 +284,26 @@ class TfidfConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class Bm25Config:
+    """Okapi BM25 weighting knobs (``dataflow/bm25.py``): the second ranker
+    over the same postings COO the TF-IDF pipeline builds, with the Lucene
+    idf ``log(1 + (N - df + 0.5)/(df + 0.5))``, which keeps weights
+    non-negative."""
+
+    k1: float = 1.5
+    b: float = 0.75
+
+    def __post_init__(self) -> None:
+        if self.k1 < 0:
+            raise ValueError(f"k1 must be >= 0, got {self.k1}")
+        if not 0.0 <= self.b <= 1.0:
+            raise ValueError(f"b must be in [0, 1], got {self.b}")
+
+    def config_hash(self) -> str:
+        return _hash_config(self)
+
+
 def _to_jsonable(obj: Any) -> Any:
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return {f.name: _to_jsonable(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
@@ -258,6 +312,10 @@ def _to_jsonable(obj: Any) -> Any:
     if isinstance(obj, (list, tuple)):
         return [_to_jsonable(x) for x in obj]
     return obj
+
+
+def config_to_json(cfg: Any) -> str:
+    return json.dumps(_to_jsonable(cfg), sort_keys=True)
 
 
 def _hash_config(cfg: Any, exclude: set[str] = frozenset()) -> str:

@@ -22,7 +22,10 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.cli import pagerank as cli
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.cli import tfidf as tfidf_cli
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import synthetic_powerlaw
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import run_tfidf
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import (
+    run_tfidf,
+    run_tfidf_streaming,
+)
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import (
     gather_micro,
     spmv_breakdown,
@@ -76,6 +79,14 @@ def test_scan_covers_the_obs_core_and_the_segment_kernel():
     assert {"ops/segment_kernels.py", "utils/profiling.py", "utils/metrics.py"} <= scanned
 
 
+def test_scan_covers_the_streaming_slice():
+    """The ingest pipeline, checkpoints, BM25 and the index are among the
+    files the scan reads."""
+    scanned = {p.relative_to(PORT).as_posix() for p in FILES if p.is_relative_to(PORT)}
+    assert {"dataflow/ingest.py", "dataflow/bm25.py", "utils/checkpoint.py",
+            "serving/__init__.py", "serving/artifact.py", "models/tfidf.py"} <= scanned
+
+
 @pytest.mark.parametrize("source, flagged", [
     ("import page_rank_and_tfidf_using_apache_spark_tpu_torch.ops", set()),
     ("from page_rank_and_tfidf_using_apache_spark_tpu_torch import api", set()),
@@ -124,7 +135,8 @@ TOOLS = {"gather_micro": gather_micro, "spmv_breakdown": spmv_breakdown,
 
 
 @pytest.mark.parametrize("entry", ["api", "run_pagerank", "cli", *TOOLS, "api_tfidf",
-                                   "run_tfidf", "cli_tfidf"])
+                                   "run_tfidf", "cli_tfidf", "api_tfidf_streaming",
+                                   "run_tfidf_streaming", "cli_tfidf_streaming"])
 def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
     """With no CUDA and no ``device=``, every entry point raises rather than
     running on the CPU."""
@@ -144,6 +156,13 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
             run_tfidf(docs, TfidfConfig())
         elif entry == "cli_tfidf":
             tfidf_cli.main([TINY, "--lines", "--output", str(tmp_path / "r.json")])
+        elif entry == "api_tfidf_streaming":
+            tfidf([docs], streaming=True)
+        elif entry == "run_tfidf_streaming":
+            run_tfidf_streaming([docs], TfidfConfig())
+        elif entry == "cli_tfidf_streaming":
+            tfidf_cli.main([TINY, "--lines", "--streaming", "--save-index", str(tmp_path / "r.json"),
+                            "--output", str(tmp_path / "r.json")])
         else:
             TOOLS[entry].main(["--reps", "1", "--out", str(tmp_path / "r.json")])
     assert not (tmp_path / "r.json").exists()
@@ -159,6 +178,46 @@ def test_explicit_cpu_runs_tfidf(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = tfidf(["a b c", "b c d"], vocab_bits=8, device="cpu")
     assert out.nnz == 6 and np.isfinite(out.weight).all()
+
+
+def test_explicit_cpu_runs_streaming(monkeypatch, tmp_path, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tfidf([["a b c"], ["b c d"]], streaming=True, vocab_bits=8, device="cpu")
+    assert out.nnz == 6 and out.device == "cpu" and np.isfinite(out.weight).all()
+    assert tfidf_cli.main([TINY, "--lines", "--streaming", "--chunk-docs", "5",
+                           "--save-index", str(tmp_path / "idx"), "--device", "cpu"]) == 0
+    assert '"bm25": true' in capsys.readouterr().err
+
+
+def test_streaming_runs_with_jax_unimportable(tmp_path):
+    """Streaming with checkpoints, a resume, BM25 and the index, in a
+    process where JAX and the JAX package cannot be imported."""
+    code = """
+import sys
+for name in ("jax", "jaxlib", "page_rank_and_tfidf_using_apache_spark_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import page_rank_and_tfidf_using_apache_spark_tpu_torch as port
+from page_rank_and_tfidf_using_apache_spark_tpu_torch import serving
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import run_tfidf_streaming
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import Bm25Config
+tmp = sys.argv[1]
+chunks = [["the cat sat", "the dog sat"], ["a cat ran", ""], ["dogs and cats"]]
+kw = dict(vocab_bits=10, l2_normalize=True, checkpoint_every=1, checkpoint_dir=tmp + "/ck")
+port.tfidf(iter(chunks[:2]), streaming=True, device="cpu", **kw)
+out = run_tfidf_streaming(iter(chunks), port.TfidfConfig(**kw), resume=True, device="cpu")
+assert out.metrics.records[0]["event"] == "resume", out.metrics.records[0]
+batch = port.tfidf([d for c in chunks for d in c], vocab_bits=10, l2_normalize=True,
+                   device="cpu")
+assert out.to_dense().tobytes() == batch.to_dense().tobytes()
+serving.save_index(tmp + "/idx", out, port.TfidfConfig(**kw), bm25=Bm25Config())
+idx = serving.load_index(tmp + "/idx")
+assert idx.nnz == batch.nnz and idx.bm25_weight is not None
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
 
 
 def test_tfidf_runs_with_jax_unimportable():

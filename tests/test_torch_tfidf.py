@@ -11,8 +11,10 @@ Queue 3); each such test asserts that this is the only cause.
 
 Also: the sklearn-convention oracle of ``tests/test_tfidf_oracle.py``,
 position-stable top-k through ``convert.tfidf_result``, the empty corpus,
-the CLI against the JAX CLI, the CLI flags of later slices, the config,
-and the graph loaders with the native layer on and off.
+the CLI against the JAX CLI (its batch flags, and one case for each
+streaming, checkpoint, index and BM25 flag), the CLI flags of later
+slices, the config, and the graph loaders with the native layer on and
+off.
 """
 
 from __future__ import annotations
@@ -311,14 +313,20 @@ def test_sklearn_convention_oracle_on_tiny():
 
 
 def test_api_matches_reference_api_and_refuses_streaming():
+    """Batch and ``streaming=True`` against the JAX package's ``api.tfidf``;
+    streaming gives the batch bits."""
     docs, _ = corpus(n_docs=40, tokens=10, seed=2)
     p = tfidf(docs, vocab_bits=10, device="cpu")
     j = j_api_tfidf(docs, vocab_bits=10)
     assert p.doc.tobytes() == np.asarray(j.doc).tobytes()
     p2 = tfidf(docs, TfidfConfig(vocab_bits=12), vocab_bits=10, device="cpu")
     assert p2.weight.tobytes() == p.weight.tobytes()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tfidf([docs], streaming=True, device="cpu")
+    chunks = [docs[i:i + 7] for i in range(0, len(docs), 7)]
+    s = tfidf(iter(chunks), streaming=True, vocab_bits=10, device="cpu")
+    js = j_api_tfidf(iter(chunks), streaming=True, vocab_bits=10)
+    assert s.to_dense().tobytes() == p.to_dense().tobytes()
+    for f in ("doc", "term", "count", "df"):
+        assert getattr(s, f).tobytes() == np.asarray(getattr(js, f)).tobytes(), f
 
 
 @pytest.mark.parametrize("docs", [[], [""], ["", "", ""], ["", "a b", ""]])
@@ -413,14 +421,91 @@ def test_cli_matches_reference_cli(flags, tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", list(tcli.LATER_FLAGS))
 def test_cli_refuses_flags_of_later_slices(flag, tmp_path, capsys):
-    value = [] if flag in ("--streaming", "--resume", "--no-index-bm25") else ["2"]
     out = tmp_path / "w.tsv"
     with pytest.raises(SystemExit) as e:
-        tcli.main([str(TINY), "--lines", "--device", "cpu", "--output", str(out), flag, *value])
+        tcli.main([str(TINY), "--lines", "--device", "cpu", "--output", str(out), flag, "2"])
     assert e.value.code != 0
     item = tcli.LATER_FLAGS[flag][1]
     assert f"ROADMAP Queue 1 item {item}" in capsys.readouterr().err
     assert not out.exists()
+
+
+# Each flag of the streaming, checkpoint, index and BM25 paths, with what it
+# needs beside it ({d}: a directory of the run's own, {r}: a ranks file).
+SLICE_FLAGS = {
+    "--streaming": ["--streaming"],
+    "--chunk-docs": ["--streaming", "--chunk-docs", "5"],
+    "--chunk-tokens": ["--streaming", "--chunk-docs", "4", "--chunk-tokens", "16"],
+    "--prefetch": ["--streaming", "--chunk-docs", "2", "--prefetch", "0"],
+    "--pipeline-depth": ["--streaming", "--chunk-docs", "2", "--pipeline-depth", "3"],
+    "--pack-target": ["--streaming", "--chunk-docs", "1", "--pack-target", "20"],
+    "--checkpoint-dir": ["--streaming", "--chunk-docs", "2", "--checkpoint-dir", "{d}/ck"],
+    "--checkpoint-every": ["--streaming", "--chunk-docs", "2", "--checkpoint-dir", "{d}/ck",
+                           "--checkpoint-every", "2"],
+    "--resume": ["--streaming", "--chunk-docs", "2", "--checkpoint-dir", "{d}/ck",
+                 "--checkpoint-every", "2", "--resume"],
+    "--save-index": ["--save-index", "{d}/idx"],
+    "--index-ranks": ["--streaming", "--save-index", "{d}/idx", "--index-ranks", "{r}"],
+    "--no-index-bm25": ["--save-index", "{d}/idx", "--no-index-bm25"],
+    "--bm25-k1": ["--streaming", "--chunk-docs", "3", "--save-index", "{d}/idx",
+                  "--bm25-k1", "0.9"],
+    "--bm25-b": ["--save-index", "{d}/idx", "--bm25-b", "0.3"],
+}
+
+
+@pytest.mark.parametrize("flag", list(SLICE_FLAGS))
+def test_cli_flags_of_this_slice_match_reference_cli(flag, tmp_path, capsys):
+    """Each flag through the port's CLI and the JAX CLI: the same output
+    file (names and term ids line for line, weights within RTOL), the same
+    summaries, and the same checkpoints and indexes.  ``--resume`` resumes
+    from a checkpoint the same CLI left over the first 6 lines."""
+    from page_rank_and_tfidf_using_apache_spark_tpu.serving import load_index
+    from page_rank_and_tfidf_using_apache_spark_tpu.utils import checkpoint as jckpt
+
+    assert flag in SLICE_FLAGS[flag] and flag not in tcli.LATER_FLAGS
+    ranks = tmp_path / "ranks.npy"
+    np.save(ranks, np.linspace(0, 1, 12).astype(np.float32))
+    head = tmp_path / "head.txt"
+    head.write_text("".join(TINY.read_text().splitlines(keepends=True)[:6]))
+    outs, printed, dirs = {}, {}, {}
+    for name, main, extra in (("port", tcli.main, ["--device", "cpu"]),
+                              ("jax", jcli.main, ["--tuned-profile", "off"])):
+        d = dirs[name] = tmp_path / name
+        argv = [a.format(d=d, r=ranks) for a in SLICE_FLAGS[flag]]
+        if flag == "--resume":
+            assert main([str(head), "--lines", "--vocab-bits", "10",
+                         *[a for a in argv if a != "--resume"], *extra]) == 0
+            assert (d / "ck" / "LATEST").exists()
+            capsys.readouterr()
+        out = tmp_path / f"{name}.tsv"
+        assert main([str(TINY), "--lines", "--vocab-bits", "10", "--output", str(out),
+                     *argv, *extra]) == 0
+        outs[name] = read_weights(out)
+        printed[name] = [json.loads(ln) for ln in capsys.readouterr().err.splitlines()
+                         if ln.startswith(('{"docs"', '{"index"'))]
+    assert outs["port"][0] == outs["jax"][0]
+    assert within(outs["port"][1], outs["jax"][1]).all()
+    for rec in printed["port"] + printed["jax"]:
+        if "index" in rec:
+            rec["index"] = pathlib.Path(rec["index"]).name
+    assert printed["port"] == printed["jax"] and printed["port"][-1]["docs"] == 12
+    if (dirs["jax"] / "ck").exists():
+        p, j = (jckpt.load_checkpoint(jckpt.latest_checkpoint(str(dirs[n] / "ck")))
+                for n in ("port", "jax"))
+        assert p[0] == j[0] and p[1].keys() == j[1].keys()
+        assert all(p[1][k].tobytes() == j[1][k].tobytes() for k in p[1])
+    assert (dirs["port"] / "ck").exists() == (dirs["jax"] / "ck").exists()
+    assert (dirs["port"] / "idx").exists() == (dirs["jax"] / "idx").exists()
+    if (dirs["jax"] / "idx").exists():
+        p, j = (load_index(str(dirs[n] / "idx")) for n in ("port", "jax"))
+        for f in ("doc", "term", "df", "term_offsets", "ranks"):
+            a, b = getattr(p, f), getattr(j, f)
+            assert (a is None) == (b is None) and (a is None or a.tobytes() == b.tobytes()), f
+        assert within(p.weight, j.weight).all()
+        assert (p.bm25_weight is None) == (j.bm25_weight is None) == (flag == "--no-index-bm25")
+        if p.bm25_weight is not None:
+            assert within(p.bm25_weight, j.bm25_weight).all()
+        assert p.extra == j.extra
 
 
 # ---------------------------------------------------------------- graph loaders
