@@ -101,6 +101,25 @@ Phases, each of which exits non-zero on failure:
    config-2 stand-in, read back by ``serving.load_index``, every array equal
    to ``save_index`` of ``api.tfidf``'s output, BM25 weights within 2e-6
    of float64 numpy;
+11. serving, which reaches no kernel but the prior's: (11a) the config-2
+   stand-in's index (counts, BM25, a prior from ``run_pagerank``
+   ``segment``, whose launches are counted) served by ``TfidfServer`` at
+   every batch cap, COO and impacted, for every ranker, 4,096 corpus
+   queries: impacted equal to COO, every cap to cap 8, two runs equal,
+   served equal to the one-shot ``score_query``, the CPU's bits, all bit
+   for bit, and the float64 oracle's top-10 (scores within 2e-6, ids
+   wherever it sets them apart); no kernel launched while scoring; whether
+   ``doc_sums`` adds left to right on the card; (11b) the server with
+   ``ServeConfig()`` defaults under four closed-loop clients, both
+   scorings: queries/s, latency p50/p99, queue wait, a second pass all LRU
+   hits, dispatch device ms by cap, the device's busy share of 50 batches,
+   and a ``set_prior`` under traffic equal to the one-shot score plus the
+   new prior; (11d) ``cli.serve`` from a file and from stdin with
+   ``GRAFT_METRICS_PORT=0``, lines equal to the server's, the
+   ``serve.latency_s`` histogram on ``/snapshot.json``; (11c) the
+   config-5 stand-in (bigrams, smooth/L2) sealed as four segments and
+   served against a monolithic index, then ``merge_once`` and
+   ``refresh_segments`` under traffic, results unchanged bit for bit;
 7. one JSON line describing every kernel, then the result line.
 
 Without a CUDA device, or without the port's package beside it, it exits
@@ -686,6 +705,15 @@ def measure_spmv_pallas(pk, ops, src, indptr, w) -> dict:
     return row
 
 
+# The profiler places each kernel by the card's clock converted to the
+# host's, and keeps only the kernels it places inside its window.  On the
+# H100 that conversion can place a kernel milliseconds before its own
+# launch, and a trace of a few short calls then now and then holds no
+# kernel at all.  So the host waits PROFILE_PAD_S before the work of a
+# profiled step and after its last sync: no kernel lies near an edge.
+PROFILE_PAD_S = 0.05
+
+
 def profile_calls(fn, calls: int = 1) -> list:
     """Device and host events of ``calls`` calls of ``fn()`` under
     ``torch.profiler``: ``[(name, ms, count, "cuda" | "cpu")]``, device
@@ -702,9 +730,11 @@ def profile_calls(fn, calls: int = 1) -> list:
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                  on_trace_ready=lambda p: traces.append(p.key_averages())) as prof:
         for _ in range(2):
+            time.sleep(PROFILE_PAD_S)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
             prof.step()
     check(len(traces) == 1, f"profiler delivered {len(traces)} traces, wanted 1")
     rows = []
@@ -1178,6 +1208,17 @@ def check_chunk_counts_carry(tops, corpus, device) -> None:
               f"and carry on {device} equal to the CPU's")
 
 
+def busy_us(events) -> float:
+    """Microseconds the device was busy: the union of the Chrome-trace
+    events' ``[ts, ts + dur)`` spans, overlaps merged."""
+    busy, end = 0.0, -np.inf
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
 def profile_stream(run, cap: int, label: str, card_label: str) -> None:
     """9d. ``torch.profiler`` over one pipelined run: every chunk's H2D
     copy (``cap`` int32 doc and term ids) is ``Pinned -> Device`` and runs
@@ -1198,9 +1239,12 @@ def profile_stream(run, cap: int, label: str, card_label: str) -> None:
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                      on_trace_ready=ready) as prof:
             for _ in range(2):
+                time.sleep(PROFILE_PAD_S)
                 t0 = time.perf_counter()
                 out, m = run()
                 walls.append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_PAD_S)
                 prof.step()
     check(len(traces) == 1, f"profiler delivered {len(traces)} traces, wanted 1")
     events = [e for e in traces[0]["traceEvents"]
@@ -1218,12 +1262,7 @@ def profile_stream(run, cap: int, label: str, card_label: str) -> None:
     sort_streams = {e["args"]["stream"] for e in sorts}
     check(bool(sorts) and not copy_streams & sort_streams,
           f"{label}: chunk copies on streams {copy_streams}, sorts on {sort_streams}")
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
-    busy, end = 0.0, -np.inf
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = busy_us(events)
     other = sorted({e["name"] for e in h2d} - set(kinds))
     print(f"profile {label}: {len(chunk_copies)} chunk copies, all Pinned -> Device, on "
           f"streams {sorted(copy_streams)}; {len(sorts)} sort kernels on streams "
@@ -1237,7 +1276,7 @@ def streaming_phase(device, reset_counts, counts, card_label: str, *,
                     chunk_docs: int = STREAM_CHUNK_DOCS, bits: int = TFIDF_BITS,
                     profile: bool = True) -> dict:
     """Phase 9, streaming TF-IDF (see the module docstring); every check
-    raises on failure.  Returns what phase 10 reuses."""
+    raises on failure.  Returns what phases 10 and 11 reuse."""
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow import ingest as dflow
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.io import text as tio
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.models import tfidf as tm
@@ -1313,7 +1352,7 @@ def streaming_phase(device, reset_counts, counts, card_label: str, *,
           f"tokens, {out.nnz} pairs in {secs:.3f} s, {n_tok / secs:.4g} tokens/s on "
           f"{card_label}; {rec['chunks']} chunks, {rec['bumps']} cap bumps, h2d_overlap_frac "
           f"{rec['overlap']['h2d_overlap_frac']}; equal to batch bit for bit")
-    del wiki, batch, out
+    del batch, out
 
     # 9d. pinned copies on their own stream, shown by the profiler
     if profile:
@@ -1347,7 +1386,7 @@ def streaming_phase(device, reset_counts, counts, card_label: str, *,
     check(same, "kill and resume: the resumed run differs from an unbroken one")
     print(f"kill and resume: killed after chunk {KILL_AFTER} of {len(chunks)}, resumed at "
           f"checkpoint {start} (every {KILL_EVERY}); equal to an unbroken run bit for bit")
-    return {"docs": docs, "knobs": knobs, "chunk_docs": chunk_docs}
+    return {"docs": docs, "wiki": wiki, "knobs": knobs, "chunk_docs": chunk_docs}
 
 
 def index_phase(device, docs, knobs: dict, chunk_docs: int, card_label: str) -> None:
@@ -1401,6 +1440,635 @@ def index_phase(device, docs, knobs: dict, chunk_docs: int, card_label: str) -> 
           f"{card_label}) loads with {got.nnz} postings, {got.n_docs} docs; doc, term, "
           f"weight, idf, df, term_offsets, bm25_weight equal to save_index(api.tfidf) bit "
           f"for bit; bm25_weight within {err:.3g} of float64 (rtol {TFIDF_RTOL})")
+
+
+# Serving (phase 11) at the config-2 stand-in's full size and the config-5
+# stand-in's segments.  SERVE_QUERIES queries from SERVE_SEED: 1-8 words
+# drawn from the corpus's own tokens (so Zipf), about 1 in 20 with a word
+# no document holds, 1 in 256 with more than 16 distinct words (the server
+# keeps its 16 heaviest).  Cap 8 runs them all, every ranker, and the
+# tfidf ones are held to the one-shot score_query; the smaller caps, the
+# second run and the one-shot bm25 and prior checks take the first
+# SERVE_CAP_QUERIES, and SERVE_CPU_QUERIES also run on the CPU.  Scores are
+# held to SERVE_RTOL of a float64 oracle, and ids to its order wherever it
+# sets a score apart by more than SERVE_RTOL.  Segments against a monolithic index:
+# tfidf scores within SEGMENT_ATOL (the JAX package's bar, cosine-scale
+# scores under smooth/L2), BM25 within SEGMENT_RTOL: the host re-weighting
+# rounds its float32 formula in another order than the device's.
+SERVE_QUERIES, SERVE_CAP_QUERIES, SERVE_CPU_QUERIES, SERVE_SEED = 4096, 512, 256, 13
+SERVE_RTOL, PRIOR_ALPHA, SERVE_CAPS = 2e-6, 0.5, (8, 4, 2, 1)
+PRIOR_NODES, PRIOR_EDGES = 19_000, 110_000
+SEGMENTS, SEGMENT_QUERIES, SEGMENT_ATOL, SEGMENT_RTOL = 4, 512, 1e-5, 1e-5
+CLI_QUERIES, PROFILE_BATCHES = 64, 50
+
+
+def serving_queries(docs, n: int, seed: int) -> list:
+    """``n`` queries of the corpus's own words (see SERVE_QUERIES)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        words = docs[int(rng.integers(len(docs)))].split()
+        if i % 256 == 255:
+            pick = list(dict.fromkeys(words))[:20]
+        else:
+            pick = [words[int(j)] for j in rng.integers(len(words), size=rng.integers(1, 9))]
+        if i % 20 == 7:
+            pick.append(f"zzabsent{i}")
+        out.append(pick)
+    return out
+
+
+def serve_all(srv, queries, ranker: str) -> list:
+    """Every query through ``srv.submit`` from one thread (the bounded
+    queue holds the submitter back), then every result."""
+    futs = [srv.submit(q, ranker=ranker) for q in queries]
+    return [f.result(120.0) for f in futs]
+
+
+def oracle_topk(index, table, canon, prior=None) -> list:
+    """float64 scores of every document for each canonical query (scipy's
+    sparse product over the stored weights), plus ``prior``."""
+    import scipy.sparse as sp
+
+    w = sp.csr_matrix((np.asarray(table, np.float64),
+                       (np.asarray(index.doc), np.asarray(index.term))),
+                      shape=(index.n_docs, index.vocab_size)).T.tocsr()
+    out = []
+    for a in range(0, len(canon), 256):
+        part = canon[a:a + 256]
+        rows = np.repeat(np.arange(len(part)), [len(t) for t, _ in part])
+        cols = np.concatenate([t for t, _ in part]).astype(np.int64)
+        vals = np.concatenate([q for _, q in part]).astype(np.float64)
+        q = sp.csr_matrix((vals, (rows, cols)), shape=(len(part), index.vocab_size))
+        dense = (q @ w).toarray()
+        if prior is not None:
+            dense += prior
+        out.extend(dense)
+    return out
+
+
+def oracle_check(got_s, got_i, want, k: int) -> tuple[float, int, bool]:
+    """(largest relative score error, positions whose id is held, ids equal
+    there): ids are held wherever the oracle's group of equal scores is
+    set apart from the next distinct scores by more than SERVE_RTOL."""
+    kth = np.partition(-want, k - 1)[k - 1]
+    cand = np.nonzero(-want <= kth)[0]
+    order = cand[np.lexsort((cand, -want[cand]))]
+    top = want[order]
+    err = float(np.max(np.abs(got_s - top[:k]) / np.maximum(np.abs(top[:k]), 1e-30),
+                       initial=0.0))
+    err = 0.0 if np.array_equal(got_s, top[:k]) else err
+    vals = np.unique(want)
+    held = np.ones(k, bool)
+    for j in range(k):
+        i = np.searchsorted(vals, top[j])
+        tol = SERVE_RTOL * max(abs(top[j]), 1e-30)
+        held[j] = not ((i > 0 and top[j] - vals[i - 1] <= tol)
+                       or (i + 1 < len(vals) and vals[i + 1] - top[j] <= tol))
+    return err, int(held.sum()), bool(np.array_equal(got_i[held], order[:k][held]))
+
+
+def doc_sums_probe(tops, device) -> str:
+    """Whether ``ops.tfidf.doc_sums`` adds each document's rows left to right
+    on ``device``: 64 documents of 4096 float64 rows each (magnitudes over
+    12 decades, both signs), against numpy's sequential ``cumsum``."""
+    rng = np.random.default_rng(5)
+    n, rows = 64, 4096
+    vals = rng.standard_normal(n * rows) * 10.0 ** rng.integers(-6, 6, n * rows)
+    doc = np.repeat(np.arange(n, dtype=np.int32), rows)
+    want = np.array([np.cumsum(vals[d * rows:(d + 1) * rows])[-1] for d in range(n)])
+    got = tops.doc_sums(torch.from_numpy(vals).to(device), torch.from_numpy(doc).to(device),
+                        n).cpu().numpy()
+    differ = int((got != want).sum())
+    return f"{differ} of {n} documents differ from a left-to-right float64 sum"
+
+
+def one_shot(tops, res, qt, qw, n: int, k: int, vocab: int, device, prior=None):
+    """The one-shot ``score_query`` on a dense query vector; with
+    ``prior``, every document's score plus the float32 prior, re-sorted."""
+    q = torch.zeros(vocab, dtype=torch.float32, device=device)
+    q[torch.from_numpy(qt.astype(np.int64)).to(device)] = torch.from_numpy(qw).to(device)
+    if prior is None:
+        s, i = tops.score_query(res, q, n_docs=n, k=k)
+        return s.cpu().numpy(), i.cpu().numpy()
+    s, i = tops.score_query(res, q, n_docs=n, k=n)
+    dense = torch.empty(n, dtype=torch.float32, device=device)
+    dense[i.long()] = s
+    top, idx = torch.sort(dense + prior, descending=True, stable=True)
+    return top[:k].cpu().numpy(), idx[:k].int().cpu().numpy()
+
+
+def build_serving_index(tmp, docs, device, reset_counts, counts, card_label: str):
+    """11a's index: the config-2 stand-in through the batch path, saved
+    with counts, BM25 and a PageRank prior from ``run_pagerank``
+    (``segment``) over a 19,000-node power-law graph, scaled to mean 1."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch import api as tapi
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch import serving
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import synthetic_powerlaw
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
+
+    graph = synthetic_powerlaw(PRIOR_NODES, PRIOR_EDGES, seed=SEED)
+    reset_counts()
+    pr = run_pagerank(graph, tcfg.PageRankConfig(spmv_impl="segment"), device=device)
+    launched = counts()
+    ranks = np.full(len(docs), float(pr.ranks.mean()), np.float64)
+    ranks[graph.node_ids[graph.node_ids < len(docs)]] = pr.ranks[graph.node_ids < len(docs)]
+    ranks = (ranks / ranks.mean()).astype(np.float32)
+    cfg = tcfg.TfidfConfig(vocab_bits=TFIDF_BITS)
+    out = tapi.tfidf(docs, cfg, device=device)
+    path = os.path.join(tmp, "index")
+    serving.save_index(path, out, cfg, ranks=ranks, bm25=tcfg.Bm25Config(), counts=True)
+    index = serving.load_index(path)
+    print(f"serving index: {index.n_docs} docs, {index.nnz} postings, BM25, counts; prior "
+          f"from run_pagerank (segment) over {graph.n_nodes} nodes, {graph.n_edges} edges, "
+          f"{pr.iterations} iterations, launches {launched}, mean 1 on {card_label}")
+    if device.type == "cuda":
+        check(launched["segment"] >= pr.iterations,
+              f"the prior's PageRank launched segment {launched['segment']} times")
+    return index, launched
+
+
+def check_scorers(tops, serving, index, queries, device, reset_counts, counts,
+                  card_label: str) -> dict:
+    """11a: every cap, both scorings, every ranker, on ``device``; impacted
+    equal to COO, every cap equal to cap 8, two runs equal, served equal to
+    the one-shot ``score_query``, the CPU's bits on the first queries, and
+    the float64 oracle.  Returns the prior server's prior and the results."""
+    n, k = index.n_docs, QUERY_K
+    results = {}
+    t0 = time.perf_counter()
+    reset_counts()
+    for scoring in ("coo", "impacted"):
+        for cap in SERVE_CAPS:
+            cfg = serving.ServeConfig(max_batch=cap, cache_size=0, prior_alpha=PRIOR_ALPHA,
+                                      scoring=scoring)
+            with serving.TfidfServer(index, cfg, device=device) as srv:
+                qs = queries if cap == SERVE_CAPS[0] else queries[:SERVE_CAP_QUERIES]
+                for ranker in serving.RANKERS:
+                    results[(scoring, cap, ranker)] = serve_all(srv, qs, ranker)
+                if scoring == "coo" and cap == SERVE_CAPS[0]:
+                    results["again"] = serve_all(srv, qs[:SERVE_CAP_QUERIES], "tfidf")
+                    canon = [srv.make_query(q) for q in queries]
+                    prior = srv._segs[0].prior_req
+                stats = srv.stats()
+            print(f"serve {scoring} cap {cap}: {stats['batches']} batches for "
+                  f"{stats['requests']} requests ({stats['dedup_hits']} in-batch duplicates)")
+    launched = counts()
+    secs = time.perf_counter() - t0
+    check(not any(launched.values()), f"scoring launched kernels {launched}")
+
+    def same(a, b) -> bool:
+        return all(x[0].tobytes() == y[0].tobytes() and x[1].tobytes() == y[1].tobytes()
+                   for x, y in zip(a, b))
+
+    for ranker in serving.RANKERS:
+        for cap in SERVE_CAPS:
+            check(same(results[("impacted", cap, ranker)], results[("coo", cap, ranker)]),
+                  f"{ranker} cap {cap}: impacted differs from coo")
+            check(same(results[("coo", cap, ranker)], results[("coo", 8, ranker)]),
+                  f"{ranker} cap {cap}: differs from cap 8")
+    check(same(results["again"], results[("coo", 8, "tfidf")]), "two runs differ")
+    truncated = sum(len(set(q)) > 16 for q in queries)
+    print(f"serve: {len(queries)} queries ({truncated} past 16 distinct words), caps "
+          f"{SERVE_CAPS} (caps under 8 on the first {SERVE_CAP_QUERIES}), tfidf/bm25/prior, "
+          f"in {secs:.1f} s; impacted equal to coo, every cap to cap 8, two runs equal, bit "
+          f"for bit; kernel launches while scoring {launched}")
+
+    # served against the one-shot score_query, and the float64 oracle
+    tables = {"tfidf": index.weight, "bm25": index.bm25_weight, "prior": index.weight}
+    t0 = time.perf_counter()
+    for ranker, table in tables.items():
+        res = tops.TfidfResult(*(torch.from_numpy(np.array(a)).to(device) for a in
+                                 (index.doc, index.term, table, index.idf, index.df)))
+        served = results[("coo", 8, ranker)]
+        p = prior if ranker == "prior" else None
+        n_one = len(served) if ranker == "tfidf" else SERVE_CAP_QUERIES
+        for (qt, qw), (s, i) in zip(canon[:n_one], served[:n_one]):
+            es, ei = one_shot(tops, res, qt, qw, n, k, index.vocab_size, device, p)
+            check(s.tobytes() == es.tobytes() and i.tobytes() == ei.tobytes(),
+                  f"{ranker}: served differs from the one-shot score_query for {qt.tolist()}")
+        want = oracle_topk(index, table, canon,
+                           (PRIOR_ALPHA * np.asarray(index.ranks, np.float64))
+                           if ranker == "prior" else None)
+        errs, held, total = [], 0, 0
+        for (s, i), w in zip(served, want):
+            err, h, ok = oracle_check(s, i, w, k)
+            check(ok, f"{ranker}: top-{k} ids differ from the float64 oracle's order")
+            errs.append(err)
+            held += h
+            total += k
+        worst = max(errs)
+        check(worst <= SERVE_RTOL, f"{ranker}: score error {worst:.3g} > {SERVE_RTOL}")
+        print(f"serve {ranker}: {n_one} results equal to the one-shot score_query bit "
+              f"for bit; {len(served)} against float64: largest relative error {worst:.3g} (rtol "
+              f"{SERVE_RTOL}), ids held at {held} of {total} positions, all equal")
+    print(f"serve one-shot and oracle checks: {time.perf_counter() - t0:.1f} s")
+
+    # the CPU's bits: the same port code, the same float64 adds in order
+    t0 = time.perf_counter()
+    cpu_q = queries[:SERVE_CPU_QUERIES]
+    for scoring in ("impacted", "coo"):
+        cfg = serving.ServeConfig(cache_size=0, prior_alpha=PRIOR_ALPHA, scoring=scoring)
+        with serving.TfidfServer(index, cfg, device="cpu") as srv:
+            for ranker in (serving.RANKERS if scoring == "impacted" else ("tfidf",)):
+                qs = cpu_q if scoring == "impacted" else cpu_q[:64]
+                got = serve_all(srv, qs, ranker)
+                check(same(got, results[("coo", 8, ranker)]),
+                      f"{ranker} on the CPU ({scoring}) differs from {device}")
+    print(f"serve on the CPU: {SERVE_CPU_QUERIES} queries (impacted, every ranker) and 64 "
+          f"(coo, tfidf) equal to {device} bit for bit, {time.perf_counter() - t0:.1f} s")
+    print(f"doc_sums on {device}: {doc_sums_probe(tops, device)}; on cpu: "
+          f"{doc_sums_probe(tops, torch.device('cpu'))} ({card_label})")
+    return {"canon": canon, "prior": prior}
+
+
+def closed_loop(srv, queries, clients: int, ranker: str = "tfidf") -> dict:
+    """``clients`` threads, each submitting its share of ``queries`` one at
+    a time and waiting for each answer; wall seconds and per-request
+    latency and queue wait."""
+    import threading
+
+    lat, wait, errors = [], [], []
+    lock = threading.Lock()
+
+    def client(c: int) -> None:
+        try:
+            for q in queries[c::clients]:
+                fut = srv.submit(q, ranker=ranker)
+                fut.result(120.0)
+                with lock:
+                    lat.append(fut.latency_s)
+                    wait.append(fut.t_queue_wait)
+        except Exception as exc:  # noqa: BLE001 — reported by the caller
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600.0)
+    secs = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"closed-loop clients failed: {errors[:3]}")
+    return {"secs": secs, "lat": sorted(lat), "wait": sorted(wait)}
+
+
+def device_busy(fn) -> tuple[float, float, int]:
+    """(device ms, wall ms, device ops) of one ``fn()`` under
+    ``torch.profiler``: kernels, copies and memsets, overlaps merged."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            time.sleep(PROFILE_PAD_S)
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return busy_us(events) / 1e3, wall * 1e3, len(events)
+
+
+def bench_server(serving, metrics_pct, index, queries, canon, tops, device,
+                 card_label: str) -> None:
+    """11b: ``ServeConfig()`` defaults but the cache, which holds every
+    query so a second pass is all hits; four closed-loop clients, both
+    scorings; per-cap dispatch device time; the device's busy share of
+    PROFILE_BATCHES batches; a ``set_prior`` under traffic."""
+    pct = metrics_pct
+    n, k = index.n_docs, QUERY_K
+    for scoring in ("coo", "impacted"):
+        cfg = serving.ServeConfig(scoring=scoring, cache_size=2 * len(queries))
+        with serving.TfidfServer(index, cfg, device=device) as srv:
+            r = closed_loop(srv, queries, 4)
+            s1 = srv.stats()
+            again = queries[:SERVE_CAP_QUERIES]
+            r2 = closed_loop(srv, again, 4)
+            s2 = srv.stats()
+            check(s2["cache_hits"] - s1["cache_hits"] == len(again)
+                  and s2["cache_misses"] == s1["cache_misses"],
+                  f"{scoring}: the second pass was not all LRU hits ({s1} -> {s2})")
+            times = {}
+            if device.type == "cuda":
+                with srv._lock:
+                    segs = list(srv._segs)
+                for cap in SERVE_CAPS:
+                    uniq = [_pending(srv, q) for q in queries[:cap]]
+                    plans = srv._pad(uniq, segs, cap)
+                    times[cap] = time_ms(lambda: srv._dispatch(
+                        "tfidf", plans, segs, [s.prior for s in segs], srv.k, cap))
+                srv._cache.clear()
+                busy, wall, ops = device_busy(lambda: closed_loop(
+                    srv, queries[:PROFILE_BATCHES * 4], 4))
+                s3 = srv.stats()
+            lat, wait = r["lat"], r["wait"]
+            print(f"server {scoring} (4 closed-loop clients, {len(queries)} queries): "
+                  f"{len(queries) / r['secs']:.1f} queries/s, p50 {pct(lat, 0.5) * 1e3:.3f} ms,"
+                  f" p99 {pct(lat, 0.99) * 1e3:.3f} ms, queue wait p50 "
+                  f"{pct(wait, 0.5) * 1e3:.3f} ms; {s1['batches']} batches, "
+                  f"{s1['cache_hits']} cache hits, {s1['dedup_hits']} in-batch duplicates; "
+                  f"second pass of {len(again)} all LRU hits, {len(again) / r2['secs']:.1f} "
+                  f"queries/s on {card_label}")
+            if times:
+                batches = s3["batches"] - s2["batches"]
+                width = (f" (bucket cap {srv._bucket_cap} x {cfg.impact_bucket_width} lanes)"
+                         if scoring == "impacted" else "")
+                print(f"server {scoring} dispatch device ms by cap{width} (CUDA events, L2 "
+                      "flushed): " + ", ".join(f"{c}: {t:.4f}" for c, t in times.items())
+                      + f"; profiled {batches} batches: device busy {busy:.3f} ms of "
+                      f"{wall:.3f} ms ({busy / wall:.3f}), {ops} device ops on {card_label}")
+
+    # set_prior under traffic: results after it are the one-shot score plus
+    # the new prior, bit for bit
+    import threading
+
+    new = np.random.default_rng(3).uniform(0.5, 1.5, n).astype(np.float32)
+    cfg = serving.ServeConfig(scoring="impacted", prior_alpha=PRIOR_ALPHA)
+    res = tops.TfidfResult(*(torch.from_numpy(np.array(a)).to(device) for a in
+                             (index.doc, index.term, index.weight, index.idf, index.df)))
+    with serving.TfidfServer(index, cfg, device=device) as srv:
+        stop = threading.Event()
+        errors = []
+
+        def traffic():
+            i = 0
+            while not stop.is_set():
+                try:
+                    srv.query(queries[i % len(queries)], ranker="prior")
+                except Exception as exc:  # noqa: BLE001 — reported below
+                    errors.append(exc)
+                i += 1
+
+        threads = [threading.Thread(target=traffic) for _ in range(2)]
+        for t in threads:
+            t.start()
+        try:
+            time.sleep(0.2)
+            t0 = time.perf_counter()
+            srv.set_prior(new)
+            swap = time.perf_counter() - t0
+            got = serve_all(srv, queries[:SERVE_CPU_QUERIES], "prior")
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(60.0)
+    check(not errors, f"set_prior under traffic: requests failed {errors[:3]}")
+    prior = torch.from_numpy(np.zeros(n, np.float32) + PRIOR_ALPHA * new).to(device)
+    for (qt, qw), (s, i) in zip(canon, got):
+        es, ei = one_shot(tops, res, qt, qw, n, k, index.vocab_size, device, prior)
+        check(s.tobytes() == es.tobytes() and i.tobytes() == ei.tobytes(),
+              "set_prior: a result differs from the one-shot score plus the new prior")
+    print(f"set_prior under traffic: swapped in {swap * 1e3:.2f} ms; {len(got)} results after "
+          f"it equal to the one-shot score plus the new prior bit for bit")
+
+
+def _pending(srv, words):
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving.server import _Pending
+
+    qt, qw = srv.make_query(words)
+    return _Pending(srv.query_key(qt, qw), qt, qw)
+
+
+def segments_phase(serving, wiki, device, card_label: str, *, segments: int = SEGMENTS,
+                   n_queries: int = SEGMENT_QUERIES) -> None:
+    """11c: the config-5 stand-in (bigrams, smooth/L2) sealed as
+    ``segments`` equal segments with ``commit_append``, served by both
+    scorings against a monolithic index of the same corpus; then
+    ``SegmentMerger.merge_once`` and ``refresh_segments`` under traffic,
+    results unchanged bit for bit."""
+    import threading
+
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import run_tfidf
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import segments as sgm
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
+
+    cfg = tcfg.TfidfConfig(vocab_bits=TFIDF_BITS, ngram=2, idf_mode="smooth",
+                           l2_normalize=True)
+    queries = serving_queries(wiki, n_queries, SERVE_SEED + 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        seg_dir, mono_dir = os.path.join(tmp, "segments"), os.path.join(tmp, "mono")
+        t0 = time.perf_counter()
+        per = len(wiki) // segments
+        base = 0
+        for s in range(segments):
+            part = wiki[s * per:(s + 1) * per if s < segments - 1 else len(wiki)]
+            out = run_tfidf(part, cfg, device=device)
+            ref = sgm.seal_segment(seg_dir, out, cfg, doc_base=base, bm25=tcfg.Bm25Config())
+            sgm.commit_append(seg_dir, ref, cfg.config_hash())
+            base += out.n_docs
+        seal = time.perf_counter() - t0
+        mono = run_tfidf(wiki, cfg, device=device)
+        serving.save_index(mono_dir, mono, cfg, bm25=tcfg.Bm25Config())
+        mono_index = serving.load_index(mono_dir)
+        t0 = time.perf_counter()
+        segset = sgm.load_segment_set(seg_dir)
+        load = time.perf_counter() - t0
+        check(segset.nnz == mono_index.nnz and segset.n_docs == mono_index.n_docs,
+              f"segments hold {segset.nnz} postings, the monolithic index {mono_index.nnz}")
+        print(f"segments: {len(segset.segments)} of ~{per} docs, {segset.nnz} postings, sealed "
+              f"and committed in {seal:.1f} s, load_segment_set (global re-weighting) "
+              f"{load:.2f} s on {card_label}")
+        k = QUERY_K
+        with serving.TfidfServer(mono_index, serving.ServeConfig(scoring="impacted",
+                                                                 cache_size=0),
+                                 device=device) as ref_srv:
+            want = {r: serve_all(ref_srv, queries, r) for r in ("tfidf", "bm25")}
+        for scoring in ("coo", "impacted"):
+            t0 = time.perf_counter()
+            srv = serving.TfidfServer(segset, serving.ServeConfig(scoring=scoring,
+                                                                  cache_size=0),
+                                      device=device).start()
+            start = time.perf_counter() - t0
+            try:
+                held = 0
+                for r, tol in (("tfidf", (SEGMENT_ATOL, 0.0)), ("bm25", (0.0, SEGMENT_RTOL))):
+                    t0 = time.perf_counter()
+                    got = serve_all(srv, queries, r)
+                    qps = len(queries) / (time.perf_counter() - t0)
+                    for (s, i), (ws, wi) in zip(got, want[r]):
+                        check(np.allclose(s, ws, atol=tol[0], rtol=tol[1]),
+                              f"segments {scoring} {r}: scores {s} vs monolithic {ws}")
+                        gap = 2 * max(tol[0], tol[1] * float(np.abs(ws).max()))
+                        for j in range(k - 1):
+                            if ((j == 0 or ws[j - 1] - ws[j] > gap)
+                                    and ws[j] - ws[j + 1] > gap):
+                                held += 1
+                                check(i[j] == wi[j], f"segments {scoring} {r}: id {i[j]} "
+                                      f"at {j} vs monolithic {wi[j]}")
+                    print(f"segments {scoring} {r}: {len(queries)} queries at {qps:.1f} "
+                          f"queries/s (one submitter), scores within "
+                          f"{'atol' if tol[0] else 'rtol'} {max(tol)} of the monolithic "
+                          f"index's, ids equal where apart")
+                if scoring == "impacted":
+                    before = serve_all(srv, queries, "tfidf")
+                    merger = sgm.SegmentMerger(seg_dir, cfg, max_segments=segments - 1)
+                    stop = threading.Event()
+                    errors = []
+
+                    def traffic():
+                        i = 0
+                        while not stop.is_set():
+                            try:
+                                srv.query(queries[i % len(queries)])
+                            except Exception as exc:  # noqa: BLE001 — reported below
+                                errors.append(exc)
+                            i += 1
+
+                    threads = [threading.Thread(target=traffic) for _ in range(2)]
+                    for t in threads:
+                        t.start()
+                    try:
+                        t0 = time.perf_counter()
+                        check(merger.merge_once(), "merge_once merged nothing")
+                        merge = time.perf_counter() - t0
+                        t0 = time.perf_counter()
+                        merged = sgm.load_segment_set(seg_dir)
+                        reload = time.perf_counter() - t0
+                        t0 = time.perf_counter()
+                        srv.refresh_segments(merged)
+                        refresh = time.perf_counter() - t0
+                    finally:
+                        stop.set()
+                        for t in threads:
+                            t.join(60.0)
+                    check(not errors, f"refresh under traffic: requests failed {errors[:3]}")
+                    after = serve_all(srv, queries, "tfidf")
+                    check(all(a[0].tobytes() == b[0].tobytes() and a[1].tobytes() ==
+                              b[1].tobytes() for a, b in zip(after, before)),
+                          "results changed across the merge")
+                    print(f"segments merge: merge_once {merge:.2f} s into "
+                          f"{len(merged.segments)} segments, reload {reload:.2f} s, "
+                          f"refresh_segments (build and warm) {refresh:.2f} s under two "
+                          f"clients, {srv.stats()['refreshes']} refresh; results unchanged "
+                          f"bit for bit")
+                cap = f", bucket cap {srv._bucket_cap}" if scoring == "impacted" else ""
+                print(f"segments {scoring}: server start (put and warm) {start:.2f} s; ids "
+                      f"held at {held} positions{cap}")
+            finally:
+                srv.stop()
+
+
+def cli_phase(serving, index, queries, device, card_label: str) -> None:
+    """11d: ``cli.serve`` on 11a's index from a query file (in this
+    process) and from stdin (``python -m``, with ``GRAFT_METRICS_PORT=0``):
+    its lines equal a server's results, its summary carries ``p50_ms`` and
+    ``p99_ms``, and ``/snapshot.json`` shows the ``serve.latency_s``
+    histogram while it runs."""
+    import contextlib
+    import io
+    import urllib.request
+
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.cli import serve as cli_serve
+
+    qs = queries[:CLI_QUERIES]
+    path = os.path.dirname(index.path)
+    want = []
+    with serving.TfidfServer(index, serving.ServeConfig(), device=device) as srv:
+        for qid, q in enumerate(qs):
+            s, d = srv.query(q)
+            want += [f"{qid}\t{int(i)}\t{float(v):.10g}" for v, i in zip(s, d) if v > 0]
+    dev = [] if device.type == "cuda" else ["--device", "cpu"]
+    with tempfile.TemporaryDirectory() as tmp:
+        qfile = os.path.join(tmp, "queries.txt")
+        with open(qfile, "w") as f:
+            f.writelines(" ".join(q) + "\n" for q in qs)
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli_serve.main([path, "--queries", qfile, *dev])
+        secs = time.perf_counter() - t0
+        check(rc == 0, f"cli.serve exited {rc}: {err.getvalue()[-2000:]}")
+        check(out.getvalue().splitlines() == want, "cli.serve (file) lines differ from the "
+              "server's results")
+        summary = json.loads(err.getvalue().strip().splitlines()[-1])
+        check(summary["requests"] == len(qs) and summary["p99_ms"] >= summary["p50_ms"] > 0,
+              f"cli.serve summary {summary}")
+        print(f"cli.serve (query file, {len(qs)} queries): {len(want)} lines equal to the "
+              f"server's; summary p50_ms {summary['p50_ms']}, p99_ms {summary['p99_ms']}; "
+              f"{secs:.1f} s in this process on {card_label}")
+
+        errf = os.path.join(tmp, "stderr.txt")
+        env = dict(os.environ, GRAFT_METRICS_PORT="0")
+        t0 = time.perf_counter()
+        with open(errf, "w") as ef:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "page_rank_and_tfidf_using_apache_spark_tpu_torch.cli.serve",
+                 path, *dev], cwd=ROOT, env=env, stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, stderr=ef, text=True)
+            try:
+                proc.stdin.write("".join(" ".join(q) + "\n" for q in qs))
+                proc.stdin.flush()
+                url, snap, deadline = None, None, time.monotonic() + 300.0
+                while time.monotonic() < deadline and proc.poll() is None:
+                    time.sleep(0.2)
+                    if url is None:
+                        with open(errf) as f:
+                            urls = [json.loads(ln)["metrics_url"] for ln in f
+                                    if ln.startswith('{"metrics_url"')]
+                        url = urls[0] if urls else None
+                        continue
+                    with urllib.request.urlopen(url + "/snapshot.json", timeout=10) as r:
+                        snap = json.load(r)
+                    if snap["latency_s"]["total"].get("count", 0) >= len(qs):
+                        break
+                proc.stdin.close()
+                stdout = proc.stdout.read()
+                rc = proc.wait(120)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(30)
+        secs = time.perf_counter() - t0
+        with open(errf) as f:
+            err_text = f.read()
+        check(rc == 0, f"cli.serve (stdin) exited {rc}: {err_text[-2000:]}")
+        check(snap is not None and snap["latency_s"]["total"].get("count") == len(qs),
+              f"/snapshot.json serve.latency_s: {None if snap is None else snap['latency_s']}")
+        check(stdout.splitlines() == want, "cli.serve (stdin) lines differ from the server's")
+        summary = json.loads(err_text.strip().splitlines()[-1])
+        check(summary["p50_ms"] is not None and summary["p99_ms"] is not None,
+              f"cli.serve (stdin) summary {summary}")
+        hist = snap["latency_s"]["total"]
+        print(f"cli.serve (stdin, GRAFT_METRICS_PORT=0): {len(want)} lines equal; "
+              f"/snapshot.json serve.latency_s count {hist['count']} "
+              f"(p50 {hist.get('p50')}, p99 {hist.get('p99')} s); summary p50_ms "
+              f"{summary['p50_ms']}, p99_ms {summary['p99_ms']}; {secs:.1f} s with start-up")
+
+
+def serving_phase(device, reset_counts, counts, card_label: str, docs, wiki) -> dict:
+    """Phase 11 (see the module docstring); every check raises on failure.
+    Returns the launches of the path (the prior's PageRank)."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch import serving
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import tfidf as tops
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import percentile
+
+    queries = serving_queries(docs, SERVE_QUERIES, SERVE_SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        index, launched = build_serving_index(tmp, docs, device, reset_counts, counts,
+                                              card_label)
+        got = check_scorers(tops, serving, index, queries, device, reset_counts, counts,
+                            card_label)
+        print(f"phase 11a (scorers): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        bench_server(serving, percentile, index, queries, got["canon"], tops, device,
+                     card_label)
+        print(f"phase 11b (server): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cli_phase(serving, index, queries, device, card_label)
+        print(f"phase 11d (cli): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    segments_phase(serving, wiki, device, card_label)
+    print(f"phase 11c (segments): {time.perf_counter() - t0:.1f} s")
+    return launched
 
 
 def main() -> int:
@@ -1745,6 +2413,12 @@ def main() -> int:
     index_phase(torch.device("cuda"), stream["docs"], stream["knobs"], stream["chunk_docs"],
                 card_label)
     print(f"phase 10 (index): {time.perf_counter() - t0:.1f} s")
+
+    # 11. serving: the scorers, the server, the CLI, the segments
+    t0 = time.perf_counter()
+    launches["serving"] = serving_phase(torch.device("cuda"), reset_counts, counts, card_label,
+                                        stream["docs"], stream["wiki"])
+    print(f"phase 11 (serving): {time.perf_counter() - t0:.1f} s")
 
     # 7. the kernels line, then the result line; launches are those of the
     # kernel's own path: cumsum's from the hybrid run (its tail's prefix

@@ -18,10 +18,33 @@ sits on either path: the JAX package leaves all of it to XLA, and it is
 plain PyTorch here.
 
 Reductions are deterministic, so the same postings give the same bits on
-every run: counts and DF are integer sums; the per-document sums (the L2
-norm, query scores) run in float64 over the pairs sorted by document with
-``torch.segment_reduce``, which adds in a fixed order, where a float
+every run: counts and DF are integer sums; the L2 norm's per-document sums
+run in float64 over the pairs sorted by document with
+``torch.segment_reduce``, whose order is fixed, where a float
 ``index_add_`` on CUDA would add in the order its atomics land.
+
+Query scores keep one order on every path and every device, so the
+one-shot :func:`score_query`, the batched COO scorer
+:func:`score_query_batch` and the impacted scorer
+:func:`score_impacted_batch` agree bit for bit:
+
+    score[row, doc] is the float64 sum, strictly left to right in
+    ascending term order, of the exact float64 products ``weight · q`` of
+    the query's terms that the document holds.  It is rounded to float32
+    once.  The prior is then added in float32, as the reference adds it.
+
+A query row is canonical (its terms ascending, each once), so its term
+``j`` has slot ``j``.  Each product is written, with no accumulation, into
+a zeroed float64 buffer ``[Q + 1, B, n_docs]`` at ``(slot, row, doc)``:
+a document holds a term once, so no two products share a cell below slot
+``Q``.  Postings of other terms and padding go to the spare slot ``Q``,
+which is never read.  The sum then adds the ``Q`` slot planes one after
+another, an elementwise float64 add each, from ``+0.0``: exact zeros
+change nothing, so the COO path (every posting) and the impacted path
+(the query terms' runs alone) give the same bits, and no ``-0.0`` reaches
+the sort.  A float32 weight times a float32 query weight is exact in
+float64.  Top-k is a stable descending sort, so equal scores keep the
+lower doc id first, as ``lax.top_k`` does.
 """
 
 from __future__ import annotations
@@ -181,9 +204,14 @@ def _tf(count: torch.Tensor, doc: torch.Tensor, doc_lengths: torch.Tensor,
 
 
 def doc_sums(values: torch.Tensor, doc: torch.Tensor, n_docs: int) -> torch.Tensor:
-    """float64 [n_docs]: the sum of ``values`` over each document's rows, in
-    a fixed order (the rows' own order within a document), so equal inputs
-    give equal bits on every run."""
+    """float64 [n_docs]: the sum of ``values`` over each document's rows in
+    an order fixed by the rows' order within the document, so equal inputs
+    give equal bits on every run.  On the CPU that order is left to right;
+    on CUDA ``segment_reduce`` adds a document's rows in a tree (on the
+    H100, 63 of 64 documents of 4,096 mixed-magnitude rows differ from a
+    left-to-right float64 sum: ``chip_smoke.py`` phase 11a), the same tree
+    on every run.  The query scorers do not use it: their order is the
+    module's contract."""
     order = torch.argsort(doc, stable=True)
     # rows per document; torch.bincount would sync to learn its length
     lengths = torch.zeros(n_docs, dtype=torch.int64, device=doc.device)
@@ -266,6 +294,52 @@ def chunk_counts_carry(
     return counts, df_carry.add_(df)
 
 
+def _ordered_scores(flat: torch.Tensor, prod: torch.Tensor, n_slots: int, batch: int,
+                    n_docs: int) -> torch.Tensor:
+    """float32 [batch, n_docs]: the products ``prod`` written at the flat
+    indices ``flat`` of a zeroed float64 ``[n_slots + 1, batch, n_docs]``
+    buffer (unique below slot ``n_slots``), then the slot planes added
+    left to right from ``+0.0`` and rounded once."""
+    buf = torch.zeros((n_slots + 1) * batch * n_docs, dtype=torch.float64, device=prod.device)
+    buf[flat.reshape(-1)] = prod.reshape(-1)
+    planes = buf.view(n_slots + 1, batch, n_docs)
+    total = torch.zeros(batch, n_docs, dtype=torch.float64, device=prod.device)
+    for j in range(n_slots):  # not planes.sum(0): its order on CUDA is the library's
+        total.add_(planes[j])
+    return total.float()
+
+
+def _coo_scores(doc, term, weight, term_valid, q_term, q_weight, q_real, *,
+                n_docs: int, vocab: int) -> torch.Tensor:
+    """float32 [B, n_docs] scores of every posting against ``B`` canonical
+    query rows: a ``[B, vocab + 1]`` table of slots (padding writes the
+    spare column ``vocab``, which no posting reads), one slot lookup and one
+    exact product a posting and row."""
+    b, q = q_term.shape
+    dev = weight.device
+    slots = torch.arange(q, device=dev).expand(b, q)
+    table = torch.full((b, vocab + 1), q, dtype=torch.int64, device=dev)
+    table.scatter_(1, torch.where(q_real, q_term.long(), vocab), torch.where(q_real, slots, q))
+    qw = torch.zeros(b, q + 1, dtype=torch.float64, device=dev)
+    qw[:, :q] = torch.where(q_real, q_weight.double(), 0.0)
+    term = term.long() if term_valid is None else torch.where(term_valid, term.long(), vocab)
+    slot = table[:, term]  # [B, nnz]
+    prod = weight.double() * qw.gather(1, slot)
+    flat = slot.mul_(b).add_(torch.arange(b, device=dev)[:, None]).mul_(n_docs).add_(doc.long())
+    return _ordered_scores(flat, prod, q, b, n_docs)
+
+
+def _top_k(scores: torch.Tensor, k: int,
+           doc_prior: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` highest scores of each row and their int32 doc ids, after
+    the float32 prior if one is given; a stable sort keeps the lower doc id
+    first."""
+    if doc_prior is not None:
+        scores = scores + doc_prior
+    top, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    return top[:, :k].contiguous(), idx[:, :k].int()
+
+
 def score_query(
     result: TfidfResult,
     query_weights: torch.Tensor,  # float32 [vocab]: the query's weight per term
@@ -273,13 +347,90 @@ def score_query(
     n_docs: int,
     k: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k query scoring: score(doc) = Σ_t w[doc, t]·q[t], summed in
-    float64 (:func:`doc_sums`) and rounded to float32, then the ``k``
-    highest scores and their doc ids.  Equal scores keep the lower doc id
-    first, as ``lax.top_k`` does in the reference."""
+    """Top-k query scoring: score(doc) = Σ_t w[doc, t]·q[t] in the module's
+    order (float64, left to right in ascending term order, rounded to
+    float32 once), then the ``k`` highest scores and their int32 doc ids.
+    Equal scores keep the lower doc id first, as ``lax.top_k`` does in the
+    reference.  The query's nonzero terms are its slots: learning them is
+    this path's one host sync."""
     if not 0 <= k <= n_docs:
         raise ValueError(f"k must be in [0, n_docs={n_docs}], got {k}")
-    per_pair = result.weight.double() * query_weights.double()[result.term]
-    scores = doc_sums(per_pair, result.doc, n_docs).float()
-    top, idx = torch.sort(scores, descending=True, stable=True)
-    return top[:k], idx[:k]
+    q_term = torch.nonzero(query_weights).reshape(1, -1)
+    q_weight = query_weights[q_term]
+    scores = _coo_scores(result.doc, result.term, result.weight, None, q_term, q_weight,
+                         torch.ones_like(q_term, dtype=torch.bool), n_docs=n_docs,
+                         vocab=query_weights.shape[0])
+    top, idx = _top_k(scores, k)
+    return top[0], idx[0]
+
+
+def score_query_batch(
+    doc: torch.Tensor,  # int32 [nnz] postings (on the device across calls)
+    term: torch.Tensor,  # int32 [nnz]
+    weight: torch.Tensor,  # float32 [nnz]
+    valid: torch.Tensor,  # float32 [nnz]: 1.0 for real rows
+    q_term: torch.Tensor,  # int32 [B, Q] canonical query term ids (padded)
+    q_weight: torch.Tensor,  # float32 [B, Q] per-term query weights
+    q_valid: torch.Tensor,  # float32 [B, Q]: 1.0 for real query slots
+    doc_prior: torch.Tensor,  # float32 [n_docs] additive prior (e.g. scaled PageRank)
+    *,
+    n_docs: int,
+    vocab: int,
+    k: int,
+    use_prior: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The serving path's batched scorer over every posting: per-query
+    ``(scores [B, k], int32 doc ids [B, k])``, so the ``[B, n_docs]`` score
+    matrix never leaves the device.  Each row's real terms must be
+    ascending and distinct (``TfidfServer.make_query`` gives them so); a
+    row's scores are :func:`score_query`'s bit for bit, plus the float32
+    prior when ``use_prior``.  Nothing here waits for the device."""
+    scores = _coo_scores(doc, term, weight, valid > 0, q_term, q_weight, q_valid > 0,
+                         n_docs=n_docs, vocab=vocab)
+    return _top_k(scores, k, doc_prior if use_prior else None)
+
+
+def score_impacted_batch(
+    doc: torch.Tensor,  # int32 [nnz] postings, (term, doc)-sorted
+    weight: torch.Tensor,  # float32 [nnz] ranker weights over the same rows
+    bucket_start: torch.Tensor,  # int32 [C] postings offset of each bucket's first row
+    bucket_len: torch.Tensor,  # int32 [C] live rows in the bucket (0 for pad buckets)
+    bucket_row: torch.Tensor,  # int32 [C] padded query row the bucket scores into
+    bucket_qw: torch.Tensor,  # float32 [C] query weight of the bucket's term
+    doc_prior: torch.Tensor,  # float32 [n_docs] additive prior
+    *,
+    bucket_slot: torch.Tensor,  # int32 [C] the term's position in its query row
+    query_terms: int,  # Q, the slots a query row has
+    n_docs: int,
+    batch: int,
+    bucket_width: int,
+    k: int,
+    use_prior: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The latency-shaped serving scorer: a padded query batch scored
+    against only its query terms' posting runs, cut by the host planner
+    (``serving/server.py``) into fixed-width buckets, so the work follows
+    Σ df(query terms), not nnz.  Each live lane writes its exact product at
+    its term's slot, so the scores are :func:`score_query_batch`'s bit for
+    bit; dead lanes and pad buckets write the spare slot.  Doc ids are
+    local to the postings (:func:`topk_merge` globalizes them)."""
+    lane = torch.arange(bucket_width, device=doc.device)
+    live = lane < bucket_len[:, None]  # [C, W]
+    idx = torch.where(live, bucket_start[:, None].long() + lane, 0)
+    prod = weight[idx].double() * bucket_qw.double()[:, None]
+    slot = torch.where(live, bucket_slot[:, None].long(), query_terms)
+    flat = slot.mul_(batch).add_(bucket_row[:, None].long()).mul_(n_docs).add_(doc[idx].long())
+    scores = _ordered_scores(flat, prod, query_terms, batch, n_docs)
+    return _top_k(scores, k, doc_prior if use_prior else None)
+
+
+def topk_merge(seg_scores, seg_ids, seg_bases, *, k: int):
+    """Merge per-segment top-k candidates: ``seg_scores``/``seg_ids`` are
+    per-segment ``[B, k_i]`` tensors (local int32 doc ids), ``seg_bases``
+    the segments' global doc-id bases.  One stable sort of the candidates
+    in base order, so only ``[B, k]`` leaves the device and a tie keeps the
+    older (lower-base) segment, as ``lax.top_k`` does in the reference."""
+    scores = torch.cat(list(seg_scores), dim=1)
+    ids = torch.cat([i + int(b) for i, b in zip(seg_ids, seg_bases)], dim=1)
+    top, pos = torch.sort(scores, dim=1, descending=True, stable=True)
+    return top[:, :k].contiguous(), ids.gather(1, pos[:, :k])

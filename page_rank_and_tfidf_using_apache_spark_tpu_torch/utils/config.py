@@ -36,20 +36,26 @@ TUNABLE_DEFAULTS: dict = {
     "prefetch": 2,
     "pipeline_depth": 2,
     "pack_target_tokens": 0,
+    # serving batch cap (serving/server.py ServeConfig)
+    "max_batch": 8,
+    # impacted-list scoring bucket layout (serving/server.py)
+    "impact_bucket_width": 8,
+    "impact_warm_buckets": 8192,  # 1 << 13
 }
 
 # The GRAFT_* environment knobs the port's entry points read; a traced
 # run's manifest records each one's value (obs/manifest.py).  The same names
-# as the JAX package's knobs of the same use.  GRAFT_METRICS_PORT and
-# GRAFT_FED_SCRAPE_S, which the copied obs/export.py and obs/federation.py
-# read, are left out: no entry point of the port starts an exporter or a
-# fleet hub, so neither knob changes a run.
+# as the JAX package's knobs of the same use.
 GRAFT_ENV_KNOBS: frozenset = frozenset({
     "GRAFT_LOG_LEVEL",  # stderr log level (utils/metrics.py; default INFO)
     "GRAFT_TRACE_DIR",  # obs/ run-telemetry output dir: traced runs write
     # <name>.<pid>.trace.jsonl + .manifest.json here (unset = no trace)
     "GRAFT_TRACE_PARENT",  # cross-process trace id (obs/runtime.py): every
     # child run adopts it in its run_start event + manifest
+    "GRAFT_METRICS_PORT",  # live-metrics HTTP endpoint (obs/export.py):
+    # unset = no exporter, 0 = ephemeral port, else the literal port;
+    # serves /snapshot.json (rolling-window SLO snapshot) + /metrics
+    # (Prometheus text) from a running cli.serve
 })
 
 SPMV_IMPLS = ("segment", "bcoo", "cumsum", "cumsum_mxu", "hybrid",

@@ -87,6 +87,13 @@ def test_scan_covers_the_streaming_slice():
             "serving/__init__.py", "serving/artifact.py", "models/tfidf.py"} <= scanned
 
 
+def test_scan_covers_the_serving_slice():
+    """The server, the segments copy and the serve CLI are among the files
+    the scan reads."""
+    scanned = {p.relative_to(PORT).as_posix() for p in FILES if p.is_relative_to(PORT)}
+    assert {"serving/server.py", "serving/segments.py", "cli/serve.py"} <= scanned
+
+
 @pytest.mark.parametrize("source, flagged", [
     ("import page_rank_and_tfidf_using_apache_spark_tpu_torch.ops", set()),
     ("from page_rank_and_tfidf_using_apache_spark_tpu_torch import api", set()),
@@ -215,6 +222,48 @@ assert idx.nnz == batch.nnz and idx.bm25_weight is not None
 print("ok")
 """
     out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_serving_runs_with_jax_unimportable(tmp_path):
+    """Segments sealed, committed, served by both scorings, merged and
+    refreshed, and the serve CLI, in a process where JAX and the JAX
+    package cannot be imported."""
+    code = """
+import sys
+for name in ("jax", "jaxlib", "page_rank_and_tfidf_using_apache_spark_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import page_rank_and_tfidf_using_apache_spark_tpu_torch as port
+from page_rank_and_tfidf_using_apache_spark_tpu_torch import serving
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.cli import serve
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import segments as sgm
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import device
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import Bm25Config
+device.DEFAULT_DEVICE = "cpu"  # the merge seals its BM25 on the default device
+tmp = sys.argv[1]
+cfg = port.TfidfConfig(vocab_bits=10)
+base = 0
+for docs in (["the cat sat", "the dog sat"], ["a cat ran", "dogs and cats"]):
+    out = port.tfidf(docs, cfg, device="cpu")
+    ref = sgm.seal_segment(tmp, out, cfg, doc_base=base, bm25=Bm25Config())
+    sgm.commit_append(tmp, ref, cfg.config_hash())
+    base += out.n_docs
+got = []
+for scoring in ("coo", "impacted"):
+    with serving.TfidfServer(sgm.load_segment_set(tmp), serving.ServeConfig(
+            top_k=3, scoring=scoring), device="cpu") as srv:
+        got.append(srv.query(["cat"], ranker="bm25"))
+        if scoring == "impacted":
+            assert sgm.SegmentMerger(tmp, cfg, max_segments=1).merge_once()
+            srv.refresh_segments(sgm.load_segment_set(tmp))
+            assert srv.query(["cat"], ranker="bm25")[1].tolist() == got[-1][1].tolist()
+assert got[0][0].tobytes() == got[1][0].tobytes()
+assert serve.main([tmp, "--queries", sys.argv[2], "--device", "cpu"]) == 0
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path), TINY], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")

@@ -57,10 +57,12 @@ def sink():
 
 # ------------------------------------------------------------------ copies
 
-def _code(path: pathlib.Path) -> str:
+def _code(path: pathlib.Path, transform: ast.NodeTransformer | None = None) -> str:
     """The module's AST without docstrings, the JAX package's name read as
-    the port's."""
+    the port's; ``transform``, if given, rewrites the tree first."""
     tree = ast.parse(path.read_text())
+    if transform is not None:
+        tree = transform.visit(tree)
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
