@@ -120,7 +120,28 @@ Phases, each of which exits non-zero on failure:
    config-5 stand-in (bigrams, smooth/L2) sealed as four segments and
    served against a monolithic index, then ``merge_once`` and
    ``refresh_segments`` under traffic, results unchanged bit for bit;
-7. one JSON line describing every kernel, then the result line.
+12. PageRank checkpoints and the graph workloads on the main path's graph:
+   (12a) for ``segment``, ``pallas`` and ``hybrid`` in float32 and float64,
+   a run killed at 10 iterations with a checkpoint every 5 and resumed to
+   20, its ranks equal to an unbroken run's bit for bit and its launches
+   those of 15 steps; the CLI the same way (``--checkpoint-dir``,
+   ``--checkpoint-every 5``, then ``--resume``), its lines against the API's
+   ranks; the 20-iteration run with and without checkpoints, medians of 5;
+   (12b) ``run_ppr_batch`` at bench.py's shape (8 single-node queries from
+   seed 7, 10 iterations) through ``cumsum``, ``segment``, ``pallas`` and
+   ``hybrid``: float64 rows within 1e-12 of single-query ``run_pagerank``,
+   float32 rows within L1 1e-3 of float64, the API's run and five timed
+   runs equal bit for bit, queries/s, launches by kernel (8 a step of each
+   of the impl's kernels); (12c) ``run_hits``, 100 iterations at tol 1e-8,
+   float32 and float64, five runs equal bit for bit, two ``segment``
+   launches a step and no other, float64 within 1e-12 of the CPU run,
+   iterations/s; (12d) ``run_components`` to its fixpoint on that graph and
+   on a sparse one of many components, labels equal to scipy's weak
+   components relabelled to each one's smallest id, rounds/s, no kernel
+   launched; (12e) ``cli.workloads`` ``ppr``, ``hits`` and ``cc``
+   once each on a small graph, lines equal to the API's;
+7. one JSON line describing every kernel (with ``workload_launches``, each
+   kernel's launches in 12a-12c by workload), then the result line.
 
 Without a CUDA device, or without the port's package beside it, it exits
 non-zero and prints no result.
@@ -2071,6 +2092,347 @@ def serving_phase(device, reset_counts, counts, card_label: str, docs, wiki) -> 
     return launched
 
 
+
+# Phase 12: PageRank checkpoints and resume, and the graph workloads, on the
+# main path's graph.  PPR is bench.py's shape (bench.py:718-724): B = 8
+# single-node queries drawn from seed 7, 10 iterations, redistribute,
+# uniform.  HITS runs 100 iterations at tol 1e-8, components to their
+# fixpoint; cli.workloads runs on a small graph.  Timed medians take
+# WORKLOAD_RUNS runs.
+CKPT_EVERY, WORKLOAD_RUNS = 5, 5
+PPR_BATCH, PPR_ITERS, PPR_IMPLS = 8, 10, ("cumsum", "segment", "pallas", "hybrid")
+# the kernels a step of each impl's SpMV launches, once a row
+PPR_KERNELS = {"cumsum": ("cumsum",), "segment": ("segment",), "pallas": ("spmv",),
+               "hybrid": ("cumsum", "rowsum", "segment")}
+HITS_ITERS, HITS_TOL = 100, 1e-8
+WORKLOAD_CLI_GRAPH = (20_000, 100_000, 7)
+CC_SPARSE_GRAPH = (200_000, 150_000, 7)  # nodes, edges, seed: many components
+
+
+def bits_differ(a: np.ndarray, b: np.ndarray) -> int:
+    """Entries of two float arrays of one shape whose bits differ."""
+    view = np.int32 if a.dtype == np.float32 else np.int64
+    return int((np.ascontiguousarray(a).view(view) != np.ascontiguousarray(b).view(view)).sum())
+
+
+def add_counts(total: dict, launched: dict) -> None:
+    for k, v in launched.items():
+        total[k] = total.get(k, 0) + v
+
+
+def pagerank_checkpoint_phase(graph, reset_counts, counts, card_label: str) -> dict:
+    """12a: for segment, pallas and hybrid in float32 and float64, an
+    unbroken 20-iteration run, a "killed" 10-iteration run checkpointing
+    every 5, and its resume to 20: the resumed ranks equal the unbroken
+    run's bit for bit.  The CLI once the same way; the checkpoints' cost.
+    Returns the resumed runs' launches."""
+    import dataclasses
+
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.cli import pagerank as cli
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import checkpoint as ckpt
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import PageRankConfig
+
+    base = PageRankConfig(iterations=ITERS, dangling="redistribute", init="uniform")
+    total: dict = {}
+    unbroken = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for impl in MAIN_IMPLS:
+            for dtype in ("float32", "float64"):
+                cfg = dataclasses.replace(base, dtype=dtype, spmv_impl=impl)
+                full = run_pagerank(graph, cfg, device="cuda")
+                unbroken[(impl, dtype)] = full.ranks
+                ck = dict(checkpoint_every=CKPT_EVERY,
+                          checkpoint_dir=os.path.join(tmp, f"{impl}-{dtype}"))
+                killed = run_pagerank(graph, dataclasses.replace(cfg, iterations=ITERS // 2,
+                                                                 **ck), device="cuda")
+                saved = [r["iter"] for r in killed.metrics.records if r.get("event") == "checkpoint"]
+                reset_counts()
+                res = run_pagerank(graph, dataclasses.replace(cfg, **ck), resume=True,
+                                   device="cuda")
+                launched = counts()
+                add_counts(total, launched)
+                start = [r["start_iter"] for r in res.metrics.records if r.get("event") == "resume"]
+                differ = bits_differ(res.ranks, full.ranks)
+                print(f"checkpoints {impl} {dtype}: killed at {ITERS // 2} (saved {saved}), "
+                      f"resumed at {start} to {res.iterations}: {differ} of {graph.n_nodes} "
+                      f"entries differ from the unbroken run; launches {launched}")
+                check(saved == [CKPT_EVERY] and start == [CKPT_EVERY],
+                      f"checkpoints {impl} {dtype}: saved {saved}, resumed at {start}")
+                check(res.iterations == ITERS and res.ranks.dtype == np.dtype(dtype),
+                      f"checkpoints {impl} {dtype}: {res.iterations} iterations, {res.ranks.dtype}")
+                check(differ == 0, f"checkpoints {impl} {dtype}: resumed ranks differ in "
+                                   f"{differ} entries from the unbroken run")
+                check(all(launched[k] == ITERS - CKPT_EVERY for k in PPR_KERNELS[impl]),
+                      f"checkpoints {impl} {dtype}: the resumed run launched {launched}")
+
+        # the CLI, killed at 10 and resumed to 20 (segment, float32)
+        d, out = os.path.join(tmp, "cli"), os.path.join(tmp, "cli.tsv")
+        spec = f"synthetic:{N_NODES},{N_EDGES},{SEED}"
+        flags = ["--dangling", "redistribute", "--init", "uniform", "--device", "cuda",
+                 "--checkpoint-dir", d, "--checkpoint-every", str(CKPT_EVERY), "--output", out]
+        t0 = time.perf_counter()
+        check(cli.main([spec, str(ITERS // 2), *flags]) == 0, "checkpointed CLI run failed")
+        check(cli.main([spec, str(ITERS), *flags, "--resume"]) == 0, "resumed CLI run failed")
+        latest = os.path.basename(ckpt.latest_checkpoint(d))
+        table = np.loadtxt(out, dtype=np.float64, delimiter="\t", ndmin=2)
+        rows = np.searchsorted(graph.node_ids, table[:, 0].astype(np.int64))
+        expect = unbroken[("segment", "float32")][rows].astype(np.float64)
+        err = float(np.abs(table[:, 1] - expect).max())
+        print(f"checkpoints cli: killed at {ITERS // 2}, resumed to {ITERS} (latest {latest}), "
+              f"{len(rows)} lines, max abs diff vs the unbroken segment run {err:.3g}; "
+              f"{time.perf_counter() - t0:.1f} s for both runs with the graph build")
+        check(len(rows) == graph.n_nodes and latest == f"ckpt_{ITERS - CKPT_EVERY:08d}.npz",
+              f"checkpoints cli: {len(rows)} lines, latest {latest}")
+        check(err <= 1e-9 * float(expect.max()), "checkpoints cli: ranks differ from the API run")
+
+        # the checkpoints' cost: run wall less put_graph, with and without
+        cfg = dataclasses.replace(base, dtype="float32", spmv_impl="segment")
+
+        def loop_ms(c) -> float:
+            t0 = time.perf_counter()
+            r = run_pagerank(graph, c, device="cuda")
+            wall = time.perf_counter() - t0
+            put = next(x for x in r.metrics.records if x.get("event") == "put_graph")
+            return (wall - put["preprocess_secs"]) * 1e3
+
+        with_ck = dataclasses.replace(cfg, checkpoint_every=CKPT_EVERY,
+                                      checkpoint_dir=os.path.join(tmp, "cost"))
+        plain = float(np.median([loop_ms(cfg) for _ in range(WORKLOAD_RUNS)]))
+        ckd = float(np.median([loop_ms(with_ck) for _ in range(WORKLOAD_RUNS)]))
+        n_ck = ITERS // CKPT_EVERY - 1
+        print(f"checkpoint cost (segment, float32, {card_label}): 20-iteration run less "
+              f"put_graph {plain:.3f} ms, with checkpoint_every={CKPT_EVERY} {ckd:.3f} ms "
+              f"(medians of {WORKLOAD_RUNS}); {(ckd - plain) / n_ck:.3f} ms a checkpoint "
+              f"({n_ck} a run, {graph.n_nodes * 4} bytes of ranks each)")
+    return total
+
+
+def ppr_phase(graph, reset_counts, counts, card_label: str) -> dict:
+    """12b: bench.py's PPR batch through cumsum, segment, pallas and hybrid:
+    float64 rows within 1e-12 of single-query run_pagerank, float32 rows
+    within L1 1e-3 of float64, the API run and five timed runs equal bit
+    for bit, B launches of the impl's kernels a step.  Returns the API runs'
+    launches."""
+    import dataclasses
+
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow import ppr
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import (
+        put_graph_for,
+        run_pagerank,
+    )
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pagerank as ops
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import PageRankConfig
+
+    n = graph.n_nodes
+    rng = np.random.default_rng(SEED)
+    queries = [[int(graph.node_ids[i])] for i in rng.integers(0, n, size=PPR_BATCH)]
+    total: dict = {}
+    for impl in PPR_IMPLS:
+        ranks = {}
+        for dtype in ("float64", "float32"):
+            cfg = PageRankConfig(iterations=PPR_ITERS, dangling="redistribute", init="uniform",
+                                 dtype=dtype, spmv_impl=impl)
+            reset_counts()
+            res = ppr.run_ppr_batch(graph, cfg, queries, device="cuda")
+            launched = counts()
+            add_counts(total, launched)
+            ranks[dtype] = res.ranks
+            want = {k: 0 for k in launched}
+            want.update({k: PPR_BATCH * PPR_ITERS for k in PPR_KERNELS[impl]})
+            check(res.ranks.shape == (PPR_BATCH, n) and bool(np.isfinite(res.ranks).all()),
+                  f"ppr {impl} {dtype}: ranks not finite or of shape {res.ranks.shape}")
+            check(launched == want, f"ppr {impl} {dtype}: launches {launched}, wanted {want}")
+            # the loop alone, over one device graph, as bench.py times it
+            dg = put_graph_for(graph, cfg, "cuda")
+            e_b = torch.from_numpy(ppr.restart_batch(graph, cfg, queries)).to("cuda")
+            r0 = torch.from_numpy(np.broadcast_to(ops.init_ranks(n, cfg),
+                                                  (PPR_BATCH, n)).copy()).to("cuda")
+            runner = ppr.make_ppr_batch_runner(n, cfg)
+            runner(dg, r0, e_b)
+            walls, differ = [], 0
+            for _ in range(WORKLOAD_RUNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = runner(dg, r0, e_b)[0]
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                differ = max(differ, bits_differ(out.cpu().numpy(), res.ranks))
+            wall = float(np.median(walls))
+            print(f"ppr {impl} {dtype} ({card_label}): B={PPR_BATCH} x {PPR_ITERS} iterations, "
+                  f"loop {wall * 1e3:.3f} ms median of {WORKLOAD_RUNS} (min "
+                  f"{min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}), "
+                  f"{PPR_BATCH / wall:.2f} queries/s; launches {launched}; "
+                  f"{differ} entries differ over {WORKLOAD_RUNS + 1} runs")
+            check(differ == 0, f"ppr {impl} {dtype}: two runs differ in {differ} entries")
+            del dg
+        worst = 0.0
+        for qi, q in enumerate(queries):
+            one = run_pagerank(graph, PageRankConfig(
+                iterations=PPR_ITERS, dangling="redistribute", init="uniform", dtype="float64",
+                spmv_impl=impl, personalize=tuple(q)), device="cuda").ranks
+            worst = max(worst, float(np.abs(ranks["float64"][qi] - one).max()))
+        l1 = float(np.abs(ranks["float32"].astype(np.float64) - ranks["float64"]).sum(axis=1).max())
+        print(f"ppr {impl}: float64 rows vs single-query run_pagerank max abs {worst:.3g}; "
+              f"float32 vs float64 worst row L1 {l1:.3g}")
+        check(worst <= 1e-12, f"ppr {impl}: a row is {worst} from its single-query run")
+        check(l1 <= 1e-3, f"ppr {impl}: float32 row L1 {l1} from float64")
+    return total
+
+
+def hits_phase(graph, reset_counts, counts, card_label: str) -> dict:
+    """12c: HITS at 100 iterations, tol 1e-8, float32 and float64: five runs
+    of each equal bit for bit, two segment launches a step, float64 within
+    1e-12 of the CPU run.  Returns the first runs' launches."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.hits import run_hits
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import HitsConfig
+
+    total: dict = {}
+    for dtype in ("float32", "float64"):
+        cfg = HitsConfig(iterations=HITS_ITERS, tol=HITS_TOL, dtype=dtype)
+        reset_counts()
+        first = run_hits(graph, cfg, device="cuda")
+        launched = counts()
+        add_counts(total, launched)
+        rates, differ = [], 0
+        for res in [first] + [run_hits(graph, cfg, device="cuda") for _ in range(WORKLOAD_RUNS - 1)]:
+            rates.append(res.metrics.records[-1]["iters_per_sec"])
+            differ = max(differ, bits_differ(res.hubs, first.hubs),
+                         bits_differ(res.authorities, first.authorities))
+        want = {k: 0 for k in launched}
+        want["segment"] = 2 * first.iterations
+        print(f"hits {dtype} ({card_label}): {first.iterations} iterations, delta "
+              f"{first.l1_delta:.3g}, {float(np.median(rates)):.2f} iterations/s median of "
+              f"{WORKLOAD_RUNS} (min {min(rates):.2f}, max {max(rates):.2f}); launches "
+              f"{launched}; {differ} entries differ over {WORKLOAD_RUNS} runs")
+        check(bool(np.isfinite(first.hubs).all() and np.isfinite(first.authorities).all()),
+              f"hits {dtype}: not finite")
+        check(launched == want, f"hits {dtype}: launches {launched}, wanted {want}")
+        check(differ == 0, f"hits {dtype}: runs differ in {differ} entries")
+        if dtype == "float64":
+            t0 = time.perf_counter()
+            cpu = run_hits(graph, cfg, device="cpu")
+            err = max(float(np.abs(cpu.hubs - first.hubs).max()),
+                      float(np.abs(cpu.authorities - first.authorities).max()))
+            print(f"hits float64 vs device='cpu': {cpu.iterations} iterations, max abs "
+                  f"{err:.3g} ({time.perf_counter() - t0:.1f} s on the CPU)")
+            check(cpu.iterations == first.iterations and err <= 1e-12,
+                  f"hits float64: {err} from the CPU run ({cpu.iterations} iterations)")
+    return total
+
+
+def components_phase(graph, reset_counts, counts, card_label: str) -> None:
+    """12d: connected components to the fixpoint on the main path's graph
+    (one weak component) and on a sparse graph of many: labels equal to
+    scipy's weak components relabelled to each one's smallest id; no
+    kernel; rounds/s, the median of WORKLOAD_RUNS runs."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.components import (
+        run_components,
+    )
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import synthetic_powerlaw
+
+    sparse = synthetic_powerlaw(*CC_SPARSE_GRAPH[:2], seed=CC_SPARSE_GRAPH[2])
+    for label, g in (("main path", graph), ("sparse", sparse)):
+        n = g.n_nodes
+        reset_counts()
+        res = run_components(g, device="cuda")
+        launched = counts()
+        k, comp = connected_components(
+            csr_matrix((np.ones(g.n_edges, np.int8), (g.src, g.dst)), shape=(n, n)),
+            directed=True, connection="weak")
+        smallest = np.full(k, n, np.int64)
+        np.minimum.at(smallest, comp, np.arange(n))
+        wrong = int((res.labels != smallest[comp]).sum())
+        runs = [res] + [run_components(g, device="cuda") for _ in range(WORKLOAD_RUNS - 1)]
+        steps = [next(r for r in x.metrics.records if "iters_per_sec" in r) for x in runs]
+        rate = float(np.median([st["iters_per_sec"] for st in steps]))
+        print(f"components {label} ({n} nodes, {g.n_edges} edges; {card_label}): "
+              f"{res.iterations} rounds, converged {res.converged}, {res.n_components} "
+              f"components (scipy {k}), {rate:.2f} rounds/s median of {WORKLOAD_RUNS} (loop "
+              f"ms {', '.join(f'{st['secs'] * 1e3:.3f}' for st in steps)}); {wrong} labels "
+              f"differ from scipy's; launches {launched}")
+        check(res.converged and res.n_components == k and wrong == 0,
+              f"components {label}: {wrong} labels differ from scipy's, "
+              f"{res.n_components} components vs {k}")
+        check(all(x.labels.tobytes() == res.labels.tobytes() for x in runs),
+              f"components {label}: runs differ")
+        check(not any(launched.values()), f"components {label} launched {launched}")
+
+
+def workloads_cli_phase() -> None:
+    """12e: ``cli.workloads`` ppr, hits and cc once each on a small graph;
+    their lines equal what the API gives on the card."""
+    import contextlib
+    import io
+
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.cli import workloads as wcli
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.components import (
+        run_components,
+    )
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.hits import run_hits
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.ppr import run_ppr_batch
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import synthetic_powerlaw
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
+        HitsConfig,
+        PageRankConfig,
+    )
+
+    g = synthetic_powerlaw(*WORKLOAD_CLI_GRAPH[:2], seed=WORKLOAD_CLI_GRAPH[2])
+    spec = "synthetic:" + ",".join(str(x) for x in WORKLOAD_CLI_GRAPH)
+    ids = [int(x) for x in g.node_ids[[0, 5, 9]]]
+    queries = [[ids[0]], [ids[1], ids[2]]]
+
+    def top(vec, k: int = 10):
+        return vec.argsort()[::-1][:k]
+
+    ranks = run_ppr_batch(g, PageRankConfig(iterations=50, tol=1e-8, dangling="redistribute",
+                                            init="uniform"), queries, device="cuda").ranks
+    hits = run_hits(g, HitsConfig(), device="cuda")
+    labels = run_components(g, device="cuda").labels
+    want = {
+        "ppr": [f"{qi}\t{g.node_ids[i]}\t{ranks[qi][i]:.10g}"
+                for qi in range(len(queries)) for i in top(ranks[qi])],
+        "hits": [f"{name}\t{g.node_ids[i]}\t{vec[i]:.10g}"
+                 for name, vec in (("hub", hits.hubs), ("auth", hits.authorities))
+                 for i in top(vec)],
+        "cc": [f"{g.node_ids[i]}\t{g.node_ids[lab]}" for i, lab in enumerate(labels)],
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cc.tsv")
+        for kind, argv in (("ppr", ["--queries", str(ids[0]), f"{ids[1]},{ids[2]}"]),
+                           ("hits", []), ("cc", ["--output", out])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = wcli.main([kind, spec, *argv, "--device", "cuda"])
+            check(rc == 0, f"cli.workloads {kind} exited {rc}")
+            lines = buf.getvalue().splitlines() if kind != "cc" else open(out).read().splitlines()
+            print(f"cli.workloads {kind}: {len(lines)} lines, equal to the API's: "
+                  f"{lines == want[kind]}")
+            check(lines == want[kind], f"cli.workloads {kind}: lines differ from the API's")
+
+
+def workloads_phase(graph, reset_counts, counts, card_label: str) -> dict:
+    """Phase 12 (see the module docstring); every check raises on failure.
+    Returns the launches of 12a-12c by kernel, for the kernels line."""
+    by_phase = {}
+    for label, name, fn in (("12a (pagerank checkpoints)", "pagerank_resume",
+                             pagerank_checkpoint_phase),
+                            ("12b (ppr)", "ppr", ppr_phase), ("12c (hits)", "hits", hits_phase)):
+        t0 = time.perf_counter()
+        by_phase[name] = fn(graph, reset_counts, counts, card_label)
+        print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    components_phase(graph, reset_counts, counts, card_label)
+    print(f"phase 12d (components): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    workloads_cli_phase()
+    print(f"phase 12e (cli.workloads): {time.perf_counter() - t0:.1f} s")
+    return by_phase
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs one CUDA GPU",
@@ -2420,6 +2782,11 @@ def main() -> int:
                                         stream["docs"], stream["wiki"])
     print(f"phase 11 (serving): {time.perf_counter() - t0:.1f} s")
 
+    # 12. PageRank checkpoints and resume, PPR, HITS, components, cli.workloads
+    t0 = time.perf_counter()
+    workload_launches = workloads_phase(graph, reset_counts, counts, card_label)
+    print(f"phase 12 (workloads): {time.perf_counter() - t0:.1f} s")
+
     # 7. the kernels line, then the result line; launches are those of the
     # kernel's own path: cumsum's from the hybrid run (its tail's prefix
     # sum), segment's from the segment run
@@ -2439,9 +2806,12 @@ def main() -> int:
                     "page_rank_and_tfidf_using_apache_spark_tpu/ops/pagerank.py:378",
                     launches["segment"]["segment"]),
     }
+    # workload_launches: each kernel's launches in phase 12's counted runs
+    # (12a's resumed runs, 12b's API runs, 12c's first runs), by workload
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": n, **main_rows[name]}
+         "launches": n, **main_rows[name],
+         "workload_launches": {w: c.get(name, 0) for w, c in workload_launches.items()}}
         for name, (src, replaces, n) in meta.items()
     ]
     print(f"total: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)

@@ -7,6 +7,12 @@ Usage::
 
     python -m page_rank_and_tfidf_using_apache_spark_tpu_torch.cli.pagerank \
         edges.txt 20 --output ranks.txt --dangling redistribute
+    python -m ...cli.pagerank edges.txt 20 --checkpoint-dir ck \
+        --checkpoint-every 5 [--resume]
+
+The flags are the JAX CLI's.  Those of paths the port does not run yet
+(the mesh and its strategies, the tuned profile) are accepted and refused:
+the command exits non-zero naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -28,6 +34,15 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder, Timer
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.profiling import trace
+
+# Flags of the JAX CLI whose paths are not ported yet: flag -> (what it
+# needs, ROADMAP Queue 1 item).  Each defaults to None, so a given flag is
+# one that is not None.
+LATER_FLAGS = {
+    "--mesh": ("multi-GPU PageRank", 11),
+    "--shard-strategy": ("multi-GPU PageRank", 11),
+    "--tuned-profile": ("the tuned profile", 5),
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,6 +72,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="hybrid impl: dense row width (adapts down on small "
                         "graphs; default: TUNABLE_DEFAULTS)")
     p.add_argument("--dtype", default="float32")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="iterations between checkpoints (0 = none; only "
+                        "without --tol)")
+    p.add_argument("--resume", action="store_true",
+                   help="start from the newest checkpoint under "
+                        "--checkpoint-dir")
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: cuda; 'cpu' runs "
                         "the kernels' plain versions)")
@@ -66,11 +88,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-dir", default=None,
                    help="obs run-telemetry dir: write <name>.<pid>.trace.jsonl"
                         " + manifest here (default: $GRAFT_TRACE_DIR)")
+    later = p.add_argument_group("not ported yet (each exits non-zero naming its ROADMAP item)")
+    for flag, (what, item) in LATER_FLAGS.items():
+        later.add_argument(flag, default=None, metavar="VALUE",
+                           help=f"{what}: ROADMAP Queue 1 item {item}")
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    given = [f for f in LATER_FLAGS if getattr(args, f[2:].replace("-", "_")) is not None]
+    if given:
+        parser.error("; ".join(f"{f} ({LATER_FLAGS[f][0]}) is not ported yet: "
+                               f"ROADMAP Queue 1 item {LATER_FLAGS[f][1]}" for f in given))
     # The traced run covers the whole command: manifest at startup, every
     # span and metric event flushed per-event to the JSONL trace, run-end
     # summary at exit (no-op without --trace-dir/GRAFT_TRACE_DIR).
@@ -106,10 +137,13 @@ def _main(args) -> int:
         personalize=tuple(args.personalize) if args.personalize else None,
         spmv_impl=args.spmv_impl,
         dtype=args.dtype,
+        checkpoint_every=args.checkpoint_every,
+        checkpoint_dir=args.checkpoint_dir,
         **{k: v for k, v in knobs.items() if v is not None},
     )
     with trace(args.profile_dir):
-        result = run_pagerank(graph, cfg, metrics=metrics, device=args.device)
+        result = run_pagerank(graph, cfg, metrics=metrics, resume=args.resume,
+                              device=args.device)
 
     if args.output:
         save_ranks(args.output, graph, result.ranks, top_k=args.top_k)

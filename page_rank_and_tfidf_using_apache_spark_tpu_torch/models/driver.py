@@ -1,4 +1,9 @@
-"""Host-side helpers for the PageRank model driver."""
+"""Host-side helpers for the PageRank model driver: personalize-id
+resolution and checkpoint resume.
+
+Counterpart of the JAX package's ``models/driver.py``.  The segment loop
+lives in ``dataflow/fixpoint.py`` and is re-exported here, as there.
+"""
 
 from __future__ import annotations
 
@@ -6,7 +11,12 @@ import dataclasses
 
 import numpy as np
 
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.fixpoint import (  # noqa: F401 — re-exported API
+    resume_state,
+    run_segments,
+)
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import PageRankConfig
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder
 
 
 def resolve_personalize(graph, cfg: PageRankConfig) -> PageRankConfig:
@@ -23,3 +33,13 @@ def resolve_personalize(graph, cfg: PageRankConfig) -> PageRankConfig:
         missing = ids[~ok].tolist()
         raise ValueError(f"personalize node ids not present in the graph: {missing}")
     return dataclasses.replace(cfg, personalize=tuple(int(p) for p in pos))
+
+
+def resume_from_checkpoint(
+    cfg: PageRankConfig, metrics: MetricsRecorder, ranks_np: np.ndarray, *, n: int
+) -> int:
+    """Load the latest checkpoint into the first ``n`` rows of ``ranks_np``
+    (in place, in its dtype) and return the start iteration; 0 where
+    there is no checkpoint.  Checkpoints store exactly the ``n`` ranks, so
+    another size means another graph and raises ("different graph")."""
+    return resume_state(cfg, metrics, ranks_np[:n])

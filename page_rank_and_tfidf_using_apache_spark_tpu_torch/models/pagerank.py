@@ -1,13 +1,18 @@
-"""PageRank model driver: move the graph to the device once, run the loop,
-pull the ranks back, and record metrics.
+"""PageRank model driver: move the graph to the device once, run the loop
+in checkpointed segments, pull the ranks back, and record metrics.
 
 Counterpart of the JAX package's ``models/pagerank.py`` single-device path.
-The numeric loop is ``ops/pagerank.py``.  Checkpointed segments, resume
-and the recovery ladder are not part of the port yet: a config that asks
-for checkpoints is refused.  The host syncs are obs spans under the JAX
-package's names: ``pagerank.delta_sync`` (where ``tol`` makes the loop
-read its delta, the loop's own syncs are not spanned: the last one is)
-and ``pagerank.result_pull``.
+The numeric loop is ``ops/pagerank.py``; the segment loop, checkpoints and
+resume are ``dataflow/fixpoint.run_segments`` (through ``models/driver``):
+with ``checkpoint_every = k`` the run takes k-iteration segments with a
+snapshot of ``(ranks, iteration, config_hash)`` between them, and
+``resume=True`` restarts from the newest one, giving an unbroken run's
+bits.  The reference's recovery rungs are not ported (ROADMAP Queue 1
+items 3 and 12).  The host syncs are obs spans under the JAX package's
+names: ``pagerank.delta_sync`` (where ``tol`` makes the loop read its
+delta, the loop's own syncs are not spanned: the last one is),
+``pagerank.ckpt_pull`` and ``pagerank.result_pull``, with
+``pagerank.segment`` and ``pagerank.checkpoint`` from the segment loop.
 """
 
 from __future__ import annotations
@@ -57,13 +62,14 @@ def run_pagerank(
     cfg: PageRankConfig,
     *,
     metrics: MetricsRecorder | None = None,
+    resume: bool = False,
     device: str | torch.device | None = None,
 ) -> PageRankResult:
     """Run PageRank per ``cfg`` on one device: ``cuda`` unless ``device``
-    says otherwise (``device="cpu"`` runs the kernels' plain versions)."""
+    says otherwise (``device="cpu"`` runs the kernels' plain versions).
+    ``resume=True`` starts from the newest checkpoint under
+    ``cfg.checkpoint_dir``."""
     dev = resolve_device(device)
-    if cfg.checkpoint_every or cfg.checkpoint_dir:
-        raise ValueError("checkpointing is not supported by the PyTorch port yet")
     metrics = metrics or MetricsRecorder()
     n = graph.n_nodes
     if n == 0:
@@ -76,25 +82,35 @@ def run_pagerank(
     metrics.record(event="put_graph", spmv_impl=cfg.spmv_impl,
                    preprocess_secs=t_put.elapsed)
     e = torch.from_numpy(ops.restart_vector(n, cfg)).to(dev)
-    ranks0 = torch.from_numpy(ops.init_ranks(n, cfg)).to(dev)
+    ranks = ops.init_ranks(n, cfg)
+    start_iter = driver.resume_from_checkpoint(cfg, metrics, ranks, n=n) if resume else 0
+    ranks_dev = torch.from_numpy(ranks).to(dev)
 
     make = ops.make_spark_exact_runner if cfg.spark_exact else ops.make_pagerank_runner
-    runner = make(n, cfg)
     # without tol the loop runs with no host sync and this read waits for
     # all of it, so only a tol run's last delta read is a delta_sync span
-    sync = obs.span("pagerank.delta_sync") if cfg.tol > 0 else contextlib.nullcontext()
-    with Timer() as t:
-        ranks, done, delta = runner(dg, ranks0, e)
-        with sync:
-            last_delta = float(delta)  # the host sync that ends the loop
-    metrics.record(
-        iter=done, l1_delta=last_delta, secs=t.elapsed,
-        iters_per_sec=done / t.elapsed if t.elapsed > 0 else float("inf"),
+    sync = (lambda: obs.span("pagerank.delta_sync")) if cfg.tol > 0 else contextlib.nullcontext
+
+    def invoke(runner, rd):
+        rd, iters, delta = runner(dg, rd, e)
+        with sync():
+            # the reference's guarded site pagerank_delta_sync
+            delta = float(delta)  # the host sync that ends the segment
+        return rd, iters, delta
+
+    def extract_np(rd) -> np.ndarray:
+        with obs.span("pagerank.ckpt_pull"):
+            return rd.cpu().numpy()
+
+    ranks_dev, done, last_delta = driver.run_segments(
+        cfg, metrics, ranks_dev, start_iter,
+        make_runner=lambda seg_cfg: make(n, seg_cfg),
+        invoke=invoke,
+        extract_np=extract_np,
+        segments_allowed=not cfg.spark_exact,
     )
-    metrics.scalar("iterations", done)
-    metrics.scalar("l1_delta", last_delta)
     with obs.span("pagerank.result_pull"):
-        ranks_np = ranks.cpu().numpy()
+        ranks_np = ranks_dev.cpu().numpy()
     return PageRankResult(
         ranks=ranks_np, iterations=done, l1_delta=last_delta, metrics=metrics,
     )

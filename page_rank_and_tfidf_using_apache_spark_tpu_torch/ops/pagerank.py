@@ -14,7 +14,7 @@ Each of those kernels adds in an order fixed by the shapes, so two runs of
 any impl but ``bcoo`` give the same bits on the card.
 
 Index tensors stay int32 on the device, as in the JAX package; PyTorch's
-indexing, ``index_select`` and ``index_add_`` take them as they are.
+indexing and ``index_select`` take them as they are.
 
 Semantics flags:
 - ``dangling=drop``        mass at out-degree-0 nodes vanishes.
@@ -431,8 +431,9 @@ def spmv_hybrid(dg: DeviceGraph, weighted_ranks: torch.Tensor, n: int) -> torch.
     """Degree-aware hybrid SpMV: the high-in-degree head as a dense
     ``[R, W]`` gather reduced by the row-sum kernel, the tail through the
     prefix-sum/monotone-diff path over its own CSR pointers, combined with
-    one ``index_add_`` of the H head totals (``head_ids`` are unique, so
-    each slot takes one add and the result does not depend on its order).
+    the H head totals written at ``head_ids``.  The tail holds none of a
+    head node's edges, so its sum there is exactly 0 and the write gives the
+    bits of the reference's add, with no float ``index_add_`` on the card.
     The head's rows sum into their nodes through the segmented-sum
     kernel over ``head_row_ptr``."""
     hl = dg.hybrid
@@ -454,7 +455,7 @@ def spmv_hybrid(dg: DeviceGraph, weighted_ranks: torch.Tensor, n: int) -> torch.
             rows = rows * hl.head_w  # sentinel slots carry weight 0
         row_sums = pk.rowsum_kernel(rows)
         head = sk.segment_sum_kernel(row_sums, hl.head_row_ptr, h, plan=hl.head_row_plan)
-        contribs = contribs.index_add_(0, hl.head_ids, head)
+        contribs[hl.head_ids] = head
     return contribs
 
 
@@ -524,6 +525,32 @@ def pagerank_step(
     contribs = spmv(dg, weighted, n, impl)
     if dangling is DanglingMode.REDISTRIBUTE:
         dangling_mass = torch.sum(ranks * dg.dangling)
+        contribs = contribs + dangling_mass * e
+    base = (1.0 - damping) * total_mass * e
+    return base + damping * contribs
+
+
+def pagerank_step_batch(
+    ranks: torch.Tensor,
+    dg: DeviceGraph,
+    e: torch.Tensor,
+    *,
+    n: int,
+    damping: float,
+    dangling: DanglingMode,
+    total_mass: float,
+    impl: str = "segment",
+) -> torch.Tensor:
+    """:func:`pagerank_step` over ``B`` rank vectors at once: ``ranks`` and
+    the teleport matrix ``e`` are ``[B, n]``, one row a query.  The JAX
+    package maps the step over the rows with ``vmap``; here the SpMV runs
+    row by row through :func:`spmv`, so the impl's 1-D kernel and the
+    graph's plans serve every row (B launches a step), and the dangling
+    mass is a per-row sum."""
+    weighted = ranks * dg.inv_outdeg
+    contribs = torch.stack([spmv(dg, weighted[b], n, impl) for b in range(ranks.shape[0])])
+    if dangling is DanglingMode.REDISTRIBUTE:
+        dangling_mass = torch.sum(ranks * dg.dangling, dim=-1, keepdim=True)
         contribs = contribs + dangling_mass * e
     base = (1.0 - damping) * total_mass * e
     return base + damping * contribs

@@ -3,13 +3,17 @@ flags.
 
 Counterpart of the JAX package's ``utils/config.py`` (``PageRankConfig``,
 ``DanglingMode``, ``RankInit``, ``IngestConfig``, ``TfidfConfig``,
-``IdfMode``, ``TfMode``, ``Bm25Config``, the keys of ``TUNABLE_DEFAULTS``
+``IdfMode``, ``TfMode``, ``HitsConfig``, ``ComponentsConfig``,
+``Bm25Config``, the keys of ``TUNABLE_DEFAULTS``
 they read, ``config_hash`` and ``config_to_json``), copied so the port
 never imports that package.  Field names, defaults, validation and hashes
 are held equal to the JAX package by ``tests/test_torch_graph.py``
-(PageRank), ``tests/test_torch_tfidf.py`` (TF-IDF) and
+(PageRank), ``tests/test_torch_tfidf.py`` (TF-IDF),
 ``tests/test_torch_ingest.py`` / ``tests/test_torch_artifact.py``
-(ingest, BM25).
+(ingest, BM25) and ``tests/test_torch_fixpoint.py`` (the hashes of
+``PageRankConfig``, ``HitsConfig`` and ``ComponentsConfig``, which a
+checkpoint carries).  The JAX package's ``ensure_dtype_support`` has no
+counterpart: PyTorch takes float64 as it is.
 """
 
 from __future__ import annotations
@@ -287,6 +291,57 @@ class TfidfConfig:
             exclude={"chunk_tokens", "prefetch", "pipeline_depth",
                      "pack_target_tokens", "checkpoint_every",
                      "checkpoint_dir"},
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class HitsConfig:
+    """Configuration for a HITS (hubs/authorities) run
+    (``dataflow/hits.py``).  Field names mirror PageRankConfig so the shared
+    segment driver (``dataflow.fixpoint.run_segments``) drives it unchanged;
+    the iteration follows networkx.hits (max-normalization each step, L1
+    convergence on the hub vector, sum-normalization at the end)."""
+
+    iterations: int = 100
+    tol: float = 1e-8
+    dtype: str = "float32"
+    checkpoint_every: int = 0
+    checkpoint_dir: str | None = None
+
+    def __post_init__(self) -> None:
+        if self.iterations < 0:
+            raise ValueError(f"iterations must be >= 0, got {self.iterations}")
+        if self.tol < 0:
+            raise ValueError(f"tol must be >= 0, got {self.tol}")
+
+    def config_hash(self) -> str:
+        return _hash_config(
+            self, exclude={"iterations", "tol", "checkpoint_every", "checkpoint_dir"}
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class ComponentsConfig:
+    """Configuration for connected components by min-label propagation
+    (``dataflow/components.py``).  ``iterations`` caps the rounds (at least
+    the undirected diameter for an exact answer; the run stops the round
+    nothing changes)."""
+
+    iterations: int = 200
+    checkpoint_every: int = 0
+    checkpoint_dir: str | None = None
+    # The delta is the COUNT of labels that changed, so any tol in (0, 1)
+    # means "stop when nothing changed".  A field, so dataclasses.replace in
+    # the segment driver keeps it.
+    tol: float = 0.5
+
+    def __post_init__(self) -> None:
+        if self.iterations < 0:
+            raise ValueError(f"iterations must be >= 0, got {self.iterations}")
+
+    def config_hash(self) -> str:
+        return _hash_config(
+            self, exclude={"iterations", "tol", "checkpoint_every", "checkpoint_dir"}
         )
 
 

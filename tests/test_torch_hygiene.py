@@ -20,6 +20,10 @@ import torch
 from page_rank_and_tfidf_using_apache_spark_tpu_torch import pagerank, tfidf
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.cli import pagerank as cli
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.cli import tfidf as tfidf_cli
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.cli import workloads as workloads_cli
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.components import run_components
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.hits import run_hits
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.ppr import run_ppr_batch
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import synthetic_powerlaw
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import (
@@ -33,6 +37,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import (
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import native
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
+    HitsConfig,
     PageRankConfig,
     TfidfConfig,
 )
@@ -94,6 +99,15 @@ def test_scan_covers_the_serving_slice():
     assert {"serving/server.py", "serving/segments.py", "cli/serve.py"} <= scanned
 
 
+def test_scan_covers_the_workloads_slice():
+    """The segment driver, the combine primitives, the three workloads and
+    their CLI are among the files the scan reads."""
+    scanned = {p.relative_to(PORT).as_posix() for p in FILES if p.is_relative_to(PORT)}
+    assert {"dataflow/fixpoint.py", "dataflow/combine.py", "dataflow/ppr.py",
+            "dataflow/hits.py", "dataflow/components.py", "models/driver.py",
+            "cli/workloads.py"} <= scanned
+
+
 @pytest.mark.parametrize("source, flagged", [
     ("import page_rank_and_tfidf_using_apache_spark_tpu_torch.ops", set()),
     ("from page_rank_and_tfidf_using_apache_spark_tpu_torch import api", set()),
@@ -143,7 +157,10 @@ TOOLS = {"gather_micro": gather_micro, "spmv_breakdown": spmv_breakdown,
 
 @pytest.mark.parametrize("entry", ["api", "run_pagerank", "cli", *TOOLS, "api_tfidf",
                                    "run_tfidf", "cli_tfidf", "api_tfidf_streaming",
-                                   "run_tfidf_streaming", "cli_tfidf_streaming"])
+                                   "run_tfidf_streaming", "cli_tfidf_streaming",
+                                   "run_ppr_batch", "run_hits", "run_components",
+                                   "cli_workloads_ppr", "cli_workloads_hits",
+                                   "cli_workloads_cc"])
 def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
     """With no CUDA and no ``device=``, every entry point raises rather than
     running on the CPU."""
@@ -170,6 +187,17 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
         elif entry == "cli_tfidf_streaming":
             tfidf_cli.main([TINY, "--lines", "--streaming", "--save-index", str(tmp_path / "r.json"),
                             "--output", str(tmp_path / "r.json")])
+        elif entry == "run_ppr_batch":
+            run_ppr_batch(g, PageRankConfig(), [[int(g.node_ids[0])]])
+        elif entry == "run_hits":
+            run_hits(g, HitsConfig())
+        elif entry == "run_components":
+            run_components(g)
+        elif entry.startswith("cli_workloads_"):
+            workload = entry.rsplit("_", 1)[1]
+            extra = ["--queries", "1"] if workload == "ppr" else []
+            workloads_cli.main([workload, TINY, *extra, "--metrics-json",
+                                str(tmp_path / "r.json")])
         else:
             TOOLS[entry].main(["--reps", "1", "--out", str(tmp_path / "r.json")])
     assert not (tmp_path / "r.json").exists()
@@ -177,8 +205,15 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
 
 def test_explicit_cpu_runs(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    res = pagerank(synthetic_powerlaw(30, 90, seed=2), device="cpu")
+    g = synthetic_powerlaw(30, 90, seed=2)
+    res = pagerank(g, device="cpu")
     assert res.ranks.shape == (res.ranks.size,) and np.isfinite(res.ranks).all()
+    ppr = run_ppr_batch(g, PageRankConfig(), [[int(g.node_ids[0])]], device="cpu")
+    assert ppr.ranks.shape == (1, g.n_nodes) and np.isfinite(ppr.ranks).all()
+    hits = run_hits(g, HitsConfig(), device="cpu")
+    assert hits.hubs.shape == (g.n_nodes,) and np.isfinite(hits.authorities).all()
+    cc = run_components(g, device="cpu")
+    assert cc.converged and cc.labels.shape == (g.n_nodes,)
 
 
 def test_explicit_cpu_runs_tfidf(monkeypatch):

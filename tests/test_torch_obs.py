@@ -250,9 +250,9 @@ def _events(trace_dir: pathlib.Path, name: str) -> list:
 @pytest.mark.parametrize("tol", [0.0, 1e-9])
 def test_pagerank_cli_trace_matches_reference(tol, tmp_path):
     """The port's traced run and the JAX CLI's on tiny.txt: the port's
-    spans are the reference's phases it has, result_pull always and
-    delta_sync with a tolerance, and both metric streams name the same
-    events."""
+    spans are the reference's phases it has, result_pull and the segment
+    loop's segment always and delta_sync with a tolerance, and both metric
+    streams name the same events."""
     args = [TINY, "20", "--dangling", "redistribute", "--init", "uniform", "--dtype",
             "float64", "--tol", str(tol)]
     assert tcli.main([*args, "--device", "cpu", "--output", str(tmp_path / "t.tsv"),
@@ -260,7 +260,8 @@ def test_pagerank_cli_trace_matches_reference(tol, tmp_path):
     assert jcli.main([*args, "--tuned-profile", "off", "--output", str(tmp_path / "j.tsv"),
                       "--trace-dir", str(tmp_path / "ref")]) == 0
     port, ref = _trace(tmp_path / "port", "pagerank"), _trace(tmp_path / "ref", "pagerank")
-    want = {"pagerank.result_pull"} | ({"pagerank.delta_sync"} if tol else set())
+    want = {"pagerank.result_pull", "pagerank.segment"} | (
+        {"pagerank.delta_sync"} if tol else set())
     assert set(port["spans"]) == want and want <= set(ref["spans"])
     assert port["complete"] and port["status"] == "ok" and not port["incomplete_phases"]
     assert port["manifest"]["name"] == "pagerank" and port["manifest"]["status"] == "ok"

@@ -175,15 +175,19 @@ def test_zero_iterations_and_empty_graph():
     assert empty.ranks.shape == (0,) and empty.iterations == 0
 
 
-def test_run_records_metrics_and_refuses_checkpoints(tmp_path):
+def test_run_records_metrics_and_writes_checkpoints(tmp_path):
     _, g = _graphs(False)
     res = pagerank(g, iterations=3, spmv_impl="hybrid", device="cpu")
     events = [r.get("event") for r in res.metrics.records]
     assert "put_graph" in events
     assert res.metrics.records[-1]["iter"] == 3
     assert res.metrics.scalars == {"iterations": 3, "l1_delta": res.l1_delta}
-    with pytest.raises(ValueError, match="checkpoint"):
-        pagerank(g, checkpoint_every=2, checkpoint_dir=str(tmp_path), device="cpu")
+    ck = pagerank(g, iterations=5, checkpoint_every=2, checkpoint_dir=str(tmp_path),
+                  device="cpu")
+    saved = [r for r in ck.metrics.records if r.get("event") == "checkpoint"]
+    assert [r["iter"] for r in saved] == [2, 4]
+    assert all(pathlib.Path(r["path"]).is_file() for r in saved)
+    assert ck.metrics.scalars == {"iterations": 5, "l1_delta": ck.l1_delta}
 
 
 @pytest.mark.parametrize("flags", [
