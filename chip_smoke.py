@@ -140,8 +140,31 @@ Phases, each of which exits non-zero on failure:
    components relabelled to each one's smallest id, rounds/s, no kernel
    launched; (12e) ``cli.workloads`` ``ppr``, ``hits`` and ``cc``
    once each on a small graph, lines equal to the API's;
+13. chaos on the card, faults injected with ``resilience.chaos.inject`` at
+   the guarded sites: (13a) ``segment``, ``pallas`` and ``hybrid`` in
+   float32 and float64, a checkpoint every 5, under ``pagerank_step:fail@2``,
+   ``pagerank_ckpt_pull:fail@1``, ``pagerank_result_pull:fail@1`` and
+   ``*:fail@%3``: ranks equal to the unfaulted run bit for bit, one
+   ``retry`` event per injection, the unfaulted run's launches; (13b) HITS
+   (tol 1e-8) on a side stream, three runs under
+   ``hits_delta_sync:hang@3:2.0`` with ``GRAFT_SYNC_DEADLINE_S=0.5``: one
+   ``watchdog`` event, scores equal to the unfaulted run's and the default
+   stream's, the faulted run under 2 s over the unfaulted one;
+   (13c) ``pagerank_step:lost@3`` (``segment`` float32): ``ResilienceExhausted``
+   naming the iteration-10 checkpoint, ``exhausted`` and no ``degraded``,
+   the resumed run equal to the unbroken one; (13d) phase 9's config-2
+   stand-in, pipelined, under faults at ``tfidf_chunk_sync``,
+   ``ingest_h2d_put``, ``ingest_h2d_wait`` and ``tfidf_df_commit``: equal
+   to batch bit for bit, and a source that dies at chunk 5 raises once,
+   unretried; (13e) phase 11b's index, 4,096 queries under
+   ``serve_dispatch:fail@%5;serve_pull:fail@7``: every answer equal to the
+   unfaulted server's, no request failed; ``merge_once`` over 11c's four
+   segments under ``segment_merge:fail@1`` equal to the unfaulted merge;
+   (13f) the median of 10,000 ``run_guarded(lambda: None)`` calls with no
+   plan, beside 4b's ``segment`` loop ms and 11b's queries/s;
 7. one JSON line describing every kernel (with ``workload_launches``, each
-   kernel's launches in 12a-12c by workload), then the result line.
+   kernel's launches in 12a-12c and 13a-13c by workload), then the result
+   line.
 
 Without a CUDA device, or without the port's package beside it, it exits
 non-zero and prints no result.
@@ -149,6 +172,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -1759,13 +1783,15 @@ def device_busy(fn) -> tuple[float, float, int]:
 
 
 def bench_server(serving, metrics_pct, index, queries, canon, tops, device,
-                 card_label: str) -> None:
+                 card_label: str) -> dict:
     """11b: ``ServeConfig()`` defaults but the cache, which holds every
     query so a second pass is all hits; four closed-loop clients, both
     scorings; per-cap dispatch device time; the device's busy share of
-    PROFILE_BATCHES batches; a ``set_prior`` under traffic."""
+    PROFILE_BATCHES batches; a ``set_prior`` under traffic.  Returns the
+    first pass's queries/s by scoring."""
     pct = metrics_pct
     n, k = index.n_docs, QUERY_K
+    qps = {}
     for scoring in ("coo", "impacted"):
         cfg = serving.ServeConfig(scoring=scoring, cache_size=2 * len(queries))
         with serving.TfidfServer(index, cfg, device=device) as srv:
@@ -1791,6 +1817,7 @@ def bench_server(serving, metrics_pct, index, queries, canon, tops, device,
                     srv, queries[:PROFILE_BATCHES * 4], 4))
                 s3 = srv.stats()
             lat, wait = r["lat"], r["wait"]
+            qps[scoring] = len(queries) / r["secs"]
             print(f"server {scoring} (4 closed-loop clients, {len(queries)} queries): "
                   f"{len(queries) / r['secs']:.1f} queries/s, p50 {pct(lat, 0.5) * 1e3:.3f} ms,"
                   f" p99 {pct(lat, 0.99) * 1e3:.3f} ms, queue wait p50 "
@@ -1849,6 +1876,7 @@ def bench_server(serving, metrics_pct, index, queries, canon, tops, device,
               "set_prior: a result differs from the one-shot score plus the new prior")
     print(f"set_prior under traffic: swapped in {swap * 1e3:.2f} ms; {len(got)} results after "
           f"it equal to the one-shot score plus the new prior bit for bit")
+    return qps
 
 
 def _pending(srv, words):
@@ -2064,9 +2092,11 @@ def cli_phase(serving, index, queries, device, card_label: str) -> None:
               f"{summary['p50_ms']}, p99_ms {summary['p99_ms']}; {secs:.1f} s with start-up")
 
 
-def serving_phase(device, reset_counts, counts, card_label: str, docs, wiki) -> dict:
+def serving_phase(device, reset_counts, counts, card_label: str, docs,
+                  wiki) -> tuple[dict, dict]:
     """Phase 11 (see the module docstring); every check raises on failure.
-    Returns the launches of the path (the prior's PageRank)."""
+    Returns the launches of the path (the prior's PageRank) and 11b's
+    queries/s by scoring."""
     from page_rank_and_tfidf_using_apache_spark_tpu_torch import serving
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import tfidf as tops
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import percentile
@@ -2080,8 +2110,8 @@ def serving_phase(device, reset_counts, counts, card_label: str, docs, wiki) -> 
                             card_label)
         print(f"phase 11a (scorers): {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        bench_server(serving, percentile, index, queries, got["canon"], tops, device,
-                     card_label)
+        qps = bench_server(serving, percentile, index, queries, got["canon"], tops, device,
+                           card_label)
         print(f"phase 11b (server): {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         cli_phase(serving, index, queries, device, card_label)
@@ -2089,7 +2119,7 @@ def serving_phase(device, reset_counts, counts, card_label: str, docs, wiki) -> 
     t0 = time.perf_counter()
     segments_phase(serving, wiki, device, card_label)
     print(f"phase 11c (segments): {time.perf_counter() - t0:.1f} s")
-    return launched
+    return launched, qps
 
 
 
@@ -2431,6 +2461,368 @@ def workloads_phase(graph, reset_counts, counts, card_label: str) -> dict:
     workloads_cli_phase()
     print(f"phase 12e (cli.workloads): {time.perf_counter() - t0:.1f} s")
     return by_phase
+
+
+# Phase 13: chaos on the card.  Faults are injected (resilience/chaos.py)
+# at the guarded sites of the main path's graph (13a-13c), of phase 9's
+# config-2 stand-in (13d) and of phase 11's index and segments (13e); every
+# faulted run is held to its unfaulted run bit for bit.  13b runs HITS on a
+# side stream, so a retried pull the watchdog thread did not run on the
+# caller's stream would read the delta before it is computed.  HITS reads
+# hits_delta_sync once a run (tol > 0 is one segment), so 13b's third run
+# under one plan takes the hang.  13f times the guard itself.
+CHAOS_PLANS = ("pagerank_step:fail@2", "pagerank_ckpt_pull:fail@1",
+               "pagerank_result_pull:fail@1", "*:fail@%3")
+HANG_PLAN, HANG_S, DEADLINE_S, HANG_RUNS = "hits_delta_sync:hang@3:2.0", 2.0, 0.5, 3
+LOST_PLAN, LOST_CKPT = "pagerank_step:lost@3", 10
+STREAM_PLAN = ("tfidf_chunk_sync:fail@%3;ingest_h2d_put:fail@2;ingest_h2d_wait:fail@4;"
+               "tfidf_df_commit:fail@1")
+SOURCE_DIES_AT = 5
+SERVE_PLAN, MERGE_PLAN = "serve_dispatch:fail@%5;serve_pull:fail@7", "segment_merge:fail@1"
+GUARD_CALLS = 10_000
+
+
+class SourceDied(Exception):
+    """The source of 13d's second run."""
+
+
+class FaultEvents:
+    """The port's obs events while the context is open, by kind."""
+
+    def __enter__(self):
+        from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
+
+        self._obs = obs
+        self.sink = obs.MemorySink()
+        obs.bus().attach(self.sink)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._obs.bus().detach(self.sink)
+
+    def of(self, kind: str) -> list:
+        return [e for e in self.sink.events if e["kind"] == kind]
+
+    def by_site(self, kind: str) -> dict:
+        out: dict = {}
+        for e in self.of(kind):
+            out[e["site"]] = out.get(e["site"], 0) + 1
+        return out
+
+
+def chaos_pagerank_phase(graph, reset_counts, counts, card_label: str) -> tuple[dict, dict]:
+    """13a: segment, pallas and hybrid in float32 and float64, checkpoints
+    every 5, under each of CHAOS_PLANS: ranks equal to the unfaulted run's
+    bit for bit, one retry per injection, the unfaulted run's launches.
+    Returns the faulted runs' launches and the unfaulted ranks."""
+    import dataclasses
+
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import PageRankConfig
+
+    base = PageRankConfig(iterations=ITERS, dangling="redistribute", init="uniform",
+                          checkpoint_every=CKPT_EVERY)
+    total: dict = {}
+    unbroken: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for impl in MAIN_IMPLS:
+            for dtype in ("float32", "float64"):
+                def cfg(tag: str):
+                    return dataclasses.replace(
+                        base, dtype=dtype, spmv_impl=impl,
+                        checkpoint_dir=os.path.join(tmp, f"{impl}-{dtype}-{tag}"))
+
+                reset_counts()
+                full = run_pagerank(graph, cfg("clean"), device="cuda")
+                want = counts()
+                unbroken[(impl, dtype)] = full.ranks
+                for k, plan in enumerate(CHAOS_PLANS):
+                    with FaultEvents() as ev, chaos.inject(plan):
+                        reset_counts()
+                        res = run_pagerank(graph, cfg(f"plan{k}"), device="cuda")
+                        launched = counts()
+                    add_counts(total, launched)
+                    injected, retried = ev.by_site("chaos"), ev.by_site("retry")
+                    differ = bits_differ(res.ranks, full.ranks)
+                    print(f"chaos pagerank {impl} {dtype} under {plan!r}: injected {injected}, "
+                          f"retried {retried}; {differ} of {graph.n_nodes} entries differ from "
+                          f"the unfaulted run; launches {launched} (unfaulted {want})")
+                    check(differ == 0 and res.iterations == ITERS,
+                          f"chaos pagerank {impl} {dtype} {plan}: {differ} entries differ")
+                    check(injected and retried == injected,
+                          f"chaos pagerank {impl} {dtype} {plan}: injected {injected}, "
+                          f"retried {retried}")
+                    check(launched == want, f"chaos pagerank {impl} {dtype} {plan}: launched "
+                                            f"{launched}, the unfaulted run {want}")
+    return total, unbroken
+
+
+def chaos_watchdog_phase(graph, reset_counts, counts, card_label: str) -> dict:
+    """13b: HITS (tol 1e-8, float32) on a side stream, HANG_RUNS runs under
+    HANG_PLAN with GRAFT_SYNC_DEADLINE_S=DEADLINE_S: one watchdog event,
+    scores equal to the unfaulted run's (and the default stream's) bit for
+    bit, the faulted run within HANG_S of the unfaulted one.  Returns the
+    faulted runs' launches."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.hits import run_hits
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import HitsConfig
+
+    cfg = HitsConfig(iterations=HITS_ITERS, tol=HITS_TOL, dtype="float32")
+    side = torch.cuda.Stream()
+
+    def run():
+        with torch.cuda.stream(side):
+            t0 = time.perf_counter()
+            res = run_hits(graph, cfg, device="cuda")
+            return res, time.perf_counter() - t0
+
+    def same(a, b) -> bool:
+        return (bits_differ(a.hubs, b.hubs) == 0
+                and bits_differ(a.authorities, b.authorities) == 0)
+
+    default = run_hits(graph, cfg, device="cuda")
+    run()  # the side stream's first blocks
+    clean, clean_wall = run()
+    check(same(clean, default), "chaos hits: the side stream's scores differ from the default's")
+    old = os.environ.get("GRAFT_SYNC_DEADLINE_S")
+    os.environ["GRAFT_SYNC_DEADLINE_S"] = str(DEADLINE_S)
+    total: dict = {}
+    runs = []
+    try:
+        with FaultEvents() as ev, chaos.inject(HANG_PLAN):
+            for _ in range(HANG_RUNS):
+                reset_counts()
+                res, wall = run()
+                launched = counts()
+                add_counts(total, launched)
+                runs.append((res, wall, launched))
+    finally:
+        if old is None:
+            os.environ.pop("GRAFT_SYNC_DEADLINE_S", None)
+        else:
+            os.environ["GRAFT_SYNC_DEADLINE_S"] = old
+    watchdogs = ev.of("watchdog")
+    walls = [w for _, w, _ in runs]
+    print(f"chaos hits watchdog ({card_label}): {HANG_PLAN!r}, deadline {DEADLINE_S} s, side "
+          f"stream: {len(watchdogs)} watchdog event(s) at {[e['site'] for e in watchdogs]}, "
+          f"retried {ev.by_site('retry')}; run walls {', '.join(f'{w:.3f}' for w in walls)} s "
+          f"(the last faulted) against {clean_wall:.3f} s unfaulted; {clean.iterations} "
+          f"iterations; launches {[r[2] for r in runs]}")
+    check(len(watchdogs) == 1 and watchdogs[0]["site"] == "hits_delta_sync",
+          f"chaos hits: watchdog events {watchdogs}")
+    check(ev.by_site("retry") == {"hits_delta_sync": 1}, "chaos hits: not one retry")
+    for res, _, launched in runs:
+        check(same(res, clean), "chaos hits: a run's scores differ from the unfaulted run's")
+        want = {k: 0 for k in launched}
+        want["segment"] = 2 * clean.iterations
+        check(launched == want, f"chaos hits: launched {launched}, wanted {want}")
+    check(DEADLINE_S <= walls[-1] < clean_wall + HANG_S,
+          f"chaos hits: the faulted run took {walls[-1]:.3f} s, unfaulted {clean_wall:.3f} s")
+    return total
+
+
+def chaos_exhausted_phase(graph, unbroken: dict, reset_counts, counts,
+                          card_label: str) -> dict:
+    """13c: LOST_PLAN under segment float32, checkpoints every 5:
+    ResilienceExhausted naming the iteration-10 checkpoint, an ``exhausted``
+    event and no ``degraded``; the resumed run equal to the unbroken one bit
+    for bit.  Returns the resumed run's launches."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch import ResilienceExhausted
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import PageRankConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = PageRankConfig(iterations=ITERS, dangling="redistribute", init="uniform",
+                             spmv_impl="segment", checkpoint_every=CKPT_EVERY,
+                             checkpoint_dir=tmp)
+        err = None
+        with FaultEvents() as ev, chaos.inject(LOST_PLAN):
+            try:
+                run_pagerank(graph, cfg, device="cuda")
+            except ResilienceExhausted as exc:
+                err = exc
+        check(err is not None, f"chaos lost: {LOST_PLAN} did not raise ResilienceExhausted")
+        latest = os.path.basename(err.last_checkpoint or "")
+        reset_counts()
+        res = run_pagerank(graph, cfg, resume=True, device="cuda")
+        launched = counts()
+    differ = bits_differ(res.ranks, unbroken[("segment", "float32")])
+    print(f"chaos lost ({card_label}): {LOST_PLAN!r} raised ResilienceExhausted at "
+          f"{err.site!r} after {err.attempts} attempt(s), last checkpoint {latest}; events "
+          f"exhausted {len(ev.of('exhausted'))}, degraded {len(ev.of('degraded'))}; resumed "
+          f"to {res.iterations}: {differ} entries differ from the unbroken run; launches "
+          f"{launched}")
+    check(latest == f"ckpt_{LOST_CKPT:08d}.npz", f"chaos lost: last checkpoint {latest}")
+    check(len(ev.of("exhausted")) >= 1 and not ev.of("degraded"),
+          "chaos lost: wanted exhausted and no degraded event")
+    check(differ == 0 and res.iterations == ITERS, f"chaos lost: resumed run differs in {differ}")
+    check(launched["segment"] == ITERS - LOST_CKPT, f"chaos lost: resumed run launched {launched}")
+    return launched
+
+
+def chaos_streaming_phase(device, docs, knobs: dict, chunk_docs: int, card_label: str) -> None:
+    """13d: phase 9's config-2 stand-in, pipelined, under STREAM_PLAN: the
+    sorted COO, counts, weights, DF and IDF equal to the batch run's bit for
+    bit, one retry per injection at every site of the plan; then a source
+    that raises at chunk SOURCE_DIES_AT under the same plan raises once and
+    is not retried."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models import tfidf as tm
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
+
+    chunks = chunked(docs, chunk_docs)
+    batch = tm.run_tfidf(docs, tcfg.TfidfConfig(vocab_bits=knobs["vocab_bits"]), device=device)
+    cfg = tcfg.TfidfConfig(**knobs)
+    t0 = time.perf_counter()
+    with FaultEvents() as ev, chaos.inject(STREAM_PLAN):
+        out = tm.run_tfidf_streaming(iter(chunks), cfg, device=device)
+    secs = time.perf_counter() - t0
+    check_same_coo(out, batch, "chaos stream config-2")
+    injected, retried = ev.by_site("chaos"), ev.by_site("retry")
+    sites = {spec.split(":")[0] for spec in STREAM_PLAN.split(";")}
+    print(f"chaos stream config-2 ({card_label}): {STREAM_PLAN!r} in {secs:.3f} s; injected "
+          f"{injected}, retried {retried}; sorted COO, counts, weights, df and idf equal to "
+          "batch bit for bit")
+    check(set(injected) == sites and retried == injected,
+          f"chaos stream: injected {injected}, retried {retried}")
+
+    raised = []
+
+    def dying():
+        yield from chunks[:SOURCE_DIES_AT]
+        raised.append(SOURCE_DIES_AT)
+        raise SourceDied(f"source died at chunk {SOURCE_DIES_AT}")
+
+    died = False
+    with FaultEvents() as ev, chaos.inject(STREAM_PLAN):
+        try:
+            tm.run_tfidf_streaming(dying(), cfg, device=device)
+        except SourceDied:
+            died = True
+    print(f"chaos stream source fault: raised {len(raised)} time(s) at chunk {SOURCE_DIES_AT}, "
+          f"reached the caller: {died}; retried {ev.by_site('retry')}")
+    check(died and raised == [SOURCE_DIES_AT], "chaos stream: the source fault was retried "
+                                               "or lost")
+
+
+def chaos_serving_phase(device, docs, wiki, reset_counts, counts, card_label: str) -> None:
+    """13e: phase 11b's index served to SERVE_QUERIES queries under
+    SERVE_PLAN, every answer equal to the unfaulted server's bit for bit and
+    no request failed; then ``merge_once`` over 11c's four segments under
+    MERGE_PLAN, the merged set equal to the unfaulted merge's."""
+    import shutil
+
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch import serving
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import run_tfidf
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import segments as sgm
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
+
+    queries = serving_queries(docs, SERVE_QUERIES, SERVE_SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        index, _ = build_serving_index(tmp, docs, device, reset_counts, counts, card_label)
+        cfg = serving.ServeConfig(cache_size=0)
+        with serving.TfidfServer(index, cfg, device=device) as srv:
+            want = serve_all(srv, queries, "tfidf")
+        with FaultEvents() as ev, chaos.inject(SERVE_PLAN):
+            with serving.TfidfServer(index, cfg, device=device) as srv:
+                t0 = time.perf_counter()
+                got = serve_all(srv, queries, "tfidf")
+                secs = time.perf_counter() - t0
+                stats = srv.stats()
+    differ = sum(not (a[0].tobytes() == b[0].tobytes() and a[1].tobytes() == b[1].tobytes())
+                 for a, b in zip(got, want))
+    retried = ev.by_site("retry")
+    print(f"chaos serve ({card_label}): {SERVE_PLAN!r}, {len(queries)} queries in {secs:.2f} s "
+          f"({len(queries) / secs:.1f} queries/s, one submitter), {stats['batches']} batches, "
+          f"{stats['batch_errors']} batch errors; retried {retried}; {differ} answers differ "
+          "from the unfaulted server's")
+    check(stats["batch_errors"] == 0 and len(got) == len(queries), "chaos serve: requests failed")
+    check(differ == 0, f"chaos serve: {differ} answers differ")
+    check(retried.get("serve_dispatch", 0) > 0 and retried.get("serve_pull", 0) == 1,
+          f"chaos serve: retried {retried}")
+
+    scfg = tcfg.TfidfConfig(vocab_bits=TFIDF_BITS, ngram=2, idf_mode="smooth", l2_normalize=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        clean_dir, faulted_dir = os.path.join(tmp, "clean"), os.path.join(tmp, "faulted")
+        per = len(wiki) // SEGMENTS
+        base = 0
+        for s in range(SEGMENTS):
+            part = wiki[s * per:(s + 1) * per if s < SEGMENTS - 1 else len(wiki)]
+            out = run_tfidf(part, scfg, device=device)
+            ref = sgm.seal_segment(clean_dir, out, scfg, doc_base=base, bm25=tcfg.Bm25Config())
+            sgm.commit_append(clean_dir, ref, scfg.config_hash())
+            base += out.n_docs
+        shutil.copytree(clean_dir, faulted_dir)
+        merged = {}
+        for tag, d in (("clean", clean_dir), ("faulted", faulted_dir)):
+            merger = sgm.SegmentMerger(d, scfg, max_segments=SEGMENTS - 1)
+            with FaultEvents() as ev, (chaos.inject(MERGE_PLAN) if tag == "faulted"
+                                       else contextlib.nullcontext()):
+                check(merger.merge_once(), f"chaos merge {tag}: merge_once merged nothing")
+            merged[tag] = (sgm.load_segment_set(d), ev.by_site("retry"))
+    (a, _), (b, retried) = merged["clean"], merged["faulted"]
+    same = len(a.segments) == len(b.segments) == SEGMENTS - 1 and all(
+        x.ref.doc_base == y.ref.doc_base and x.index.n_docs == y.index.n_docs
+        and x.index.doc.tobytes() == y.index.doc.tobytes()
+        and x.index.term.tobytes() == y.index.term.tobytes()
+        and sorted(x.weights) == sorted(y.weights)
+        and all(x.weights[r].tobytes() == y.weights[r].tobytes() for r in x.weights)
+        for x, y in zip(a.segments, b.segments))
+    print(f"chaos merge: {MERGE_PLAN!r} over {SEGMENTS} config-5 segments, retried {retried}; "
+          f"{len(b.segments)} segments, postings and weights equal to the unfaulted merge: "
+          f"{same}")
+    check(retried == {"segment_merge": 1} and same, "chaos merge: the faulted merge differs")
+
+
+def guard_cost_phase(loop_ms: dict, qps: dict, card_label: str) -> None:
+    """13f: the median of GUARD_CALLS calls of ``run_guarded`` with no plan
+    installed, beside phase 4b's segment loop and phase 11b's queries/s,
+    both measured through the guarded sites."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import executor as rx
+
+    check(chaos.active() is None, "guard cost: a chaos plan is installed")
+    ns = []
+    for _ in range(GUARD_CALLS):
+        t0 = time.perf_counter_ns()
+        rx.run_guarded(lambda: None, site="x")
+        ns.append(time.perf_counter_ns() - t0)
+    us = np.array(ns) / 1e3
+    print(f"guard cost ({card_label}): run_guarded(lambda: None, site='x') with no plan, median "
+          f"{float(np.median(us)):.3f} us of {GUARD_CALLS} calls (min {float(us.min()):.3f}, "
+          f"p99 {float(np.percentile(us, 99)):.3f}); through the guarded sites: phase 4b segment "
+          f"loop {loop_ms['segment']:.3f} ms ({ITERS} iterations, median of 5), phase 11b "
+          f"queries/s coo {qps['coo']:.1f}, impacted {qps['impacted']:.1f}")
+
+
+def chaos_phase(graph, stream: dict, loop_ms: dict, qps: dict, reset_counts, counts,
+                card_label: str) -> dict:
+    """Phase 13 (see the module docstring); every check raises on failure.
+    Returns the launches of 13a-13c's counted runs, for the kernels line."""
+    total: dict = {}
+    t0 = time.perf_counter()
+    launched, unbroken = chaos_pagerank_phase(graph, reset_counts, counts, card_label)
+    add_counts(total, launched)
+    print(f"phase 13a (pagerank retries): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    add_counts(total, chaos_watchdog_phase(graph, reset_counts, counts, card_label))
+    print(f"phase 13b (watchdog): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    add_counts(total, chaos_exhausted_phase(graph, unbroken, reset_counts, counts, card_label))
+    print(f"phase 13c (exhausted, resume): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    chaos_streaming_phase(torch.device("cuda"), stream["docs"], stream["knobs"],
+                          stream["chunk_docs"], card_label)
+    print(f"phase 13d (streaming): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    chaos_serving_phase(torch.device("cuda"), stream["docs"], stream["wiki"], reset_counts,
+                        counts, card_label)
+    print(f"phase 13e (serving, merge): {time.perf_counter() - t0:.1f} s")
+    guard_cost_phase(loop_ms, qps, card_label)
+    return total
 
 
 def main() -> int:
@@ -2778,14 +3170,20 @@ def main() -> int:
 
     # 11. serving: the scorers, the server, the CLI, the segments
     t0 = time.perf_counter()
-    launches["serving"] = serving_phase(torch.device("cuda"), reset_counts, counts, card_label,
-                                        stream["docs"], stream["wiki"])
+    launches["serving"], qps = serving_phase(torch.device("cuda"), reset_counts, counts,
+                                             card_label, stream["docs"], stream["wiki"])
     print(f"phase 11 (serving): {time.perf_counter() - t0:.1f} s")
 
     # 12. PageRank checkpoints and resume, PPR, HITS, components, cli.workloads
     t0 = time.perf_counter()
     workload_launches = workloads_phase(graph, reset_counts, counts, card_label)
     print(f"phase 12 (workloads): {time.perf_counter() - t0:.1f} s")
+
+    # 13. chaos on the card: faults at the guarded sites, the guard's cost
+    t0 = time.perf_counter()
+    workload_launches["chaos"] = chaos_phase(graph, stream, loop_ms, qps, reset_counts, counts,
+                                             card_label)
+    print(f"phase 13 (chaos): {time.perf_counter() - t0:.1f} s")
 
     # 7. the kernels line, then the result line; launches are those of the
     # kernel's own path: cumsum's from the hybrid run (its tail's prefix
@@ -2807,7 +3205,8 @@ def main() -> int:
                     launches["segment"]["segment"]),
     }
     # workload_launches: each kernel's launches in phase 12's counted runs
-    # (12a's resumed runs, 12b's API runs, 12c's first runs), by workload
+    # (12a's resumed runs, 12b's API runs, 12c's first runs) and phase 13's
+    # (13a's and 13b's faulted runs, 13c's resumed run), by workload
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": n, **main_rows[name],

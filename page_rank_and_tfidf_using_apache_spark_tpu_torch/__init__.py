@@ -18,6 +18,8 @@ Layout mirrors the JAX package:
 - ``native/``    the C++ host kernels: edge parse, edge sort, tokenizer
 - ``dataflow/``  the fixpoint loop
 - ``models/``    the PageRank and batch TF-IDF drivers
+- ``resilience/`` fault injection and the retry executor every host sync
+                 and dispatch runs under
 - ``utils/``     config, metrics, device resolution, the native bindings
 - ``cli/``       the ``pagerank <edges> <iters>`` and ``tfidf <corpus>``
                  command lines
@@ -30,7 +32,11 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
     TfidfConfig,
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.api import pagerank, tfidf
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import (
+    ResilienceExhausted,
+)
 
 __version__ = "0.1.0"
 
-__all__ = ["PageRankConfig", "TfidfConfig", "pagerank", "tfidf", "__version__"]
+__all__ = ["PageRankConfig", "ResilienceExhausted", "TfidfConfig", "pagerank", "tfidf",
+           "__version__"]

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import executor as rx
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import Bm25Config
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import resolve_device
 
@@ -49,7 +50,8 @@ def bm25_weights(
 
 def bm25_from_tfidf(output, cfg: Bm25Config = Bm25Config()) -> np.ndarray:
     """BM25 weights aligned with a ``TfidfOutput``'s postings rows, computed
-    on the device the output was (``output.device``; ``None`` is cuda).
+    on the device the output was (``output.device``; ``None`` is cuda) and
+    pulled at the guarded site ``bm25_weights_pull``.
     An output without raw counts or document lengths raises: BM25
     re-weights counts, not tf-idf weights."""
     if output.count is None or output.doc_lengths is None:
@@ -70,4 +72,4 @@ def bm25_from_tfidf(output, cfg: Bm25Config = Bm25Config()) -> np.ndarray:
             put(output.df, output.weight.dtype),
             n_docs=max(int(output.n_docs), 1), k1=float(cfg.k1), b=float(cfg.b),
         )
-        return w.cpu().numpy()
+        return rx.device_get(w, site="bm25_weights_pull")

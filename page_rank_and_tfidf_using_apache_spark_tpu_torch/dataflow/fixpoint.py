@@ -10,22 +10,27 @@ device.  ``run_segments`` runs ``cfg.iterations`` in checkpoint-sized
 segments for PageRank (``models/pagerank.py``), batched personalized
 PageRank, HITS and connected components (``dataflow/ppr.py``, ``hits.py``,
 ``components.py``), with the JAX package's metrics records, spans and
-checkpoint format.  The reference's guarded sites (``rx.run_guarded``,
-``rx.device_get``) are plain calls under the same site names until the
-retry executor is ported (ROADMAP Queue 1 item 3); its CPU re-lowering and
-elastic salvage rungs (``make_cpu_invoke``, ``elastic_rebuild``,
-``ElasticResult``) wait for items 3 and 12, and passing either raises.
+checkpoint format.  Every segment dispatch runs under the retry executor
+at the reference's site (``{prefix}_step``, ``rx.run_guarded``), and every
+host pull at its own (``{prefix}_delta_sync``, ``_ckpt_pull``,
+``_result_pull``, ``rx.device_get``): a transient fault retries, anything
+else raises ``ResilienceExhausted`` naming the newest checkpoint.  The
+reference's CPU re-lowering and elastic salvage rungs (``make_cpu_invoke``,
+``elastic_rebuild``, ``ElasticResult``) wait for ROADMAP Queue 1 item 12,
+and passing either raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable
 
 import numpy as np
 import torch
 
 from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import executor as rx
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import checkpoint as ckpt
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import resolve_device
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder, Timer
@@ -169,8 +174,16 @@ def run_segments(
     ``{site_prefix}.checkpoint``, the histogram
     ``{site_prefix}.segment_secs``.
 
-    ``make_cpu_invoke`` and ``elastic_rebuild``, the reference's
-    degradation rungs, are not ported: passing either raises.
+    Each segment's ``invoke`` runs under ``rx.run_guarded`` at the
+    ``{site_prefix}_step`` site, with the watchdog deadline of
+    ``GRAFT_STEP_DEADLINE_S`` (default 0, none: a segment's healthy time
+    grows with its length, so the sync deadline does not apply).  A chaos
+    injection fires before ``invoke``, and ``invoke`` writes only fresh
+    tensors, so a retry launches nothing twice.  A lost device or a spent
+    retry budget raises ``ResilienceExhausted`` naming the newest checkpoint
+    under ``cfg.checkpoint_dir``.  ``make_cpu_invoke`` and
+    ``elastic_rebuild``, the reference's degradation rungs, are not ported:
+    passing either raises.
 
     Returns ``(ranks_dev, done, last_delta)``.
     """
@@ -178,12 +191,19 @@ def run_segments(
         raise NotImplementedError(
             "run_segments: the CPU re-lowering rung (make_cpu_invoke) and the "
             "elastic salvage rung (elastic_rebuild) are not ported: ROADMAP "
-            "Queue 1 items 3 and 12"
+            "Queue 1 item 12"
         )
     segment = (
         cfg.checkpoint_every
         if (cfg.checkpoint_every > 0 and cfg.tol == 0.0 and segments_allowed)
         else cfg.iterations - start_iter
+    )
+    # GRAFT_SYNC_DEADLINE_S guards host syncs, whose healthy duration is
+    # bounded; a segment's runtime grows with its length, so the dispatch
+    # site takes its own knob (GRAFT_STEP_DEADLINE_S, default 0 = none).
+    policy = dataclasses.replace(
+        rx.RetryPolicy.from_env(),
+        deadline_s=float(os.environ.get("GRAFT_STEP_DEADLINE_S", 0.0)),
     )
     runners: dict[int, Callable] = {}
     done = start_iter
@@ -196,8 +216,11 @@ def run_segments(
         if todo not in runners:
             runners[todo] = make_runner(seg_cfg)
         with Timer() as t, obs.span(f"{site_prefix}.segment", start=done, todo=todo):
-            # the reference's guarded site {site_prefix}_step
-            ranks_dev, iters, delta = invoke(runners[todo], ranks_dev)
+            ranks_dev, iters, delta = rx.run_guarded(
+                lambda r=runners[todo], rd=ranks_dev: invoke(r, rd),
+                site=f"{site_prefix}_step", policy=policy, metrics=metrics,
+                checkpoint_dir=cfg.checkpoint_dir,
+            )
         done += int(iters)
         last_delta = float(delta)
         obs.histogram(f"{site_prefix}.segment_secs", t.elapsed)
@@ -250,7 +273,8 @@ def run_single_chip_fixpoint(
       a 0-d tensor.
 
     The carry goes up with ``torch.from_numpy(...).to(device)`` and comes
-    back with ``.cpu().numpy()``, so it keeps its dtype both ways.  Spans:
+    back through ``rx.device_get``, so it keeps its dtype both ways.  Spans,
+    each around the guarded site of the same name (``{site_prefix}_...``):
     ``{site_prefix}.delta_sync``, ``{site_prefix}.ckpt_pull``,
     ``{site_prefix}.result_pull``, and those of :func:`run_segments`.
     Runs on ``cuda`` unless ``device`` says otherwise.
@@ -268,13 +292,18 @@ def run_single_chip_fixpoint(
     def invoke(runner, rd):
         rd, iters, delta = call(runner, operands, rd)
         with obs.span(f"{site_prefix}.delta_sync"):
-            # the reference's guarded site {site_prefix}_delta_sync
-            delta = float(delta)
+            delta = float(rx.device_get(
+                delta, site=f"{site_prefix}_delta_sync", metrics=metrics,
+                checkpoint_dir=cfg.checkpoint_dir,
+            ))
         return rd, iters, delta
 
     def extract_np(rd) -> np.ndarray:
         with obs.span(f"{site_prefix}.ckpt_pull"):
-            return rd.cpu().numpy()
+            return rx.device_get(
+                rd, site=f"{site_prefix}_ckpt_pull", metrics=metrics,
+                checkpoint_dir=cfg.checkpoint_dir,
+            )
 
     state_dev, done, last_delta = run_segments(
         cfg, metrics, state_dev, start_iter,
@@ -282,5 +311,8 @@ def run_single_chip_fixpoint(
         site_prefix=site_prefix,
     )
     with obs.span(f"{site_prefix}.result_pull"):
-        state_np = state_dev.cpu().numpy()
+        state_np = rx.device_get(
+            state_dev, site=f"{site_prefix}_result_pull", metrics=metrics,
+            checkpoint_dir=cfg.checkpoint_dir,
+        )
     return state_np, done, last_delta

@@ -35,18 +35,21 @@ spent while chunk compute was in flight: the JAX package's names, so
 ``tools/trace_report.py`` reads the port's traces as it reads the
 reference's.
 
-Faults: the reference retries transient faults at its two pipeline sites
-(``ingest_h2d_put`` on the transfer thread, ``ingest_h2d_wait`` where the
-consumer takes a staged chunk).  Retries are not ported yet, so both are
-plain calls here and every fault propagates to the single recovery point:
+Faults: the two pipeline sites (``ingest_h2d_put`` on the transfer
+thread, ``ingest_h2d_wait`` where the consumer takes a staged chunk) retry
+transient faults like every guarded site but propagate persistent ones RAW
+(``resilience.executor.retry_transient``) to the single recovery point:
 the caller's ``recover`` hook, or, without one, the caller, with its
 traceback.  Before either sees it, the pipeline stops and joins its
-threads, each within :data:`JOIN_TIMEOUT_S`.
+threads, each within :data:`JOIN_TIMEOUT_S`.  An exception raised by the
+staged iterator itself is never retried at the wait site: the iterator is
+stateful, and a second ``next()`` would skip the item that failed.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import queue
 import threading
 import time
@@ -57,10 +60,12 @@ import torch
 
 from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow import fixpoint
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import executor as rx
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import IngestConfig
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder
 
-# The reference's retry sites of the pipeline's own stages.
+# Chaos/retry sites of the pipeline's own stages (resilience/chaos.py
+# grammar: e.g. GRAFT_CHAOS="ingest_h2d_put:fail@%3").
 H2D_PUT_SITE = "ingest_h2d_put"
 H2D_WAIT_SITE = "ingest_h2d_wait"
 
@@ -150,10 +155,12 @@ def pack_doc_chunks(
 
 def staged_put(put: Callable[[], Any], *,
                metrics: MetricsRecorder | None = None) -> Any:
-    """Issue one H2D transfer at the ``ingest_h2d_put`` site.  A plain call
-    until retries are ported: a fault propagates to the pipeline's recovery
-    point (``chunked_ingest(recover=...)``)."""
-    return put()
+    """Issue one H2D transfer at the ``ingest_h2d_put`` chaos/retry site:
+    transient faults retried with backoff, persistent ones (device loss)
+    propagated RAW to the pipeline's recovery point
+    (``chunked_ingest(recover=...)``).  ``put`` must be re-invocable:
+    :meth:`StagingRing.stage` claims a fresh slot each call."""
+    return rx.retry_transient(put, site=H2D_PUT_SITE, metrics=metrics)
 
 
 # ------------------------------------------------------------ staging ring
@@ -184,7 +191,12 @@ class StagingRing:
 
     On the CPU nothing is pinned and nothing is queued: :meth:`stage`
     returns a fresh zero-padded tensor and no event.  One thread stages at
-    a time (the transfer thread, or the caller with ``pipeline_depth`` 0).
+    a time (the transfer thread, or the caller with ``pipeline_depth`` 0),
+    except that a retry at the ``ingest_h2d_put`` site may run beside the
+    attempt its watchdog abandoned, which keeps running: so each call
+    claims a slot no other call holds (adding a slot where every one is
+    held) and releases it once its copy is queued, and no call refills a
+    slot whose event another still waits on.
     """
 
     def __init__(self, device: torch.device | str, slots: int):
@@ -193,9 +205,37 @@ class StagingRing:
         self._bufs: list[torch.Tensor] = []
         self._events: list = []
         self._next = 0
+        self._busy: set[int] = set()  # slots a call is filling
+        self._lock = threading.Lock()
         self._shape: tuple[int, int] | None = None
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
+
+    def _claim(self, shape: tuple[int, int]) -> tuple[int, list, list, set]:
+        """(Re)build the ring for ``shape``, then claim the next slot no
+        call holds, adding one where every slot is held.  Returns the slot
+        and the lists it lives in (a rebuild replaces them; a call still
+        filling an old slot then finishes on the old lists)."""
+        with self._lock:
+            if shape != self._shape:
+                self.wait()
+                self._bufs = [torch.empty(shape, dtype=torch.int32, pin_memory=True)
+                              for _ in range(self.slots)]
+                self._events = [None] * self.slots
+                self._busy = set()
+                self._shape = shape
+            n = len(self._bufs)
+            for _ in range(n):
+                i = self._next
+                self._next = (i + 1) % n
+                if i not in self._busy:
+                    break
+            else:
+                self._bufs.append(torch.empty(shape, dtype=torch.int32, pin_memory=True))
+                self._events.append(None)
+                i = n
+            self._busy.add(i)
+            return i, self._bufs, self._events, self._busy
 
     def stage(self, rows: Sequence[np.ndarray], cap: int):
         if self._stream is None:
@@ -203,26 +243,22 @@ class StagingRing:
             for r, a in enumerate(rows):
                 out[r, :a.shape[0]] = a
             return torch.from_numpy(out), None
-        shape = (len(rows), int(cap))
-        if shape != self._shape:
-            self.wait()
-            self._bufs = [torch.empty(shape, dtype=torch.int32, pin_memory=True)
-                          for _ in range(self.slots)]
-            self._events = [None] * self.slots
-            self._shape = shape
-        i = self._next
-        self._next = (i + 1) % self.slots
-        if self._events[i] is not None:
-            self._events[i].synchronize()
-        buf = self._bufs[i]
-        host = buf.numpy()
-        for r, a in enumerate(rows):
-            host[r, :a.shape[0]] = a
-        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-            dev = buf.to(self.device, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(self._stream)
-        self._events[i] = event
+        i, bufs, events, busy = self._claim((len(rows), int(cap)))
+        try:
+            if events[i] is not None:
+                events[i].synchronize()
+            buf = bufs[i]
+            host = buf.numpy()
+            for r, a in enumerate(rows):
+                host[r, :a.shape[0]] = a
+            with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+                dev = buf.to(self.device, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(self._stream)
+            events[i] = event
+        finally:
+            with self._lock:
+                busy.discard(i)
         return dev, event
 
     def wait(self) -> None:
@@ -408,6 +444,19 @@ def prefetched(source: Iterator, depth: int) -> Iterator:
 # ---------------------------------------------------------------- pipeline
 
 
+class _IteratorRaised(BaseException):
+    """Carrier for an exception raised from INSIDE the staged iterator at
+    the wait site.  BaseException with an empty message, so the retry
+    machinery can neither catch it (``retry_transient`` retries only
+    ``Exception``) nor marker-match the inner error as transient — the
+    pull of a stateful iterator must never be re-invoked after it raised.
+    Unwrapped immediately at the call site."""
+
+    def __init__(self, exc: BaseException):
+        super().__init__()
+        self.exc = exc
+
+
 class _StageFailure(RuntimeError):
     """The H2D staging stage failed for ``item`` (transfer thread side):
     items staged before it are buffered or launched, items after it never
@@ -584,6 +633,14 @@ def chunked_ingest(
         fixpoint.commit_barrier(drain_all, commit_and_release,
                                 save_checkpoint)
 
+    # The wait site runs WITHOUT the sync watchdog: its pull is a local
+    # thread handoff (queue read / inline stage), not a device sync — every
+    # device-facing block that feeds it is already deadlined at the put
+    # site on the thread that runs it.  A watchdog here would abandon an
+    # attempt still blocked inside next() on the stateful staged iterator
+    # and retry concurrently; whatever item the abandoned thread then
+    # consumed would vanish from the committed output.
+    wait_policy = dataclasses.replace(rx.RetryPolicy.from_env(), deadline_s=0.0)
     items: Iterator = iter(source)
     recoveries = 0
     while True:
@@ -600,13 +657,35 @@ def chunked_ingest(
                     stage_pf = Prefetched(staged_feed, pipeline_depth,
                                           name="ingest-h2d")
                     staged_feed = stage_pf
+
+                def next_staged(sf=staged_feed):
+                    # the consumer-side handoff from the staging stage, its
+                    # own chaos/retry site.  The chaos hook fires BEFORE the
+                    # pull, so a retried injected fault never consumed an
+                    # item; an exception coming OUT of the iterator
+                    # propagates raw even when its message carries a
+                    # transient marker: a second next() would skip the
+                    # failed item (or read _END off a finished Prefetched).
+                    def pull():
+                        try:
+                            return next(sf, _END)
+                        except BaseException as exc:
+                            raise _IteratorRaised(exc)
+                    try:
+                        return rx.retry_transient(
+                            pull, site=H2D_WAIT_SITE, metrics=metrics,
+                            policy=wait_policy,
+                        )
+                    except _IteratorRaised as carrier:
+                        raise carrier.exc
             else:
-                staged_feed = map(lambda it_: (it_, it_), feed)
+                plain = map(lambda it_: (it_, it_), feed)
+
+                def next_staged(sf=plain):
+                    return next(sf, _END)
 
             while True:
-                # the consumer-side handoff (the reference's ingest_h2d_wait
-                # site); an exception out of the staged iterator propagates
-                env = next(staged_feed, _END)
+                env = next_staged()
                 if env is _END:
                     break
                 item, staged = env

@@ -7,10 +7,16 @@ resume are ``dataflow/fixpoint.run_segments`` (through ``models/driver``):
 with ``checkpoint_every = k`` the run takes k-iteration segments with a
 snapshot of ``(ranks, iteration, config_hash)`` between them, and
 ``resume=True`` restarts from the newest one, giving an unbroken run's
-bits.  The reference's recovery rungs are not ported (ROADMAP Queue 1
-items 3 and 12).  The host syncs are obs spans under the JAX package's
-names: ``pagerank.delta_sync`` (where ``tol`` makes the loop read its
-delta, the loop's own syncs are not spanned: the last one is),
+bits.  Each segment runs under the retry executor at the
+``pagerank_step`` site, and each host pull at its own guarded site, the
+JAX package's: ``pagerank_delta_sync``, ``pagerank_ckpt_pull`` and
+``pagerank_result_pull``.  A transient fault retries with the unbroken
+run's bits; a lost device or a spent retry budget raises
+``ResilienceExhausted`` naming the newest checkpoint, from which
+``resume=True`` continues.  The reference's CPU rungs are not ported
+(ROADMAP Queue 1 item 12).  The host syncs are obs spans under the JAX
+package's names: ``pagerank.delta_sync`` (where ``tol`` makes the loop read
+its delta, the loop's own syncs are not spanned: the last one is),
 ``pagerank.ckpt_pull`` and ``pagerank.result_pull``, with
 ``pagerank.segment`` and ``pagerank.checkpoint`` from the segment loop.
 """
@@ -27,6 +33,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import Graph
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.models import driver
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pagerank as ops
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import executor as rx
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import PageRankConfig
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import resolve_device
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder, Timer
@@ -94,13 +101,19 @@ def run_pagerank(
     def invoke(runner, rd):
         rd, iters, delta = runner(dg, rd, e)
         with sync():
-            # the reference's guarded site pagerank_delta_sync
-            delta = float(delta)  # the host sync that ends the segment
+            # the host sync that ends the segment
+            delta = float(rx.device_get(
+                delta, site="pagerank_delta_sync", metrics=metrics,
+                checkpoint_dir=cfg.checkpoint_dir,
+            ))
         return rd, iters, delta
 
     def extract_np(rd) -> np.ndarray:
         with obs.span("pagerank.ckpt_pull"):
-            return rd.cpu().numpy()
+            return rx.device_get(
+                rd, site="pagerank_ckpt_pull", metrics=metrics,
+                checkpoint_dir=cfg.checkpoint_dir,
+            )
 
     ranks_dev, done, last_delta = driver.run_segments(
         cfg, metrics, ranks_dev, start_iter,
@@ -110,7 +123,10 @@ def run_pagerank(
         segments_allowed=not cfg.spark_exact,
     )
     with obs.span("pagerank.result_pull"):
-        ranks_np = ranks_dev.cpu().numpy()
+        ranks_np = rx.device_get(
+            ranks_dev, site="pagerank_result_pull", metrics=metrics,
+            checkpoint_dir=cfg.checkpoint_dir,
+        )
     return PageRankResult(
         ranks=ranks_np, iterations=done, l1_delta=last_delta, metrics=metrics,
     )

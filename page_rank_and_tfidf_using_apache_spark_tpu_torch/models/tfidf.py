@@ -11,8 +11,16 @@ end, which gives the batch path's bits.
 Checkpoints: every ``checkpoint_every`` chunks the accumulated ``(df,
 n_docs, chunk_index, TF counts so far)`` is written in the JAX package's
 format (``utils/checkpoint.py``), so either package resumes the other's.
-A resume skips the chunks already ingested.  The JAX package's CPU
-salvage after a lost device is not ported: here a lost device raises.
+A resume skips the chunks already ingested.
+
+Faults: every host sync runs under the retry executor at the JAX
+package's sites (``tfidf_batch_sync``, ``tfidf_chunk_sync``,
+``tfidf_df_commit``, ``tfidf_finalize_sync``, and the staged ingest's
+``ingest_h2d_put`` / ``ingest_h2d_wait``), so a transient fault retries
+with the unfaulted run's bits.  The JAX package's CPU salvage after a lost
+device is not ported (ROADMAP Queue 1 item 12): here a lost device, or a
+spent retry budget, raises ``ResilienceExhausted`` naming the newest
+checkpoint, from which ``resume=True`` continues.
 """
 
 from __future__ import annotations
@@ -29,9 +37,10 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow import ingest as dflow
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io import text as tio
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import tfidf as ops
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import executor as rx
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import checkpoint as ckpt
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import TfidfConfig
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import resolve_device, synchronize
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import resolve_device
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder, Timer
 
 
@@ -69,10 +78,12 @@ class TfidfOutput:
 
 
 def pipeline(corpus: tio.TokenizedCorpus, cfg: TfidfConfig,
-             device: torch.device) -> ops.TfidfResult:
+             device: torch.device, *,
+             metrics: MetricsRecorder | None = None) -> ops.TfidfResult:
     """The timed device part of :func:`run_tfidf`: copy the token arrays to
-    ``device``, run ``ops.tfidf_pipeline``, and wait for it.  An empty
-    corpus counts as one document, as in the reference."""
+    ``device``, run ``ops.tfidf_pipeline``, and wait for it at the guarded
+    ``tfidf_batch_sync`` fence.  An empty corpus counts as one document, as
+    in the reference."""
     result = ops.tfidf_pipeline(
         torch.from_numpy(corpus.doc_ids).to(device),
         torch.from_numpy(corpus.term_ids).to(device),
@@ -83,7 +94,7 @@ def pipeline(corpus: tio.TokenizedCorpus, cfg: TfidfConfig,
         idf_mode=cfg.idf_mode,
         l2_normalize=cfg.l2_normalize,
     )
-    synchronize(device)
+    rx.block_until_ready(result, site="tfidf_batch_sync", metrics=metrics)
     return result
 
 
@@ -115,7 +126,7 @@ def run_tfidf(
                    secs=t_tok.elapsed, native=corpus.native)
 
     with Timer() as t_dev, obs.span("tfidf.pipeline"):
-        result = pipeline(corpus, cfg, dev)
+        result = pipeline(corpus, cfg, dev, metrics=metrics)
     metrics.record(
         event="pipeline", pairs=result.n_pairs, secs=t_dev.elapsed,
         tokens_per_sec=corpus.n_tokens / t_dev.elapsed if t_dev.elapsed > 0 else float("inf"),
@@ -270,12 +281,13 @@ def finalize_tfidf(
         def put(a):
             return torch.from_numpy(a).to(device)
 
-        idf = ops.idf_vector(put(st.df_total), max(n_docs, 1), cfg.idf_mode)
-        weight = ops.finalize_weights(
-            put(doc_a), put(count_a), put(doc_lengths), idf[put(term_a)],
+        idf_dev = ops.idf_vector(put(st.df_total), max(n_docs, 1), cfg.idf_mode)
+        idf = rx.device_get(idf_dev, site="tfidf_finalize_sync", metrics=metrics,
+                            checkpoint_dir=cfg.checkpoint_dir)
+        weight = rx.device_get(ops.finalize_weights(
+            put(doc_a), put(count_a), put(doc_lengths), idf_dev[put(term_a)],
             n_docs=max(n_docs, 1), tf_mode=cfg.tf_mode, l2_normalize=cfg.l2_normalize,
-        ).cpu().numpy()
-        idf = idf.cpu().numpy()
+        ), site="tfidf_finalize_sync", metrics=metrics, checkpoint_dir=cfg.checkpoint_dir)
     metrics.record(event="finalize", where=device.type, nnz=int(doc_a.shape[0]),
                    secs=t_fin.elapsed)
     metrics.scalar("n_docs", n_docs)
@@ -418,9 +430,17 @@ def run_tfidf_streaming(
     def drain_one(rec):
         i, (host, done), doc_lengths, n_chunk_docs, n_tokens, t = rec
         with Timer() as t_sync, obs.span("tfidf.chunk", chunk=i):
-            if done is not None:
-                done.synchronize()
-            h_doc, h_term, h_count, h_n_pairs = (x.numpy() for x in host)
+            # the wait and the host reads are the guarded tfidf_chunk_sync
+            # site; the append below is not, so a retry appends nothing twice
+            def wait_and_read():
+                if done is not None:
+                    done.synchronize()
+                return tuple(x.numpy() for x in host)
+
+            h_doc, h_term, h_count, h_n_pairs = rx.run_guarded(
+                wait_and_read, site="tfidf_chunk_sync", metrics=metrics,
+                checkpoint_dir=cfg.checkpoint_dir,
+            )
             k = int(h_n_pairs)
             # copies, so parts hold k rows and not views of cap-sized buffers
             st.parts.append((h_doc[:k].copy(), h_term[:k].copy(), h_count[:k].copy()))
@@ -438,7 +458,10 @@ def run_tfidf_streaming(
         # chunked_ingest commits with nothing in flight, so the carry holds
         # exactly the chunks the state counts as ingested
         with obs.span("tfidf.df_commit"):
-            st.df_total = df_dev.to("cpu", copy=True).numpy()
+            st.df_total = rx.device_get(
+                df_dev, site="tfidf_df_commit", metrics=metrics,
+                checkpoint_dir=cfg.checkpoint_dir,
+            )
 
     def checkpoint_due() -> bool:
         return (cfg.checkpoint_every > 0 and bool(cfg.checkpoint_dir)

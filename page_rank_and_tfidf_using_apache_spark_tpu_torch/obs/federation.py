@@ -1,11 +1,9 @@
 """Fleet metrics federation: one observability plane over N replica
 processes.
 
-A copy of the JAX package's ``obs/federation.py`` (stdlib), so the port
-never imports that package.  There each scrape is one guarded attempt of
-its resilience executor; the port has no executor yet, so here a scrape is
-a plain call bounded by the HTTP timeout, and a failed one is a stale
-replica all the same.
+A copy of the JAX package's ``obs/federation.py`` (stdlib, and the port's
+resilience executor imported lazily), so the port never imports that
+package; ``tests/test_torch_obs.py`` holds its code to the reference's.
 
 Reference counterpart: Spark's metrics system — executors report to
 one central sink, and both the UI and dynamic allocation read
@@ -14,10 +12,11 @@ each keep a :class:`obs.metrics.MetricsHub` behind their own exporter;
 this module closes the gap:
 
 - :class:`FleetHub` scrapes each registered replica's existing
-  ``/snapshot.json`` on a background scraper thread (``fed-scraper``),
-  one attempt a scrape, so partitions and hangs surface as
-  ``fed_scrape_error`` events on this thread — never as backpressure on
-  routing.
+  ``/snapshot.json`` on a background scraper thread (``fed-scraper``).
+  Every scrape is ONE guarded attempt at the ``fed_scrape`` site
+  (:func:`resilience.executor.attempt_once` with a hard deadline), so
+  injected partitions/hangs surface as scrape failures on this thread —
+  never as backpressure on routing.
 - Replica state merges *exactly*: the scrape reads the ``mergeable``
   section every hub snapshot now embeds and folds it into a fresh fleet
   :class:`MetricsHub` per read (counts/sums/min/max byte-exact vs a hub
@@ -46,6 +45,22 @@ from typing import Any, Callable
 
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.obs import runtime as _rt
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.obs.metrics import MetricsHub
+
+
+def _rx():
+    """The resilience executor, imported lazily: this module loads during
+    ``obs`` package init, and ``resilience`` -> ``utils.metrics`` -> ``obs``
+    would close an import cycle at that moment.  First scrape pays the
+    import; every later call is a dict hit."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import (
+        executor,
+    )
+
+    return executor
+
+# The guarded scrape site: chaos specs (net_partition/net_hang) aim here,
+# and the watchdog deadline bounds a hung scrape to the scrape timeout.
+FED_SCRAPE_SITE = "fed_scrape"
 
 _DEFAULT_SCRAPE_S = 1.0
 
@@ -140,17 +155,22 @@ class FleetHub:
 
     def scrape_once(self) -> dict[str, bool]:
         """One scrape sweep over the current fleet; returns per-replica
-        success.  Each target is one attempt bounded by the HTTP
-        timeout — a hung endpoint costs this thread at most the
-        timeout and the replica an increased staleness age, never a
-        routing stall."""
+        success.  Each target is one guarded ``fed_scrape`` attempt with
+        a hard watchdog deadline — a hung endpoint costs this thread at
+        most the timeout and the replica an increased staleness age,
+        never a routing stall."""
         with self._lock:
             targets = dict(self._targets)
         ok: dict[str, bool] = {}
+        rx = _rx()
+        deadline = rx.RetryPolicy(deadline_s=self.timeout_s + 1.0)
         for replica, url in sorted(targets.items()):
             self._scrapes += 1
             try:
-                snap = self._fetch(url)
+                snap = rx.attempt_once(
+                    lambda url=url: self._fetch(url),
+                    site=FED_SCRAPE_SITE, policy=deadline,
+                )
                 mergeable = snap.get("mergeable")
                 if not isinstance(mergeable, dict):
                     raise ValueError("snapshot has no mergeable section")

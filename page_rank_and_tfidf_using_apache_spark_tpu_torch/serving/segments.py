@@ -3,9 +3,7 @@ the ingest→servable path in seconds, not a full rebuild.
 
 Counterpart of the JAX package's ``serving/segments.py``, copied so the
 port never imports that package.  Its code is held to the reference's by
-``tests/test_torch_segments.py``; the one difference is the background
-merge's retry wrapper (``rx.run_guarded``), a plain call here until the
-port has a retry executor.  A segmented directory written by either
+``tests/test_torch_segments.py``.  A segmented directory written by either
 package loads in the other.
 
 A *segmented index directory* holds immutable segment artifacts plus a
@@ -58,6 +56,7 @@ import numpy as np
 
 from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import TfidfOutput
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import executor as rx
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving.artifact import (
     ServableIndex,
     _term_sorted,
@@ -76,10 +75,9 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
 SEGMENTS_SUBDIR = "segments"
 _MANIFEST_RE = re.compile(r"^manifest_(\d{6})\.json$")
 
-# The JAX package's retry site of the background compaction; the port
-# names it once it has a retry executor (ROADMAP Queue 1 item 3).  Until
-# then a failed merge skips the tick: the live set stays unmerged until the
-# next pass.
+# Retry site of the background compaction: a transient fault mid-merge
+# retries; a persistent one skips the tick — the live set just stays
+# unmerged until the next pass.
 MERGE_SITE = "segment_merge"
 
 # Serializes manifest read-modify-write commits (ingest append vs merge
@@ -668,8 +666,10 @@ class SegmentMerger:
     """Background compaction thread (``segment-merge``): every
     ``interval_s`` it loads the committed manifest and, while the live set
     exceeds ``max_segments``, merges the smallest adjacent pair and commits
-    the replacement.  A failed merge skips the tick (the set just stays
-    unmerged; nothing serving-side depends on a merge happening)."""
+    the replacement — under the resilience executor at the
+    ``segment_merge`` site, so transient chaos retries and a persistent
+    fault skips the tick (the set just stays unmerged; nothing
+    serving-side depends on a merge happening)."""
 
     def __init__(self, directory: str, cfg: TfidfConfig, *,
                  max_segments: int = 4, interval_s: float = 1.0):
@@ -718,7 +718,10 @@ class SegmentMerger:
             return False
         with obs.span("segment.merge", a=pair[0].name, b=pair[1].name,
                       nnz=pair[0].nnz + pair[1].nnz):
-            ref = merge_segments(self.directory, pair, self.cfg)
+            ref = rx.run_guarded(
+                lambda: merge_segments(self.directory, pair, self.cfg),
+                site=MERGE_SITE,
+            )
             commit_replace(self.directory, (pair[0].name, pair[1].name), ref)
         with self._lock:
             self._merges += 1

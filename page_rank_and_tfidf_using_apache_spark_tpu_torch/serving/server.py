@@ -51,9 +51,14 @@ Design points:
   and warmed first, then swapped under the lock; in-flight batches finish
   against the old buffers, and the result cache is invalidated by
   generation.
-- **Errors.**  A batch whose scoring raises fails exactly its requests'
-  futures with the error; the queue keeps draining.  Nothing retries and
-  nothing moves to the CPU.
+- **Resilience.**  The dispatch and the pull run under the retry executor
+  (sites ``serve_dispatch`` / ``serve_pull``, the warmup's fence
+  ``serve_warmup``): a transient fault retries invisibly; anything else
+  fails exactly its batch's futures with ``ResilienceExhausted`` and the
+  queue keeps draining.  A retried dispatch re-uploads its plans into
+  fresh pinned tensors and scores into fresh buffers (the float64 slot
+  buffer is allocated per call), so an abandoned attempt writes nothing a
+  retry reads.  Nothing moves to the CPU.
 - **Telemetry.**  Every batch is a ``serve.batch`` span with ``serve.pad``
   / ``serve.dispatch`` / ``serve.pull`` children; every request publishes
   a ``serve_request`` event carrying queue-wait and total latency, so
@@ -83,6 +88,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io import text as tio
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import grow_chunk_cap
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import tfidf as ops
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import executor as rx
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving.artifact import ServableIndex
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving.segments import (
     LoadedSegment,
@@ -95,7 +101,6 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import (
     resolve_device,
-    synchronize,
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder
 
@@ -583,38 +588,42 @@ class TfidfServer:
                 zw = torch.zeros((cap, q), dtype=dtype, device=dev)
                 warm_set = [s for s in segs
                             if only is None or s.name in only]
+                outs = []
                 for seg in warm_set:
                     if self.cfg.scoring == "impacted":
                         zc = torch.zeros(self._bucket_cap, dtype=torch.int32, device=dev)
-                        ops.score_impacted_batch(
+                        outs.append(ops.score_impacted_batch(
                             seg.dev_doc, seg.weights["tfidf"],
                             zc, zc, zc, zc.to(dtype), seg.prior,
                             bucket_slot=zc, query_terms=q,
                             n_docs=seg.n_docs, batch=cap,
                             bucket_width=self.cfg.impact_bucket_width,
                             k=seg.k, use_prior=self._use_prior,
-                        )
+                        ))
                     else:
-                        ops.score_query_batch(
+                        outs.append(ops.score_query_batch(
                             seg.dev_doc, seg.dev_term,
                             seg.weights["tfidf"], seg.valid,
                             zt, zw, zw, seg.prior,
                             n_docs=seg.n_docs, vocab=self.vocab_size,
                             k=seg.k, use_prior=self._use_prior,
-                        )
+                        ))
                 if len(segs) > 1:
                     # the merge's shape depends on the WHOLE live set —
                     # warm it against zero candidates even when the
                     # per-segment dispatches were restricted to new ones
-                    ops.topk_merge(
+                    outs.append(ops.topk_merge(
                         tuple(torch.zeros((cap, s.k), dtype=dtype, device=dev)
                               for s in segs),
                         tuple(torch.zeros((cap, s.k), dtype=torch.int32, device=dev)
                               for s in segs),
                         tuple(s.doc_base for s in segs),
                         k=min(k, sum(s.k for s in segs)),
+                    ))
+                if outs:
+                    rx.block_until_ready(
+                        outs, site="serve_warmup", metrics=self.metrics
                     )
-                synchronize(dev)
         return caps
 
     def warmup(self) -> list[int]:
@@ -1151,11 +1160,17 @@ class TfidfServer:
                 plans = self._pad(uniq, segs, cap)
             with obs.span("serve.dispatch", cap=cap, ranker=ranker,
                           segments=len(segs), scoring=self.cfg.scoring):
-                scores_dev, idx_dev = self._dispatch(ranker, plans, segs, priors, k, cap)
+                scores_dev, idx_dev = rx.run_guarded(
+                    lambda: self._dispatch(ranker, plans, segs, priors, k, cap),
+                    site="serve_dispatch", metrics=self.metrics,
+                )
             with obs.span("serve.pull", cap=cap):
                 # ONE [cap, k] pull — the only bytes that cross
                 # device->host per batch
-                scores, idx = scores_dev.cpu().numpy(), idx_dev.cpu().numpy()
+                scores, idx = rx.device_get(
+                    (scores_dev, idx_dev), site="serve_pull",
+                    metrics=self.metrics,
+                )
         except Exception as exc:  # noqa: BLE001 — isolated per batch
             # fail exactly this group's requests; the drain loop (and
             # every other queued request) keeps going

@@ -60,7 +60,27 @@ GRAFT_ENV_KNOBS: frozenset = frozenset({
     # unset = no exporter, 0 = ephemeral port, else the literal port;
     # serves /snapshot.json (rolling-window SLO snapshot) + /metrics
     # (Prometheus text) from a running cli.serve
+    "GRAFT_CHAOS",  # fault-injection plan (resilience/chaos.py)
+    "GRAFT_RETRY_MAX",  # max retries per guarded call
+    "GRAFT_SYNC_DEADLINE_S",  # watchdog deadline for host syncs
+    "GRAFT_STEP_DEADLINE_S",  # watchdog deadline for segment dispatch
+    "GRAFT_BACKOFF_BASE_S",  # first backoff delay
+    "GRAFT_BACKOFF_MAX_S",  # backoff ceiling
 })
+
+# The degradation rungs of the resilience executor (resilience/executor.py
+# run_guarded's ``fallbacks``), declared in one place: a ``degraded`` event
+# names one of these.  The JAX package's ladder, copied; no rung is ported
+# yet (cpu: ROADMAP Queue 1 item 12; mesh_shrink, single_device: item 11;
+# respawn: item 12's process supervisor), so the port's ladder is retry,
+# then exhausted.
+DEGRADE_LADDER: tuple = (
+    "mesh_shrink",  # rebuild the mesh over surviving devices (pow2 shrink)
+    "single_device",  # the 1-device end of the shrink chain
+    "cpu",  # re-lower on the CPU backend (single-chip paths)
+    "respawn",  # replace a dead replica PROCESS (resilience/process.py):
+    # past every in-process rung — recovery belongs to the supervisor
+)
 
 SPMV_IMPLS = ("segment", "bcoo", "cumsum", "cumsum_mxu", "hybrid",
               "sort_shuffle", "pallas")

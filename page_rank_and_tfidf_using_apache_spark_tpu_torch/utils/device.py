@@ -21,10 +21,3 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
-
-
-def synchronize(device: torch.device) -> None:
-    """Wait for the work queued on ``device`` (nothing to wait for on the
-    CPU)."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)

@@ -8,7 +8,7 @@ not change the math; the config-hash and "different graph" guards; a
 checkpoint written by either package resumes in the other, within 1e-12
 of the reader's unbroken run; the metrics records and spans are the JAX
 package's; the degradation rungs, not ported, raise naming their ROADMAP
-items; and the CLI's checkpoint flags print what the JAX CLI prints.
+item; and the CLI's checkpoint flags print what the JAX CLI prints.
 """
 
 from __future__ import annotations
@@ -117,7 +117,7 @@ def test_only_a_fixed_count_run_is_split(tol, segments):
 
 @pytest.mark.parametrize("rung", ["make_cpu_invoke", "elastic_rebuild"])
 def test_degradation_rungs_are_refused(rung):
-    with pytest.raises(NotImplementedError, match="items 3 and 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12$"):
         tfix.run_segments(tcfg.PageRankConfig(iterations=2), MetricsRecorder(), 0, 0,
                           make_runner=lambda c: None, invoke=lambda r, x: (x, 1, 0.0),
                           extract_np=np.asarray, **{rung: lambda *a: None})

@@ -73,7 +73,7 @@ def _code(path: pathlib.Path, transform: ast.NodeTransformer | None = None) -> s
                                   "page_rank_and_tfidf_using_apache_spark_tpu")
 
 
-@pytest.mark.parametrize("module", ["events", "runtime", "metrics", "export"])
+@pytest.mark.parametrize("module", ["events", "runtime", "metrics", "export", "federation"])
 def test_copy_matches_reference(module):
     assert _code(PORT / "obs" / f"{module}.py") == _code(REF / "obs" / f"{module}.py")
 
@@ -200,8 +200,8 @@ def _board(fleet) -> dict:
 
 
 def test_federation_scrape_matches_reference():
-    """The same replica snapshots through the port's FleetHub (plain
-    scrape) and the JAX package's (guarded scrape) give the same board,
+    """The same replica snapshots through the port's FleetHub and the JAX
+    package's (each scrape a guarded ``fed_scrape`` attempt) give the same board,
     and a dead replica is a scrape error, labelled stale, not dropped."""
     clk = _Clock(100.0)
     hubs = {str(i): JMetricsHub(clock=clk, **HUB_ARGS) for i in range(2)}

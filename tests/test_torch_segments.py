@@ -1,8 +1,8 @@
 """Impacted-list scoring and delta segments of the port, on the CPU.
 
 ``serving/segments.py`` is a copy of the JAX package's: its code
-(docstrings aside) is the reference's, the merge's retry wrapper
-``rx.run_guarded`` read as the plain call it wraps.  A segmented directory
+(docstrings aside) is the reference's, the merge's guarded call at the
+``segment_merge`` site included.  A segmented directory
 written by either package loads in the other with equal re-weighted
 tables.  The tests of ``tests/test_segments.py`` that need no chaos or
 registry are ported: impacted scoring equal to COO scoring bit for bit
@@ -13,7 +13,6 @@ query served from a segment committed after the server started.
 
 from __future__ import annotations
 
-import ast
 import time
 from pathlib import Path
 
@@ -76,33 +75,8 @@ def _docs() -> list[str]:
 
 # ------------------------------------------------------------------ the copy
 
-class _PlainRx(ast.NodeTransformer):
-    """The reference read as the port: ``rx.run_guarded(lambda: f(), ...)``
-    is ``f()``, and the executor's import goes."""
-
-    def __init__(self):
-        self.calls = 0
-
-    def visit_ImportFrom(self, node):
-        if [(a.name, a.asname) for a in node.names] == [("executor", "rx")]:
-            return None
-        return node
-
-    def visit_Call(self, node):
-        self.generic_visit(node)
-        f = node.func
-        if isinstance(f, ast.Attribute) and getattr(f.value, "id", None) == "rx":
-            assert f.attr == "run_guarded" and isinstance(node.args[0], ast.Lambda)
-            self.calls += 1
-            return node.args[0].body
-        return node
-
-
 def test_copy_matches_reference():
-    plain = _PlainRx()
-    want = _code(REF / "serving" / "segments.py", plain)
-    assert plain.calls == 1  # the merge's guarded call is the one difference
-    assert _code(PORT / "serving" / "segments.py") == want
+    assert _code(PORT / "serving" / "segments.py") == _code(REF / "serving" / "segments.py")
 
 
 # ------------------------------------------------ impacted-list equality
