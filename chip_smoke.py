@@ -162,9 +162,35 @@ Phases, each of which exits non-zero on failure:
    segments under ``segment_merge:fail@1`` equal to the unfaulted merge;
    (13f) the median of 10,000 ``run_guarded(lambda: None)`` calls with no
    plan, beside 4b's ``segment`` loop ms and 11b's queries/s;
+14. a lost device hands the run to the CPU, on phase 12's inputs: (14a)
+   PageRank ``segment`` float32, a checkpoint every 5, under
+   ``device_lost@dev:0`` at ``pagerank_step`` (on a run resumed from
+   checkpoint 10), ``pagerank_delta_sync``, ``pagerank_ckpt_pull`` and
+   ``pagerank_result_pull``, and at the step for ``pallas`` and ``hybrid``
+   float32 and ``segment`` float64: one ``degraded`` with ladder ``cpu``
+   and the newest snapshot's ``salvage_iter`` (10, 0, 0, 15), no run
+   exhausted, the ranks equal bit for bit to ``run_pagerank(device="cpu",
+   resume=True)`` from that snapshot and within L1 1e-3 (float64: 20 steps
+   of ``segment.cu``'s per-call bar, 2e-11) of the unbroken card run, the
+   card's launches those before the loss; (14b) what the salvage does not
+   take, at the third segment: ``pagerank_delta_sync:lost@3`` (a
+   whole-backend loss) and a runner that raises a CUDA error (a kernel's
+   own fault): ``ResilienceExhausted`` naming the iteration-10 checkpoint,
+   no ``degraded``, no segment on the CPU, 15 and 10 launches; (14c) PPR
+   (``segment``, B = 8), HITS and components under a loss at their delta
+   syncs and PPR at its result pull: PPR and HITS equal to their
+   ``device="cpu"`` runs bit for bit, labels to scipy's; (14d) the config-2 stream, a checkpoint every 4, under a loss at
+   ``ingest_h2d_put`` and at ``ingest_h2d_wait``, and resumed from a
+   snapshot of its first two thirds under a loss at ``tfidf_df_commit``
+   (``salvage_chunk`` and ``rerun_chunks`` above 0): one ``degraded`` with
+   ``rerun_chunks``, COO, counts and DF equal to the card's stream, every
+   array to the CPU stream's; (14e) no ``degraded`` event in phases 1-13;
+   (14f) each 14a run's wall beside the unbroken card run's,
+   and the CPU's iterations/s after the hand-over, with the card's name and
+   power limit;
 7. one JSON line describing every kernel (with ``workload_launches``, each
-   kernel's launches in 12a-12c and 13a-13c by workload), then the result
-   line.
+   kernel's launches in 12a-12c, 13a-13c and 14 by workload), then the
+   result line.
 
 Without a CUDA device, or without the port's package beside it, it exits
 non-zero and prints no result.
@@ -880,6 +906,27 @@ def dense_pagerank(graph, iterations: int, damping: float = 0.85) -> np.ndarray:
     r = np.full(n, 1.0 / n)
     for _ in range(iterations):
         r = (1.0 - damping) / n + damping * (a @ r + r[dangling].sum() / n)
+    return r
+
+
+def extended_pagerank(graph, iterations: int, damping: float = 0.85) -> np.ndarray:
+    """:func:`dense_pagerank` on the edge list in the host's long double
+    (80-bit on x86), each node's in-links summed by ``np.add.reduceat``: a
+    yardstick for float64 runs that add in other orders (phase 14a)."""
+    n, ld = graph.n_nodes, np.longdouble
+    order = np.argsort(graph.dst, kind="stable")
+    src, dst = graph.src[order], graph.dst[order]
+    inv = np.zeros(n, ld)
+    out = graph.out_degree > 0
+    inv[out] = ld(1) / graph.out_degree[out].astype(ld)
+    has = np.bincount(dst, minlength=n) > 0
+    starts = np.searchsorted(dst, np.flatnonzero(has))
+    dangling = ~out
+    r = np.full(n, ld(1) / n)
+    for _ in range(iterations):
+        inflow = np.zeros(n, ld)
+        inflow[has] = np.add.reduceat((r * inv)[src], starts)
+        r = (ld(1) - ld(damping)) / n + ld(damping) * (inflow + r[dangling].sum() / n)
     return r
 
 
@@ -2825,6 +2872,398 @@ def chaos_phase(graph, stream: dict, loop_ms: dict, qps: dict, reset_counts, cou
     return total
 
 
+# Phase 14: a lost device hands the run to the CPU (resilience/elastic.py,
+# the rungs of dataflow/fixpoint.py, the streaming rollback of
+# models/tfidf.py), on phase 12's inputs.  A loss that names the card
+# (device_lost@dev:0) takes the salvage: the newest checkpoint, then the CPU
+# to the end of the run.  A whole-backend loss (lost) and a kernel's own
+# fault exhaust with the newest checkpoint (14b): the port has no
+# per-segment cpu rung.  A device_lost fires at its site's first
+# guarded call, so a loss mid-run comes from a site first reached mid-run,
+# the result pull, or a run resumed from a snapshot.  Each row: the site,
+# the iteration of the snapshot the salvage takes, the iterations the card
+# runs before the loss.
+DEGRADE_SITES = (("pagerank_step", LOST_CKPT, 0), ("pagerank_delta_sync", 0, CKPT_EVERY),
+                 ("pagerank_ckpt_pull", 0, CKPT_EVERY),
+                 ("pagerank_result_pull", ITERS - CKPT_EVERY, ITERS))
+DEGRADE_IMPLS = (("pallas", "float32"), ("hybrid", "float32"), ("segment", "float64"))
+BACKEND_LOSS = "pagerank_delta_sync:lost@3"
+KERNEL_FAULT = "CUDA error: an illegal memory access was encountered"
+WORKLOAD_LOSSES = ("ppr_delta_sync", "ppr_result_pull", "hits_delta_sync", "cc_delta_sync")
+STREAM_LOSSES, STREAM_CKPT_EVERY = ("ingest_h2d_put", "ingest_h2d_wait"), 4
+# 14d's loss after a commit: the stream's first two thirds (of its
+# 512-document chunks, packed to 2^18 tokens), checkpointed, then the whole
+# stream resumed from that snapshot, losing the card at its next commit
+STREAM_COMMIT_LOSS = "tfidf_df_commit"
+LOSS_DEVICE = 0
+
+
+class DegradedCount:
+    """An obs sink counting the port's ``degraded`` events from its attach
+    on (14e reads it after every phase)."""
+
+    def __init__(self) -> None:
+        self.n = 0
+
+    def emit(self, event: dict) -> None:
+        if event["kind"] == "degraded":
+            self.n += 1
+
+    def close(self) -> None:
+        pass
+
+
+def lost_run(fn, site: str):
+    """``fn()`` under ``<site>:device_lost@dev:0`` from an empty health
+    registry, left empty after: (result, wall s, degraded events, exhausted
+    events)."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos, elastic
+
+    elastic.reset_health()
+    try:
+        with FaultEvents() as ev, chaos.inject(f"{site}:device_lost@dev:{LOSS_DEVICE}"):
+            t0 = time.perf_counter()
+            res = fn()
+            wall = time.perf_counter() - t0
+    finally:
+        elastic.reset_health()
+    return res, wall, ev.of("degraded"), ev.of("exhausted")
+
+
+def check_one_degrade(label: str, site: str, deg: list, exh: list, want_site: str) -> dict:
+    """One ``degraded`` event, ladder cpu, at ``want_site``; an ``exhausted``
+    event only where the loss surfaced inside a pull the salvage then took
+    (that pull's own ladder ends there, in the reference too)."""
+    check(len(deg) == 1 and deg[0]["ladder"] == "cpu" and deg[0]["site"] == want_site,
+          f"{label}: degraded events {deg}")
+    check(len(exh) <= 1 and all(e["site"] == site != want_site for e in exh),
+          f"{label}: exhausted events {exh}")
+    return deg[0]
+
+
+def resumed_on_cpu(run, cfg, src_dir: str, at_iter: int, tmp: str, label: str):
+    """The run on the CPU, resumed from the snapshot a salvage took at
+    ``at_iter`` (from the initial state where it took none), in a directory
+    that holds only that snapshot."""
+    import dataclasses
+    import shutil
+
+    d = os.path.join(tmp, f"{label}-at-loss")
+    os.makedirs(d)
+    if at_iter:
+        name = f"ckpt_{at_iter:08d}.npz"
+        shutil.copy(os.path.join(src_dir, name), os.path.join(d, name))
+        with open(os.path.join(d, "LATEST"), "w") as f:
+            f.write(name)
+    res = run(dataclasses.replace(cfg, checkpoint_dir=d), resume=True, device="cpu")
+    start = [r["start_iter"] for r in res.metrics.records if r.get("event") == "resume"]
+    check(start == ([at_iter] if at_iter else []), f"{label}: the CPU run resumed at {start}")
+    return res
+
+
+def cpu_rate(metrics) -> str:
+    """Iterations/s of the segments that ran on the CPU after the salvage's
+    own (which holds the salvage's graph build)."""
+    rates = [r["iters_per_sec"] for r in metrics.records
+             if r.get("backend") == "cpu" and "iters_per_sec" in r][1:]
+    return f"{float(np.median(rates)):.2f}" if rates else "none (the salvage ran last)"
+
+
+def degrade_pagerank_phase(graph, device, reset_counts, counts, card_label: str) -> dict:
+    """14a, 14b and 14f: PageRank under a loss at each site (segment float32)
+    and at the step for the other impls, checkpoints every 5; then a
+    whole-backend loss and a kernel's own fault, which exhaust.  Returns the
+    card's launches of these runs."""
+    import dataclasses
+    import shutil
+
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch import ResilienceExhausted
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pagerank as pr_ops
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos, elastic
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import PageRankConfig
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder
+
+    base = PageRankConfig(iterations=ITERS, dangling="redistribute", init="uniform",
+                          checkpoint_every=CKPT_EVERY)
+    cases = [("segment", "float32", *row) for row in DEGRADE_SITES]
+    cases += [(impl, dtype, *DEGRADE_SITES[0]) for impl, dtype in DEGRADE_IMPLS]
+    total: dict = {}
+    unbroken: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for impl, dtype, site, at_iter, card_iters in cases:
+            label = f"degrade {impl} {dtype} {site}"
+            cfg = dataclasses.replace(base, dtype=dtype, spmv_impl=impl)
+            if (impl, dtype) not in unbroken:
+                t0 = time.perf_counter()
+                full = run_pagerank(graph, dataclasses.replace(
+                    cfg, checkpoint_dir=os.path.join(tmp, f"{impl}-{dtype}")), device=device)
+                unbroken[(impl, dtype)] = (full.ranks, time.perf_counter() - t0)
+            want, full_wall = unbroken[(impl, dtype)]
+            d = os.path.join(tmp, f"{impl}-{dtype}-{site}")
+            resume = at_iter > 0 and card_iters == 0
+            if resume:  # a run stopped after the snapshot at at_iter
+                run_pagerank(graph, dataclasses.replace(cfg, iterations=at_iter + 1,
+                                                        checkpoint_dir=d), device=device)
+                shutil.copytree(d, d + "-clean")
+                t0 = time.perf_counter()
+                run_pagerank(graph, dataclasses.replace(cfg, checkpoint_dir=d + "-clean"),
+                             resume=True, device=device)
+                full_wall = time.perf_counter() - t0
+            reset_counts()
+            res, wall, deg, exh = lost_run(lambda: run_pagerank(
+                graph, dataclasses.replace(cfg, checkpoint_dir=d), resume=resume,
+                device=device), site)
+            launched = counts()
+            add_counts(total, launched)
+            ev = check_one_degrade(label, site, deg, exh, "pagerank_result_pull"
+                                   if site == "pagerank_result_pull" else "pagerank_step")
+            t0 = time.perf_counter()
+            cpu = resumed_on_cpu(lambda c, **kw: run_pagerank(graph, c, **kw), cfg, d,
+                                 ev["salvage_iter"], tmp, f"{impl}-{dtype}-{site}")
+            cpu_wall = time.perf_counter() - t0
+            differ = bits_differ(res.ranks, cpu.ranks)
+            # against the card's run, the CPU's steps add in another order:
+            # float32 is held to the main path's L1 bar; float64 to the
+            # segment kernel's per-call bar against its plain version
+            # (SEGMENT_F64_RTOL of a row's sum of |x|, so of the rank mass
+            # over all rows), once a step
+            err = float(np.abs(res.ranks.astype(np.float64) - want).sum())
+            bar = (ITERS * SEGMENT_F64_RTOL * float(np.abs(want).sum()) if dtype == "float64"
+                   else 1e-3)
+            if dtype == "float64":  # how far each order is from a wider sum
+                t0 = time.perf_counter()
+                ext = extended_pagerank(graph, ITERS)
+                print(f"{label}: max abs from a long double run ({np.finfo(np.longdouble).nmant}"
+                      f"-bit mantissa; {time.perf_counter() - t0:.1f} s on the host): the card's "
+                      f"{float(np.abs(want - ext).max()):.3g}, the degraded run's "
+                      f"{float(np.abs(res.ranks - ext).max()):.3g}; top rank {float(ext.max()):.4g}")
+            kernels = {k: launched.get(k, 0) for k in PPR_KERNELS[impl]}
+            print(f"{label} ({card_label}): degraded at {ev['site']} salvage_iter "
+                  f"{ev['salvage_iter']} rerun_iters {ev['rerun_iters']}, exhausted at "
+                  f"{[e['site'] for e in exh]}; {res.iterations} iterations; {differ} of "
+                  f"{graph.n_nodes} entries differ from the CPU run resumed from that "
+                  f"snapshot ({cpu_wall:.3f} s); L1 vs the unbroken card run {err:.3g} (bar "
+                  f"{bar:.3g}; max abs {float(np.abs(res.ranks - want).max()):.3g}); wall "
+                  f"{wall:.3f} s against "
+                  f"{full_wall:.3f} s unbroken; CPU iterations/s after the hand-over "
+                  f"{cpu_rate(res.metrics)}; card launches {launched}")
+            check(ev["salvage_iter"] == at_iter and res.iterations == ITERS,
+                  f"{label}: salvage_iter {ev['salvage_iter']}, {res.iterations} iterations")
+            check(differ == 0, f"{label}: {differ} entries differ from the CPU resume")
+            check(err <= bar, f"{label}: L1 {err} from the unbroken card run, bar {bar}")
+            check(all(v == card_iters for v in kernels.values())
+                  and sum(launched.values()) == card_iters * len(kernels),
+                  f"{label}: card launches {launched}, wanted {card_iters} of each of {kernels}")
+
+        # 14b: what the salvage does not take, each at the third segment: a
+        # whole-backend loss surfacing at its delta sync (the segment's
+        # kernels ran), and a kernel's own fault at its dispatch (none ran)
+        cfg = dataclasses.replace(base, dtype="float32", spmv_impl="segment")
+        real = pr_ops.make_pagerank_runner
+        steps = [0]
+
+        def faulty(n, seg_cfg):
+            run = real(n, seg_cfg)
+
+            def step(dg, ranks, e):
+                steps[0] += 1
+                if steps[0] == 3:
+                    raise RuntimeError(KERNEL_FAULT)
+                return run(dg, ranks, e)
+
+            return step
+
+        for label, plan, want_launches in (
+                ("backend loss", BACKEND_LOSS, 3 * CKPT_EVERY),
+                ("kernel fault", None, 2 * CKPT_EVERY)):
+            m = MetricsRecorder()
+            err = None
+            reset_counts()
+            with FaultEvents() as ev, (chaos.inject(plan) if plan else
+                                       contextlib.nullcontext()):
+                if plan is None:
+                    pr_ops.make_pagerank_runner = faulty
+                try:
+                    run_pagerank(graph, dataclasses.replace(
+                        cfg, checkpoint_dir=os.path.join(tmp, label)), metrics=m,
+                        device=device)
+                except ResilienceExhausted as exc:
+                    err = exc
+                finally:
+                    pr_ops.make_pagerank_runner = real
+            launched = counts()
+            add_counts(total, launched)
+            check(err is not None, f"degrade {label}: no ResilienceExhausted")
+            latest = os.path.basename(err.last_checkpoint or "")
+            on_cpu = [r for r in m.records if "backend" in r]
+            print(f"degrade {label} ({plan or KERNEL_FAULT!r}, {card_label}): raised "
+                  f"ResilienceExhausted at {err.site!r} ({type(err.last_error).__name__}), "
+                  f"last checkpoint {latest}; events degraded {len(ev.of('degraded'))}, "
+                  f"exhausted {len(ev.of('exhausted'))}; segments on the CPU {len(on_cpu)}; "
+                  f"card launches {launched}")
+            check(err.site == "pagerank_step" and latest == f"ckpt_{LOST_CKPT:08d}.npz",
+                  f"degrade {label}: exhausted at {err.site}, last checkpoint {latest}")
+            check(not ev.of("degraded") and ev.of("exhausted") and not on_cpu
+                  and not elastic.health().lost(),
+                  f"degrade {label}: a rung took it ({ev.of('degraded')}, {on_cpu})")
+            check(launched.get("segment", 0) == want_launches == sum(launched.values()),
+                  f"degrade {label}: card launches {launched}, wanted {want_launches}")
+    return total
+
+
+def degrade_workloads_phase(graph, device, reset_counts, counts, card_label: str) -> dict:
+    """14c: PPR (segment, B = 8, float32), HITS (tol 1e-8, float32) and
+    components under a loss at their delta syncs, and PPR at its result pull:
+    one ``degraded`` each; PPR and HITS equal to their ``device="cpu"`` runs
+    bit for bit, labels equal to scipy's.  Returns the card's launches."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow import ppr
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.components import (
+        run_components,
+    )
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.hits import run_hits
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
+        HitsConfig,
+        PageRankConfig,
+    )
+
+    n = graph.n_nodes
+    rng = np.random.default_rng(SEED)
+    queries = [[int(graph.node_ids[i])] for i in rng.integers(0, n, size=PPR_BATCH)]
+    pcfg = PageRankConfig(iterations=PPR_ITERS, dangling="redistribute", init="uniform",
+                          spmv_impl="segment")
+    hcfg = HitsConfig(iterations=HITS_ITERS, tol=HITS_TOL, dtype="float32")
+    k, comp = connected_components(
+        csr_matrix((np.ones(graph.n_edges, np.int8), (graph.src, graph.dst)), shape=(n, n)),
+        directed=True, connection="weak")
+    smallest = np.full(k, n, np.int64)
+    np.minimum.at(smallest, comp, np.arange(n))
+
+    def hits_of(res):
+        return np.stack([res.hubs, res.authorities])
+
+    runs = {
+        "ppr": lambda dev: ppr.run_ppr_batch(graph, pcfg, queries, device=dev).ranks,
+        "hits": lambda dev: hits_of(run_hits(graph, hcfg, device=dev)),
+        "cc": lambda dev: run_components(graph, device=dev).labels,
+    }
+    on_cpu = {}
+    total: dict = {}
+    for site in WORKLOAD_LOSSES:
+        workload = site.split("_")[0]
+        if workload not in on_cpu:
+            t0 = time.perf_counter()
+            on_cpu[workload] = (runs[workload]("cpu"), time.perf_counter() - t0)
+        want, cpu_wall = on_cpu[workload]
+        reset_counts()
+        got, wall, deg, exh = lost_run(lambda: runs[workload](device), site)
+        launched = counts()
+        add_counts(total, launched)
+        ev = check_one_degrade(f"degrade {site}", site, deg, exh,
+                               site if site.endswith("result_pull") else f"{workload}_step")
+        if workload == "cc":
+            wrong = int((got != smallest[comp]).sum())
+            same = f"{wrong} labels differ from scipy's"
+            check(wrong == 0, f"degrade {site}: {same}")
+        else:
+            differ = bits_differ(got, want)
+            same = f"{differ} entries differ from the device='cpu' run"
+            check(differ == 0, f"degrade {site}: {same}")
+        print(f"degrade {site} ({card_label}): degraded at {ev['site']} salvage_iter "
+              f"{ev['salvage_iter']} rerun_iters {ev['rerun_iters']}; {same}; wall {wall:.3f} s "
+              f"(device='cpu' run {cpu_wall:.3f} s); card launches {launched}")
+        if workload == "ppr":
+            check(launched.get("segment", 0) == PPR_BATCH * PPR_ITERS,
+                  f"degrade {site}: card launches {launched}")
+    return total
+
+
+def degrade_streaming_phase(device, docs, knobs: dict, chunk_docs: int, card_label: str) -> None:
+    """14d: phase 9's config-2 stand-in, pipelined, a checkpoint every
+    STREAM_CKPT_EVERY chunks, under a loss at each of STREAM_LOSSES, and
+    resumed from a snapshot under a loss at its next commit
+    (STREAM_COMMIT_LOSS, so ``salvage_chunk`` and ``rerun_chunks`` are both
+    above 0): one ``degraded`` with ``rerun_chunks``; COO, counts and DF
+    equal to the card's stream, every output array to a ``device="cpu"``
+    stream, bit for bit."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models import tfidf as tm
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
+
+    chunks = chunked(docs, chunk_docs)
+    card = tm.run_tfidf_streaming(iter(chunks), tcfg.TfidfConfig(**knobs), device=device)
+    t0 = time.perf_counter()
+    cpu = tm.run_tfidf_streaming(iter(chunks), tcfg.TfidfConfig(**knobs), device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        for site in STREAM_LOSSES:
+            cfg = tcfg.TfidfConfig(**knobs, checkpoint_every=STREAM_CKPT_EVERY,
+                                   checkpoint_dir=os.path.join(tmp, site))
+            out, wall, deg, exh = lost_run(
+                lambda: tm.run_tfidf_streaming(iter(chunks), cfg, device=device), site)
+            ev = check_one_degrade(f"degrade {site}", site, deg, exh, site)
+            check("rerun_chunks" in ev, f"degrade {site}: {ev}")
+            for f in ("doc", "term", "count", "df"):
+                check(getattr(out, f).tobytes() == getattr(card, f).tobytes(),
+                      f"degrade {site}: {f} differs from the card's stream")
+            for f in ("doc", "term", "count", "weight", "df", "idf", "doc_lengths"):
+                check(getattr(out, f).tobytes() == getattr(cpu, f).tobytes(),
+                      f"degrade {site}: {f} differs from the CPU stream")
+            print(f"degrade {site} ({card_label}): config-2 stream, {out.nnz} pairs, degraded "
+                  f"salvage_chunk {ev['salvage_chunk']} rerun_chunks {ev['rerun_chunks']}; "
+                  f"COO, counts and df equal to the card's stream, every array to the CPU "
+                  f"stream's; wall {wall:.3f} s (device='cpu' stream {cpu_wall:.3f} s)")
+
+        # a loss after a commit: the rollback truncates the resumed host
+        # parts back to the snapshot and replays the retained chunks
+        site = STREAM_COMMIT_LOSS
+        cfg = tcfg.TfidfConfig(**knobs, checkpoint_every=STREAM_CKPT_EVERY,
+                               checkpoint_dir=os.path.join(tmp, "resumed"))
+        tm.run_tfidf_streaming(iter(chunks[:2 * len(chunks) // 3]), cfg, device=device)
+        start = tm.resume_point(cfg)
+        check(start > 0, f"degrade {site}: the first part wrote no checkpoint")
+        out, wall, deg, exh = lost_run(lambda: tm.run_tfidf_streaming(
+            iter(chunks), cfg, resume=True, device=device), site)
+        check(len(deg) == 1 and deg[0]["ladder"] == "cpu"
+              and len(exh) <= 1 and all(e["site"] == site for e in exh),
+              f"degrade {site}: degraded {deg}, exhausted {exh}")
+        ev = deg[0]
+        check(ev["salvage_chunk"] >= start > 0 and ev["rerun_chunks"] > 0,
+              f"degrade {site}: nothing committed before the loss: {ev}")
+        for f in ("doc", "term", "count", "df"):
+            check(getattr(out, f).tobytes() == getattr(card, f).tobytes(),
+                  f"degrade {site}: {f} differs from the card's stream")
+        for f in ("doc", "term", "count", "weight", "df", "idf", "doc_lengths"):
+            check(getattr(out, f).tobytes() == getattr(cpu, f).tobytes(),
+                  f"degrade {site}: {f} differs from the CPU stream")
+        print(f"degrade {site} ({card_label}): config-2 stream resumed from its snapshot at "
+              f"chunk {start}, {out.nnz} pairs, degraded at "
+              f"{ev['site']} salvage_chunk {ev['salvage_chunk']} rerun_chunks "
+              f"{ev['rerun_chunks']} (exhausted at {[e['site'] for e in exh]}); COO, counts "
+              f"and df equal to the card's stream, every array to the CPU stream's; wall "
+              f"{wall:.3f} s")
+
+
+def degrade_phase(graph, stream: dict, reset_counts, counts, card_label: str) -> dict:
+    """Phase 14 (see the module docstring); every check raises on failure.
+    Returns the launches of its counted runs, for the kernels line."""
+    total: dict = {}
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    add_counts(total, degrade_pagerank_phase(graph, dev, reset_counts, counts, card_label))
+    print(f"phase 14a-b (pagerank): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    add_counts(total, degrade_workloads_phase(graph, dev, reset_counts, counts, card_label))
+    print(f"phase 14c (workloads): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    degrade_streaming_phase(dev, stream["docs"], stream["knobs"], stream["chunk_docs"],
+                            card_label)
+    print(f"phase 14d (streaming): {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs one CUDA GPU",
@@ -2860,6 +3299,16 @@ def main() -> int:
 
     def plans() -> dict:
         return {**pk.PLANS_BUILT, **sk.PLANS_BUILT}
+
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
+
+    # 14e: no phase before 14 degrades
+    degraded = DegradedCount()
+    obs.bus().attach(degraded)
+
+    def no_degrade(phase: str, expected: int = 0) -> None:
+        check(degraded.n == expected,
+              f"after phase {phase}: {degraded.n} degraded events, wanted {expected}")
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2992,6 +3441,8 @@ def main() -> int:
     main_rows["gather"] = gather_rows["lane_w109184"]
     sweep_gather_routes(gk, gather_micro, rng)
 
+    no_degrade("3")
+
     # 4a. every impl against a dense f64 power iteration on a small graph
     want = dense_pagerank(small, ITERS)
     for impl in SPMV_IMPLS:
@@ -3088,6 +3539,8 @@ def main() -> int:
     check(not bad, f"determinism: two runs differ in {bad}")
     print(f"phase 4d (two runs of every impl): {time.perf_counter() - t0:.1f} s")
 
+    no_degrade("4")
+
     # 5. the CLI once, at the same scale, traced and profiled
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "ranks.tsv")
@@ -3111,6 +3564,8 @@ def main() -> int:
           "CLI output does not list every node once")
     check(bool(np.all(np.diff(vals) <= 0)), "CLI output not in descending rank order")
     check(cli_err <= 1e-9 * float(expect.max()), "CLI ranks differ from the pallas run")
+
+    no_degrade("5")
 
     # 6a. the three SpMV cost probes, in-process through their main, at
     # default sizes; each writes its record into a temporary directory
@@ -3145,6 +3600,8 @@ def main() -> int:
     print(f"w[src] with the int32 index: {time_ms(lambda: w[src]):.4f} ms; with an int64 "
           f"index: {time_ms(lambda: w[src64]):.4f} ms")
 
+    no_degrade("6")
+
     # 8. batch TF-IDF at config 2's size, then the PageRank loaders' native
     # layer against their numpy paths
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.io import graph as tg
@@ -3154,6 +3611,7 @@ def main() -> int:
     tfidf_phase(torch.device("cuda"), reset_counts, counts)
     check_graph_loaders(tg, native, graph)
     print(f"phase 8 (tfidf, loaders): {time.perf_counter() - t0:.1f} s")
+    no_degrade("8")
 
     # 9. streaming TF-IDF: the chunk step against the CPU, the config-2 and
     # config-5 stand-ins against batch, the pinned copies, kill and resume
@@ -3161,29 +3619,42 @@ def main() -> int:
     t0 = time.perf_counter()
     stream = streaming_phase(torch.device("cuda"), reset_counts, counts, card_label)
     print(f"phase 9 (streaming): {time.perf_counter() - t0:.1f} s")
+    no_degrade("9")
 
     # 10. the servable index through the CLI
     t0 = time.perf_counter()
     index_phase(torch.device("cuda"), stream["docs"], stream["knobs"], stream["chunk_docs"],
                 card_label)
     print(f"phase 10 (index): {time.perf_counter() - t0:.1f} s")
+    no_degrade("10")
 
     # 11. serving: the scorers, the server, the CLI, the segments
     t0 = time.perf_counter()
     launches["serving"], qps = serving_phase(torch.device("cuda"), reset_counts, counts,
                                              card_label, stream["docs"], stream["wiki"])
     print(f"phase 11 (serving): {time.perf_counter() - t0:.1f} s")
+    no_degrade("11")
 
     # 12. PageRank checkpoints and resume, PPR, HITS, components, cli.workloads
     t0 = time.perf_counter()
     workload_launches = workloads_phase(graph, reset_counts, counts, card_label)
     print(f"phase 12 (workloads): {time.perf_counter() - t0:.1f} s")
+    no_degrade("12")
 
     # 13. chaos on the card: faults at the guarded sites, the guard's cost
     t0 = time.perf_counter()
     workload_launches["chaos"] = chaos_phase(graph, stream, loop_ms, qps, reset_counts, counts,
                                              card_label)
     print(f"phase 13 (chaos): {time.perf_counter() - t0:.1f} s")
+    no_degrade("13")
+    print(f"degraded events after phases 1-13: {degraded.n}")
+
+    # 14. a lost device hands the run to the CPU
+    t0 = time.perf_counter()
+    workload_launches["degrade"] = degrade_phase(graph, stream, reset_counts, counts,
+                                                 card_label)
+    print(f"phase 14 (degrade): {time.perf_counter() - t0:.1f} s")
+    obs.bus().detach(degraded)
 
     # 7. the kernels line, then the result line; launches are those of the
     # kernel's own path: cumsum's from the hybrid run (its tail's prefix
@@ -3205,8 +3676,9 @@ def main() -> int:
                     launches["segment"]["segment"]),
     }
     # workload_launches: each kernel's launches in phase 12's counted runs
-    # (12a's resumed runs, 12b's API runs, 12c's first runs) and phase 13's
-    # (13a's and 13b's faulted runs, 13c's resumed run), by workload
+    # (12a's resumed runs, 12b's API runs, 12c's first runs), phase 13's
+    # (13a's and 13b's faulted runs, 13c's resumed run) and phase 14's (the
+    # card's launches before each loss, and 14b's), by workload
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": n, **main_rows[name],

@@ -13,23 +13,31 @@ PageRank, HITS and connected components (``dataflow/ppr.py``, ``hits.py``,
 checkpoint format.  Every segment dispatch runs under the retry executor
 at the reference's site (``{prefix}_step``, ``rx.run_guarded``), and every
 host pull at its own (``{prefix}_delta_sync``, ``_ckpt_pull``,
-``_result_pull``, ``rx.device_get``): a transient fault retries, anything
-else raises ``ResilienceExhausted`` naming the newest checkpoint.  The
-reference's CPU re-lowering and elastic salvage rungs (``make_cpu_invoke``,
-``elastic_rebuild``, ``ElasticResult``) wait for ROADMAP Queue 1 item 12,
-and passing either raises.
+``_result_pull``, ``rx.device_get``): a transient fault retries.  A loss
+that names its device walks the reference's single-device salvage
+(:func:`make_cpu_salvage`, :func:`make_pull_salvage`, ``ElasticResult``):
+it reloads the newest checkpoint, re-runs the uncommitted span on the CPU
+from that host state and finishes the run there, reading nothing from the
+card.  Anything else raises ``ResilienceExhausted`` naming the newest
+checkpoint: a whole-backend loss (``lost``), and a kernel's own fault.
+The reference's per-segment ``cpu`` rung (``make_cpu_invoke``), which
+pulls the live carry off the device and runs the segment on the CPU, is
+not ported: a carry that can still be read means the card still answers,
+and the port does not move its work to the CPU while the tensors are
+there.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import elastic
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import executor as rx
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import checkpoint as ckpt
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import resolve_device
@@ -135,6 +143,122 @@ def resume_state(cfg, metrics: MetricsRecorder, state: np.ndarray) -> int:
     return start_iter
 
 
+def make_cpu_salvage(
+    cfg,
+    metrics: MetricsRecorder,
+    *,
+    site_prefix: str,
+    init_state: Callable[[], np.ndarray],
+    cpu_exec: Callable,
+    make_runner: Callable,
+    extract_np: Callable,
+):
+    """The single-device salvage rung, shared by every fixpoint workload: a
+    loss that names its device (``device_lost``), at the segment dispatch
+    or first surfacing at the delta sync or the checkpoint pull, is
+    acknowledged in the health registry, the newest checkpoint (else the
+    initial carry) is reloaded, and the uncommitted span re-runs on the CPU
+    from that host state.  Any other error (a loss with no device index,
+    ``lost``: the whole backend; a kernel's own fault), and any loss under
+    ``GRAFT_ELASTIC=0``, raises on to ``ResilienceExhausted``.
+
+    ``cpu_exec(rerun_cfg, state_np) -> (state, iters, delta, invoke)`` runs
+    the span on the CPU and returns the ``invoke`` every later segment
+    uses.  Plug the result into :func:`run_segments`'s ``elastic_rebuild``.
+    """
+
+    def rebuild(exc, rd, done, seg_cfg):
+        lost = elastic.unwrap_device_loss(exc)
+        idx = elastic.device_index(lost) if lost is not None else None
+        if not elastic.enabled() or idx is None:
+            raise exc
+        elastic.health().mark_lost(idx)
+        at_iter, state = checkpoint_salvage(cfg, init_state)
+        todo = done - at_iter + seg_cfg.iterations
+        obs.emit("degraded", site=f"{site_prefix}_step", ladder="cpu",
+                 salvage_iter=at_iter, rerun_iters=todo,
+                 error=f"{type(exc).__name__}: {exc}"[:200])
+        obs.counter("degraded")
+        metrics.record(event="degraded", site=f"{site_prefix}_step",
+                       ladder="cpu", salvage_iter=at_iter, rerun_iters=todo)
+        with obs.span(f"{site_prefix}.cpu_salvage", at_iter=at_iter,
+                      todo=todo):
+            rerun_cfg = dataclasses.replace(
+                seg_cfg, iterations=todo, checkpoint_every=0,
+                checkpoint_dir=None,
+            )
+            rd2, iters, delta, invoke2 = cpu_exec(rerun_cfg, state)
+        return ElasticResult(
+            rd2, at_iter + int(iters) - done, float(delta),
+            make_runner, invoke2, extract_np, {"backend": "cpu"},
+        )
+
+    return rebuild
+
+
+def make_pull_salvage(
+    cfg,
+    metrics: MetricsRecorder,
+    *,
+    site_prefix: str,
+    init_state: Callable[[], np.ndarray],
+    cpu_exec: Callable,
+    get_done: Callable[[], int],
+):
+    """The result-pull counterpart of :func:`make_cpu_salvage`: a loss that
+    names its device, first surfacing at ``{site_prefix}_result_pull``
+    where no segment is left to catch it, is acknowledged, the newest
+    checkpoint reloaded, the uncommitted span re-run on the CPU, and the
+    result pulled from there (the loss is acknowledged, so the pull's
+    chaos injection does not fire again).  Returns a ``fallbacks`` rung
+    for the final ``rx.device_get``."""
+
+    def pull_salvage(exc):
+        lost = elastic.unwrap_device_loss(exc)
+        idx = elastic.device_index(lost) if lost is not None else None
+        if not elastic.enabled() or idx is None:
+            raise exc
+        elastic.health().mark_lost(idx)
+        at_iter, state = checkpoint_salvage(cfg, init_state)
+        done = int(get_done())
+        todo = done - at_iter
+        site = f"{site_prefix}_result_pull"
+        obs.emit("degraded", site=site, ladder="cpu",
+                 salvage_iter=at_iter, rerun_iters=todo,
+                 error=f"{type(exc).__name__}: {exc}"[:200])
+        obs.counter("degraded")
+        metrics.record(event="degraded", site=site, ladder="cpu",
+                       salvage_iter=at_iter, rerun_iters=todo)
+        with obs.span(f"{site_prefix}.cpu_salvage", at_iter=at_iter,
+                      todo=todo):
+            dtype = init_state().dtype
+            if todo <= 0:
+                return np.asarray(state).astype(dtype)
+            rerun_cfg = dataclasses.replace(
+                cfg, iterations=todo, checkpoint_every=0, checkpoint_dir=None
+            )
+            rd2, _iters, _delta, _invoke = cpu_exec(rerun_cfg, state)
+            return rx.device_get(
+                rd2, site=site, metrics=metrics,
+                checkpoint_dir=cfg.checkpoint_dir,
+            )
+
+    return pull_salvage
+
+
+class ElasticResult(NamedTuple):
+    """What a salvage rung returns after it ran the failed segment on the
+    CPU: the segment's outputs and the callables every later segment uses."""
+
+    ranks_dev: object
+    iters: int  # iterations gained over the count before the failure
+    delta: float
+    make_runner: Callable
+    invoke: Callable
+    extract_np: Callable
+    metrics_extra: dict  # merged into every later segment record and checkpoint
+
+
 def run_segments(
     cfg,
     metrics: MetricsRecorder,
@@ -145,7 +269,7 @@ def run_segments(
     invoke: Callable,
     extract_np: Callable[[object], np.ndarray],
     segments_allowed: bool = True,
-    make_cpu_invoke: Callable | None = None,
+    extra_metrics: dict | None = None,
     elastic_rebuild: Callable | None = None,
     site_prefix: str = "pagerank",
 ):
@@ -166,10 +290,9 @@ def run_segments(
     0`` a segment boundary does not change the math (``iterate`` computes
     the delta on a segment's last step only), so a split run gives the
     unbroken run's bits.  Between segments the state goes to
-    ``utils/checkpoint.save_checkpoint`` as ``{"ranks": payload}``.  The
-    reference's ``extra_metrics`` tag (a sharded runner's device count) has
-    no single-device caller and is left out.  Each segment records
-    ``iter``, ``l1_delta``, ``secs`` and ``iters_per_sec`` and each
+    ``utils/checkpoint.save_checkpoint`` as ``{"ranks": payload}``.  Each
+    segment records ``iter``, ``l1_delta``, ``secs`` and ``iters_per_sec``
+    (and ``extra_metrics``, which is ``backend: "cpu"`` after a salvage) and each
     checkpoint a ``checkpoint`` event; the spans are ``{site_prefix}.segment`` and
     ``{site_prefix}.checkpoint``, the histogram
     ``{site_prefix}.segment_secs``.
@@ -179,20 +302,24 @@ def run_segments(
     ``GRAFT_STEP_DEADLINE_S`` (default 0, none: a segment's healthy time
     grows with its length, so the sync deadline does not apply).  A chaos
     injection fires before ``invoke``, and ``invoke`` writes only fresh
-    tensors, so a retry launches nothing twice.  A lost device or a spent
-    retry budget raises ``ResilienceExhausted`` naming the newest checkpoint
-    under ``cfg.checkpoint_dir``.  ``make_cpu_invoke`` and
-    ``elastic_rebuild``, the reference's degradation rungs, are not ported:
-    passing either raises.
+    tensors, so a retry launches nothing twice.  Then the one rung,
+    ``elastic_rebuild(exc, ranks_dev, done, seg_cfg)``
+    (:func:`make_cpu_salvage`): it takes a loss that names its device and
+    returns an :class:`ElasticResult`; this loop adopts its callables for
+    every later segment (the runner cache dropped) and merges its
+    ``metrics_extra`` (``backend: "cpu"``) into every later segment record
+    and checkpoint.  A loss first surfacing at the checkpoint pull walks
+    it too, with a zero-iteration segment: the live carry is gone, so the
+    rung re-runs the uncommitted span from the newest checkpoint and the
+    checkpoint is written from its state.  Any other error (a whole-backend
+    ``lost``, a kernel's own fault), and a spent retry budget, raise
+    ``ResilienceExhausted`` naming the newest checkpoint under
+    ``cfg.checkpoint_dir``: the reference's per-segment ``cpu`` rung
+    (``make_cpu_invoke``) is not ported (module docstring).  Checkpoints
+    carry ``extra_metrics`` in their ``extra``.
 
     Returns ``(ranks_dev, done, last_delta)``.
     """
-    if make_cpu_invoke is not None or elastic_rebuild is not None:
-        raise NotImplementedError(
-            "run_segments: the CPU re-lowering rung (make_cpu_invoke) and the "
-            "elastic salvage rung (elastic_rebuild) are not ported: ROADMAP "
-            "Queue 1 item 12"
-        )
     segment = (
         cfg.checkpoint_every
         if (cfg.checkpoint_every > 0 and cfg.tol == 0.0 and segments_allowed)
@@ -208,6 +335,16 @@ def run_segments(
     runners: dict[int, Callable] = {}
     done = start_iter
     last_delta = float("inf")
+
+    def adopt(res: ElasticResult) -> None:
+        # every later segment runs where the salvage left the carry
+        nonlocal make_runner, invoke, extract_np, extra_metrics
+        make_runner, invoke, extract_np = (
+            res.make_runner, res.invoke, res.extract_np
+        )
+        extra_metrics = {**(extra_metrics or {}), **res.metrics_extra}
+        runners.clear()
+
     while done < cfg.iterations:
         todo = min(segment, cfg.iterations - done)
         seg_cfg = dataclasses.replace(
@@ -215,11 +352,19 @@ def run_segments(
         )
         if todo not in runners:
             runners[todo] = make_runner(seg_cfg)
+        rungs: list = []
+        if elastic_rebuild is not None:
+            def elastic_rung(exc, seg_cfg=seg_cfg, rd=ranks_dev):
+                res: ElasticResult = elastic_rebuild(exc, rd, done, seg_cfg)
+                adopt(res)
+                return res.ranks_dev, res.iters, res.delta
+
+            rungs.append((None, elastic_rung))
         with Timer() as t, obs.span(f"{site_prefix}.segment", start=done, todo=todo):
             ranks_dev, iters, delta = rx.run_guarded(
                 lambda r=runners[todo], rd=ranks_dev: invoke(r, rd),
                 site=f"{site_prefix}_step", policy=policy, metrics=metrics,
-                checkpoint_dir=cfg.checkpoint_dir,
+                checkpoint_dir=cfg.checkpoint_dir, fallbacks=rungs,
             )
         done += int(iters)
         last_delta = float(delta)
@@ -229,12 +374,31 @@ def run_segments(
             l1_delta=last_delta,
             secs=t.elapsed,
             iters_per_sec=int(iters) / t.elapsed if t.elapsed > 0 else float("inf"),
+            **(extra_metrics or {}),
         )
         if cfg.checkpoint_every > 0 and cfg.checkpoint_dir and done < cfg.iterations:
             with obs.span(f"{site_prefix}.checkpoint", iter=done):
+                try:
+                    payload = extract_np(ranks_dev)
+                except Exception as exc:
+                    # a loss first surfacing here: the live carry is gone,
+                    # so the salvage re-runs the uncommitted span from the
+                    # newest checkpoint and this one is written from it
+                    # (it re-raises any other error)
+                    if elastic_rebuild is None:
+                        raise
+                    res = elastic_rebuild(
+                        exc, ranks_dev,
+                        done, dataclasses.replace(seg_cfg, iterations=0),
+                    )
+                    adopt(res)
+                    ranks_dev = res.ranks_dev
+                    done += int(res.iters)  # 0 where the salvage was exact
+                    payload = extract_np(ranks_dev)
                 path = ckpt.save_checkpoint(
                     cfg.checkpoint_dir, done,
-                    {"ranks": extract_np(ranks_dev)}, cfg.config_hash(),
+                    {"ranks": payload}, cfg.config_hash(),
+                    extra=dict(extra_metrics or {}),
                 )
             metrics.record(event="checkpoint", path=path, iter=done)
         if cfg.tol > 0.0:
@@ -254,7 +418,7 @@ def run_single_chip_fixpoint(
     site_prefix: str,
     init_state: Callable[[], np.ndarray],
     make_runner: Callable,
-    build_operands: Callable[[], tuple],
+    build_operands: Callable[[torch.device], tuple],
     call: Callable,
     device: str | torch.device | None = None,
     resume: bool = False,
@@ -266,8 +430,11 @@ def run_single_chip_fixpoint(
       with ``resume`` the newest checkpoint under ``cfg.checkpoint_dir``
       replaces it (:func:`resume_state`) and the run starts at its
       iteration;
-    - ``build_operands()`` builds the non-carry operands (graph layout,
-      teleport matrix, ...) on ``device``, once;
+    - ``build_operands(device)`` builds the non-carry operands (graph
+      layout, teleport matrix, ...) on ``device`` from host state: once on
+      the run's device, and again on the CPU inside the salvage, so a
+      recovery never reads a lost device's memory (torch has no default
+      device to switch, so the device is passed);
     - ``call(runner, operands, carry)`` runs the runner in the workload's
       argument order and returns ``(carry, iters, delta)`` with the delta
       a 0-d tensor.
@@ -276,27 +443,33 @@ def run_single_chip_fixpoint(
     back through ``rx.device_get``, so it keeps its dtype both ways.  Spans,
     each around the guarded site of the same name (``{site_prefix}_...``):
     ``{site_prefix}.delta_sync``, ``{site_prefix}.ckpt_pull``,
-    ``{site_prefix}.result_pull``, and those of :func:`run_segments`.
-    Runs on ``cuda`` unless ``device`` says otherwise.
+    ``{site_prefix}.result_pull``, those of :func:`run_segments`, and the
+    salvage's ``{site_prefix}.cpu_salvage``.  Runs on ``cuda`` unless
+    ``device`` says otherwise.
 
     Returns ``(state_np, iterations, last_delta)``.
     """
     dev = resolve_device(device)
+    cpu = torch.device("cpu")
     state0 = init_state()
+    state_dtype = state0.dtype
     start_iter = resume_state(cfg, metrics, state0) if resume else 0
     with Timer() as t_put:
-        operands = build_operands()
+        operands = build_operands(dev)
     metrics.record(event="put_graph", preprocess_secs=t_put.elapsed)
     state_dev = torch.from_numpy(state0).to(dev)
 
-    def invoke(runner, rd):
-        rd, iters, delta = call(runner, operands, rd)
-        with obs.span(f"{site_prefix}.delta_sync"):
-            delta = float(rx.device_get(
-                delta, site=f"{site_prefix}_delta_sync", metrics=metrics,
-                checkpoint_dir=cfg.checkpoint_dir,
-            ))
-        return rd, iters, delta
+    def make_invoke(ops_tuple):
+        def invoke(runner, rd):
+            rd, iters, delta = call(runner, ops_tuple, rd)
+            with obs.span(f"{site_prefix}.delta_sync"):
+                delta = float(rx.device_get(
+                    delta, site=f"{site_prefix}_delta_sync", metrics=metrics,
+                    checkpoint_dir=cfg.checkpoint_dir,
+                ))
+            return rd, iters, delta
+
+        return invoke
 
     def extract_np(rd) -> np.ndarray:
         with obs.span(f"{site_prefix}.ckpt_pull"):
@@ -305,14 +478,33 @@ def run_single_chip_fixpoint(
                 checkpoint_dir=cfg.checkpoint_dir,
             )
 
+    def cpu_salvage_exec(rerun_cfg, state_np):
+        cpu_ops = build_operands(cpu)
+        rd_cpu = torch.from_numpy(np.asarray(state_np).astype(state_dtype))
+        runner = make_runner(rerun_cfg)
+        rd2, iters, delta = call(runner, cpu_ops, rd_cpu)
+        return rd2, int(iters), float(delta), make_invoke(cpu_ops)
+
     state_dev, done, last_delta = run_segments(
         cfg, metrics, state_dev, start_iter,
-        make_runner=make_runner, invoke=invoke, extract_np=extract_np,
+        make_runner=make_runner,
+        invoke=make_invoke(operands),
+        extract_np=extract_np,
+        elastic_rebuild=make_cpu_salvage(
+            cfg, metrics, site_prefix=site_prefix, init_state=init_state,
+            cpu_exec=cpu_salvage_exec, make_runner=make_runner,
+            extract_np=extract_np,
+        ),
         site_prefix=site_prefix,
     )
     with obs.span(f"{site_prefix}.result_pull"):
         state_np = rx.device_get(
             state_dev, site=f"{site_prefix}_result_pull", metrics=metrics,
             checkpoint_dir=cfg.checkpoint_dir,
+            fallbacks=[(None, make_pull_salvage(
+                cfg, metrics, site_prefix=site_prefix,
+                init_state=init_state, cpu_exec=cpu_salvage_exec,
+                get_done=lambda: done,
+            ))],
         )
     return state_np, done, last_delta

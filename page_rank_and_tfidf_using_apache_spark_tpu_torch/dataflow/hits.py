@@ -126,7 +126,7 @@ def run_hits(
         cfg, metrics, site_prefix="hits",
         init_state=lambda: np.full((2, n), 1.0 / n, cfg.dtype),
         make_runner=lambda seg_cfg: make_hits_runner(n, seg_cfg),
-        build_operands=lambda: (put_hits_graph(graph, cfg.dtype, dev),),
+        build_operands=lambda on: (put_hits_graph(graph, cfg.dtype, on),),
         call=lambda runner, ops_t, hd: runner(ops_t[0], hd),
         device=dev, resume=resume,
     )

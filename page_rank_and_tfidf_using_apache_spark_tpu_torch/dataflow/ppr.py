@@ -111,8 +111,8 @@ def run_ppr_batch(
         cfg, metrics, site_prefix="ppr",
         init_state=lambda: np.broadcast_to(ops.init_ranks(n, cfg), (b, n)).copy(),
         make_runner=lambda seg_cfg: make_ppr_batch_runner(n, seg_cfg),
-        build_operands=lambda: (put_graph_for(graph, cfg, dev),
-                                torch.from_numpy(e_host).to(dev)),
+        build_operands=lambda on: (put_graph_for(graph, cfg, on),
+                                   torch.from_numpy(e_host).to(on)),
         call=lambda runner, ops_t, rd: runner(ops_t[0], rd, ops_t[1]),
         device=dev, resume=resume,
     )

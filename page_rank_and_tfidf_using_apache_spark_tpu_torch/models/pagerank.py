@@ -11,10 +11,15 @@ bits.  Each segment runs under the retry executor at the
 ``pagerank_step`` site, and each host pull at its own guarded site, the
 JAX package's: ``pagerank_delta_sync``, ``pagerank_ckpt_pull`` and
 ``pagerank_result_pull``.  A transient fault retries with the unbroken
-run's bits; a lost device or a spent retry budget raises
+run's bits.  A lost device that names its index hands the run to the
+CPU, as in the JAX package: the newest checkpoint is reloaded, the
+uncommitted span re-runs on the CPU and the run finishes there
+(``dataflow.fixpoint.make_cpu_salvage``, and ``make_pull_salvage`` at the
+result pull; the ``pagerank.cpu_salvage`` span).  Any other error (a
+whole-backend loss, a kernel's own fault), or a spent retry budget, raises
 ``ResilienceExhausted`` naming the newest checkpoint, from which
-``resume=True`` continues.  The reference's CPU rungs are not ported
-(ROADMAP Queue 1 item 12).  The host syncs are obs spans under the JAX
+``resume=True`` continues: the reference's per-segment ``cpu`` rung is not
+ported (``dataflow/fixpoint.py``).  The host syncs are obs spans under the JAX
 package's names: ``pagerank.delta_sync`` (where ``tol`` makes the loop read
 its delta, the loop's own syncs are not spanned: the last one is),
 ``pagerank.ckpt_pull`` and ``pagerank.result_pull``, with
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow import fixpoint as dflow
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import Graph
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.models import driver
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pagerank as ops
@@ -98,15 +104,18 @@ def run_pagerank(
     # all of it, so only a tol run's last delta read is a delta_sync span
     sync = (lambda: obs.span("pagerank.delta_sync")) if cfg.tol > 0 else contextlib.nullcontext
 
-    def invoke(runner, rd):
-        rd, iters, delta = runner(dg, rd, e)
-        with sync():
-            # the host sync that ends the segment
-            delta = float(rx.device_get(
-                delta, site="pagerank_delta_sync", metrics=metrics,
-                checkpoint_dir=cfg.checkpoint_dir,
-            ))
-        return rd, iters, delta
+    def make_invoke(dg_, e_):
+        def invoke(runner, rd):
+            rd, iters, delta = runner(dg_, rd, e_)
+            with sync():
+                # the host sync that ends the segment
+                delta = float(rx.device_get(
+                    delta, site="pagerank_delta_sync", metrics=metrics,
+                    checkpoint_dir=cfg.checkpoint_dir,
+                ))
+            return rd, iters, delta
+
+        return invoke
 
     def extract_np(rd) -> np.ndarray:
         with obs.span("pagerank.ckpt_pull"):
@@ -115,17 +124,40 @@ def run_pagerank(
                 checkpoint_dir=cfg.checkpoint_dir,
             )
 
+    def init_state() -> np.ndarray:
+        return ops.init_ranks(n, cfg)
+
+    def cpu_salvage_exec(rerun_cfg, ranks_g: np.ndarray):
+        """``dataflow.fixpoint.make_cpu_salvage``'s ``cpu_exec``: the span
+        on the CPU from host state (no read of the card's memory), and the
+        invoke of every later segment."""
+        dg_cpu = put_graph_for(graph, cfg, torch.device("cpu"))
+        e_cpu = torch.from_numpy(ops.restart_vector(n, cfg))
+        rd_cpu = torch.from_numpy(np.asarray(ranks_g).astype(cfg.dtype))
+        rd2, iters, delta = make(n, rerun_cfg)(dg_cpu, rd_cpu, e_cpu)
+        return rd2, int(iters), float(delta), make_invoke(dg_cpu, e_cpu)
+
     ranks_dev, done, last_delta = driver.run_segments(
         cfg, metrics, ranks_dev, start_iter,
         make_runner=lambda seg_cfg: make(n, seg_cfg),
-        invoke=invoke,
+        invoke=make_invoke(dg, e),
         extract_np=extract_np,
         segments_allowed=not cfg.spark_exact,
+        elastic_rebuild=dflow.make_cpu_salvage(
+            cfg, metrics, site_prefix="pagerank",
+            init_state=init_state, cpu_exec=cpu_salvage_exec,
+            make_runner=lambda c: make(n, c), extract_np=extract_np,
+        ),
     )
     with obs.span("pagerank.result_pull"):
         ranks_np = rx.device_get(
             ranks_dev, site="pagerank_result_pull", metrics=metrics,
             checkpoint_dir=cfg.checkpoint_dir,
+            fallbacks=[(None, dflow.make_pull_salvage(
+                cfg, metrics, site_prefix="pagerank",
+                init_state=init_state, cpu_exec=cpu_salvage_exec,
+                get_done=lambda: done,
+            ))],
         )
     return PageRankResult(
         ranks=ranks_np, iterations=done, l1_delta=last_delta, metrics=metrics,

@@ -17,10 +17,13 @@ Faults: every host sync runs under the retry executor at the JAX
 package's sites (``tfidf_batch_sync``, ``tfidf_chunk_sync``,
 ``tfidf_df_commit``, ``tfidf_finalize_sync``, and the staged ingest's
 ``ingest_h2d_put`` / ``ingest_h2d_wait``), so a transient fault retries
-with the unfaulted run's bits.  The JAX package's CPU salvage after a lost
-device is not ported (ROADMAP Queue 1 item 12): here a lost device, or a
-spent retry budget, raises ``ResilienceExhausted`` naming the newest
-checkpoint, from which ``resume=True`` continues.
+with the unfaulted run's bits.  A lost device that names its index hands
+the stream to the CPU, as in the JAX package: host state rolls back to the
+last commit point, and the uncommitted chunks replay on the CPU from the
+host copies the pipeline kept (the ``tfidf.cpu_salvage`` span, one
+``degraded`` event).  Any other loss, or a spent retry budget, raises
+``ResilienceExhausted`` naming the newest checkpoint, from which
+``resume=True`` continues.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow import ingest as dflow
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io import text as tio
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import tfidf as ops
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import elastic
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import executor as rx
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import checkpoint as ckpt
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import TfidfConfig
@@ -265,7 +269,9 @@ def finalize_tfidf(
     come in the order the batch COO holds them, and the per-document sums
     of the L2 norm add in the same order: the batch path's bits.  Where the
     JAX package takes a float32 numpy branch below ``DEVICE_FINALIZE_MIN_NNZ``
-    pairs, the port has one path, the batch path's formulas."""
+    pairs, the port has one path, the batch path's formulas.  After a
+    salvage the stream's device is the CPU, and the second pass runs there
+    (the reference's stays on its default device)."""
     n_docs = st.n_docs
     if not st.parts:
         z = np.zeros(0, np.int32)
@@ -354,6 +360,14 @@ def _pull(counts: ops.PaddedCounts):
     return host, event
 
 
+# The commit barrier's interval, in chunks, where checkpointing is off: it
+# bounds how many drained chunks' host copies retain_until_commit holds (the
+# salvage replays at most this span after a device loss).  At 2^18-token
+# chunks that keeps about 16M tokens of int32 pairs: flat host memory, for
+# one pipeline drain every 16 chunks.
+_RETAIN_COMMIT_EVERY = 16
+
+
 def run_tfidf_streaming(
     doc_chunks: Iterable[Sequence[str]],
     cfg: TfidfConfig,
@@ -383,9 +397,16 @@ def run_tfidf_streaming(
     bits.
 
     The DF carry stays on the device and reaches the host only at commit
-    points, the checkpoints and the end, behind the drain-before-commit
-    barrier.  A fault anywhere (a thread's included) stops the pipeline
-    and raises with its traceback; the last checkpoint stays resumable.
+    points, the checkpoints and the end (and every ``_RETAIN_COMMIT_EVERY``
+    chunks where checkpointing is off), behind the drain-before-commit
+    barrier.  A fault anywhere (a thread's included) stops the pipeline.
+    A lost device that names its index (``device_lost``) is acknowledged,
+    host state rolls back to the last commit point, the DF carry is rebuilt
+    on the CPU from the committed host DF, and the pipeline replays the
+    uncommitted chunks on the CPU from the host copies it kept
+    (``retain_until_commit``), in stream order; the second pass then runs
+    on the CPU too.  Committed chunks are never reprocessed.  Any other
+    fault raises with its traceback; the last checkpoint stays resumable.
     """
     dev = resolve_device(device)
     metrics = metrics or MetricsRecorder()
@@ -405,6 +426,20 @@ def run_tfidf_streaming(
             doc_chunks, cfg.pack_target_tokens,
             estimate=dflow.ngram_estimator(cfg.ngram))
     source = _tokenized_chunks(doc_chunks, cfg, st.chunk_index, st.n_docs)
+
+    # The rollback point of the salvage: st as it stood at the last commit.
+    # Chunks drained since have host TF parts, but their DF lives only in
+    # the device carry; the salvage truncates them here and the pipeline
+    # replays their kept host copies.
+    committed: dict = {}
+
+    def snap_commit() -> None:
+        committed.update(
+            parts=len(st.parts), dls=len(st.doc_length_parts),
+            n_docs=st.n_docs, n_tokens=st.n_tokens, chunk=st.chunk_index,
+        )
+
+    snap_commit()
 
     def stage_chunk(item):
         """The H2D stage (the transfer thread when pipeline_depth > 0): one
@@ -462,16 +497,62 @@ def run_tfidf_streaming(
                 df_dev, site="tfidf_df_commit", metrics=metrics,
                 checkpoint_dir=cfg.checkpoint_dir,
             )
+        snap_commit()
+
+    def recover(exc, remaining, where):
+        """The salvage of the staged pipeline: a loss that names its device,
+        anywhere in it (the transfer thread's put included), rolls host
+        state back to the last commit and replays the rest on the CPU.
+        Anything else (``GRAFT_ELASTIC=0``, a whole-backend loss) re-raises."""
+        nonlocal dev, ring, df_dev
+        lost = elastic.unwrap_device_loss(exc)
+        idx = elastic.device_index(lost) if lost is not None else None
+        if not elastic.enabled() or idx is None:
+            raise exc
+        elastic.health().mark_lost(idx)
+        site = {"stage": dflow.H2D_PUT_SITE,
+                "wait": dflow.H2D_WAIT_SITE}.get(where, "tfidf_chunk_sync")
+        rerun = st.chunk_index - committed["chunk"]
+        obs.emit("degraded", site=site, ladder="cpu",
+                 salvage_chunk=committed["chunk"], rerun_chunks=rerun,
+                 error=f"{type(exc).__name__}: {exc}"[:200])
+        obs.counter("degraded")
+        metrics.record(event="degraded", site=site, ladder="cpu",
+                       salvage_chunk=committed["chunk"], rerun_chunks=rerun)
+        with obs.span("tfidf.cpu_salvage", at_chunk=committed["chunk"],
+                      rerun_chunks=rerun):
+            del st.parts[committed["parts"]:]
+            del st.doc_length_parts[committed["dls"]:]
+            st.n_docs = committed["n_docs"]
+            st.n_tokens = committed["n_tokens"]
+            st.chunk_index = committed["chunk"]
+            # the closures read these at call time; the card's in-flight
+            # pulls and their events went with the pipeline's records, and
+            # the old ring is not waited on: its card may be gone
+            dev = torch.device("cpu")
+            ring = dflow.StagingRing(dev, cfg.pipeline_depth + 1)
+            df_dev = torch.tensor(st.df_total, device=dev)
+        return remaining
 
     def checkpoint_due() -> bool:
-        return (cfg.checkpoint_every > 0 and bool(cfg.checkpoint_dir)
-                and st.chunk_index - last_ckpt >= cfg.checkpoint_every)
+        if cfg.checkpoint_every > 0 and cfg.checkpoint_dir:
+            return st.chunk_index - last_ckpt >= cfg.checkpoint_every
+        # Checkpointing off: retain_until_commit would otherwise hold every
+        # drained chunk's host copy until the one commit at the end, a
+        # second copy of the corpus.  A commit with no snapshot file every
+        # _RETAIN_COMMIT_EVERY chunks keeps host memory flat.
+        return st.chunk_index - last_ckpt >= _RETAIN_COMMIT_EVERY
 
     def save_ckpt():
         nonlocal last_ckpt
         last_ckpt = st.chunk_index
+        if not (cfg.checkpoint_every > 0 and cfg.checkpoint_dir):
+            return  # the barrier's commit already ran
         st.ingest_secs = secs0 + (time.perf_counter() - run_started)
         save_ingest_checkpoint(cfg, metrics, st)
+        # the save compacts st.parts in place: the rollback point's list
+        # indices must match the compacted lists
+        snap_commit()
 
     with obs.span("tfidf.stream", resume_chunk=st.chunk_index):
         dflow.chunked_ingest(
@@ -483,6 +564,8 @@ def run_tfidf_streaming(
             ingest=cfg.ingest(),
             checkpoint_due=checkpoint_due,
             save_checkpoint=save_ckpt,
+            recover=recover,
+            retain_until_commit=True,
             metrics=metrics,
         )
 

@@ -1,14 +1,15 @@
 """Resilient execution: deterministic fault injection (:mod:`.chaos`), a
-retry/deadline executor (:mod:`.executor`), and the structured
+retry/deadline executor (:mod:`.executor`), the device-health registry of
+the single-device salvage (:mod:`.elastic`), and the structured
 :class:`ResilienceExhausted` that hands callers the checkpoint to resume
 from.
 
 Counterpart of the JAX package's ``resilience/`` with its names, less the
-elastic runtime (``DeviceHealth``, ``ShrinkPlan``, ``plan_shrink``,
-``reset_health``: ROADMAP Queue 1 item 11) and the process supervisor
-(item 12).  The port's failure model: retry a transient fault, then raise
-:class:`ResilienceExhausted` naming the newest checkpoint; no rung moves
-work to the CPU.
+mesh shrink (``ShrinkPlan``, ``plan_shrink``: ROADMAP Queue 1 item 11) and
+the process supervisor (item 13).  The port's failure model: retry a
+transient fault; on a lost device that names its index, hand the run to
+the CPU from its newest commit point (the salvage); else raise
+:class:`ResilienceExhausted` naming the newest checkpoint.
 """
 
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience.chaos import (
@@ -17,6 +18,10 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience.chaos import (
     PartitionError,
     inject,
     parse_plan,
+)
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience.elastic import (
+    DeviceHealth,
+    reset_health,
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience.executor import (
     ResilienceExhausted,
@@ -30,6 +35,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience.executor import
 
 __all__ = [
     "ChaosError",
+    "DeviceHealth",
     "DeviceLostError",
     "PartitionError",
     "ResilienceExhausted",
@@ -40,5 +46,6 @@ __all__ = [
     "inject",
     "is_transient",
     "parse_plan",
+    "reset_health",
     "run_guarded",
 ]

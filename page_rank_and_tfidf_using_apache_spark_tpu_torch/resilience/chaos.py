@@ -1,9 +1,9 @@
 """Deterministic fault injection for the resilience executor.
 
-A copy of the JAX package's ``resilience/chaos.py`` (stdlib and ``obs``
-only), so the port never imports that package.  Its code is held to the
-reference's by ``tests/test_torch_resilience.py``; the one difference is
-the ``device_lost`` branch of :meth:`ChaosPlan.on_call` (see there).
+A copy of the JAX package's ``resilience/chaos.py`` (stdlib, ``obs`` and
+the port's ``resilience/elastic.py``), so the port never imports that
+package.  Its code is held to the reference's, whole, by
+``tests/test_torch_resilience.py``.
 
 The failure modes a long run meets are transient device errors (a CUDA
 out-of-memory, a busy driver), hung host<->device syncs, and outright
@@ -31,10 +31,11 @@ Plan specification — the ``GRAFT_CHAOS`` env var or :func:`inject`::
            device_lost - kill ONE logical device: raise DeviceLostError
                    carrying ``.device = K`` on every matching guarded call
                    — exactly how a real dead card behaves: every touch
-                   fails.  The port has no elastic runtime to acknowledge
-                   the loss, so the device stays lost.  Spelled
-                   ``device_lost@dev:K`` (K = a ``torch.cuda`` device
-                   index).
+                   fails — until a rung acknowledges the loss
+                   (``elastic.health().mark_lost(K)``), after which the
+                   run no longer touches the card and the injection stops.
+                   Spelled ``device_lost@dev:K`` (K = a ``torch.cuda``
+                   device index).
            proc_kill - SIGKILL the *current process* at the site (the
                    chaos event is flushed to the trace first): a replica
                    dying mid-query or mid-hot-swap in the serving fabric.
@@ -64,7 +65,8 @@ Examples::
     GRAFT_CHAOS="*:fail@%5"                     # every 5th guarded call
                                                 # fails once
     GRAFT_CHAOS="*:device_lost@dev:0"           # card 0 dies: every guarded
-                                                # call raises
+                                                # call raises until the loss
+                                                # is acknowledged
 
 Counters are per *actual* site name and live on the installed plan, so one
 plan == one deterministic schedule.  Everything is thread-safe: guarded
@@ -195,12 +197,18 @@ class ChaosPlan:
             if not inj.matches(site, count):
                 continue
             if inj.kind == "device_lost":
-                # The reference fires this only while its elastic runtime
-                # (resilience/elastic.py) still believes the device
-                # healthy.  The port has no elastic runtime until ROADMAP
-                # Queue 1 item 11, so nothing acknowledges the loss: the
-                # device stays lost and every matching call raises.
+                # Fires only while the target device is still believed
+                # healthy: once a rung acknowledges the loss
+                # (resilience/elastic.py marks it dead and the run no
+                # longer schedules onto it), the call succeeds again.
+                # Lazy import: elastic imports this module at load time.
+                from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import (
+                    elastic,
+                )
+
                 dev = int(inj.param)
+                if elastic.health().is_lost(dev):
+                    continue
                 obs.emit("chaos", site=site, fault=inj.kind, call=count,
                          device=dev)
                 obs.counter("chaos_injections")

@@ -3,12 +3,12 @@
 Counterpart of the JAX package's ``resilience/executor.py``, with its
 names, signatures, events and counters.  Escalation order: **retry** the
 failed dispatch or sync on the card, walk the caller's degradation rungs
-(``fallbacks``; no caller of the port passes one yet: the CPU rungs are
-ROADMAP Queue 1 item 12, the mesh shrink item 11), and finally hand the
-terminal state to the caller as a structured :class:`ResilienceExhausted`
-carrying the latest checkpoint path, to **resume** from
-(utils/checkpoint.py).  Rung names are declared in
-``utils/config.DEGRADE_LADDER``.  Nothing here moves work to the CPU.
+(``fallbacks``: the CPU salvage of ``dataflow/fixpoint.py``, which takes
+only a lost device that names its index; the mesh shrink is ROADMAP Queue
+1 item 11), and finally hand the terminal state to the caller as a
+structured :class:`ResilienceExhausted` carrying the latest checkpoint
+path, to **resume** from (utils/checkpoint.py).  Rung names are declared
+in ``utils/config.DEGRADE_LADDER``.
 
 Every long-running path of the port (the segment driver
 ``dataflow/fixpoint.py``, the TF-IDF drivers, the staged ingest, the
@@ -335,8 +335,7 @@ def run_guarded(
        running (``ladder`` must be declared in utils/config.DEGRADE_LADDER);
        ``ladder=None`` hands emission to the rung itself.  A rung that
        raises passes the ladder to the next.  ``fallback=`` is sugar for
-       one trailing no-arg ``cpu`` rung.  No caller of the port passes
-       either yet.
+       one trailing no-arg ``cpu`` rung.
     3. :class:`ResilienceExhausted` carrying the latest checkpoint under
        ``checkpoint_dir`` so the caller (or the operator) can resume.
 

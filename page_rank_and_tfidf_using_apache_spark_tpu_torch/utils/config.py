@@ -61,6 +61,8 @@ GRAFT_ENV_KNOBS: frozenset = frozenset({
     # serves /snapshot.json (rolling-window SLO snapshot) + /metrics
     # (Prometheus text) from a running cli.serve
     "GRAFT_CHAOS",  # fault-injection plan (resilience/chaos.py)
+    "GRAFT_ELASTIC",  # the CPU salvage on a lost device
+    # (resilience/elastic.py; "0" disables it)
     "GRAFT_RETRY_MAX",  # max retries per guarded call
     "GRAFT_SYNC_DEADLINE_S",  # watchdog deadline for host syncs
     "GRAFT_STEP_DEADLINE_S",  # watchdog deadline for segment dispatch
@@ -70,10 +72,12 @@ GRAFT_ENV_KNOBS: frozenset = frozenset({
 
 # The degradation rungs of the resilience executor (resilience/executor.py
 # run_guarded's ``fallbacks``), declared in one place: a ``degraded`` event
-# names one of these.  The JAX package's ladder, copied; no rung is ported
-# yet (cpu: ROADMAP Queue 1 item 12; mesh_shrink, single_device: item 11;
-# respawn: item 12's process supervisor), so the port's ladder is retry,
-# then exhausted.
+# names one of these.  The JAX package's ladder, copied.  The port runs
+# ``cpu`` as the salvage only (the single-device paths hand the run of a
+# lost device that names its index to the CPU, from the newest commit
+# point; the reference's per-segment rung is not ported); mesh_shrink and
+# single_device wait for the mesh (ROADMAP Queue 1 item 11), respawn for
+# the fleet's process supervisor (item 13).
 DEGRADE_LADDER: tuple = (
     "mesh_shrink",  # rebuild the mesh over surviving devices (pow2 shrink)
     "single_device",  # the 1-device end of the shrink chain

@@ -25,12 +25,13 @@ from page_rank_and_tfidf_using_apache_spark_tpu.io import graph as jg
 from page_rank_and_tfidf_using_apache_spark_tpu.models.pagerank import run_pagerank as jrun
 from page_rank_and_tfidf_using_apache_spark_tpu.utils import config as jcfg
 from page_rank_and_tfidf_using_apache_spark_tpu.utils.metrics import MetricsRecorder as JMetrics
-from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
+from page_rank_and_tfidf_using_apache_spark_tpu_torch import ResilienceExhausted, obs
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.cli import pagerank as tcli
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow import fixpoint as tfix
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io import graph as tg
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.models import driver
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank as trun
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos as tchaos
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import checkpoint as ckpt
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder
@@ -115,12 +116,31 @@ def test_only_a_fixed_count_run_is_split(tol, segments):
     assert sum("l1_delta" in r for r in m2.records) == 1
 
 
-@pytest.mark.parametrize("rung", ["make_cpu_invoke", "elastic_rebuild"])
-def test_degradation_rungs_are_refused(rung):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12$"):
-        tfix.run_segments(tcfg.PageRankConfig(iterations=2), MetricsRecorder(), 0, 0,
-                          make_runner=lambda c: None, invoke=lambda r, x: (x, 1, 0.0),
-                          extract_np=np.asarray, **{rung: lambda *a: None})
+@pytest.mark.parametrize("fault", [
+    RuntimeError("CUDA error: an illegal memory access was encountered"),
+    tchaos.DeviceLostError("injected whole-backend loss"),
+], ids=["kernel", "lost"])
+def test_degradation_rungs_are_refused(fault):
+    """The salvage rung refuses an error that is not a lost device naming
+    its index (a kernel's sticky CUDA error, a whole-backend loss): nothing
+    runs on the CPU, no ``degraded`` event, and the segment exhausts with
+    the error."""
+    cfg = tcfg.PageRankConfig(iterations=2)
+    m = MetricsRecorder()
+    ran = []
+
+    def invoke(runner, x):
+        raise fault
+
+    rebuild = tfix.make_cpu_salvage(
+        cfg, m, site_prefix="pagerank", init_state=lambda: np.zeros(3),
+        cpu_exec=lambda *a: ran.append(a), make_runner=lambda c: None,
+        extract_np=np.asarray)
+    with pytest.raises(ResilienceExhausted) as ei:
+        tfix.run_segments(cfg, m, 0, 0, make_runner=lambda c: None, invoke=invoke,
+                          extract_np=np.asarray, elastic_rebuild=rebuild)
+    assert ei.value.last_error is fault and ei.value.site == "pagerank_step"
+    assert ran == [] and not any(r.get("event") == "degraded" for r in m.records)
 
 
 def test_checkpoint_config_hash_guard(tmp_path):

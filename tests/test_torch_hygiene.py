@@ -109,12 +109,13 @@ def test_scan_covers_the_workloads_slice():
 
 
 def test_scan_covers_the_resilience_slice():
-    """The fault injector, the retry executor and their package are among
-    the files the scan reads, and import with JAX unimportable (the
-    ``walk_packages`` test below imports every module)."""
+    """The fault injector, the retry executor, the device-health registry
+    and their package are among the files the scan reads, and import with
+    JAX unimportable (the ``walk_packages`` test below imports every
+    module)."""
     scanned = {p.relative_to(PORT).as_posix() for p in FILES if p.is_relative_to(PORT)}
     assert {"resilience/__init__.py", "resilience/chaos.py",
-            "resilience/executor.py"} <= scanned
+            "resilience/elastic.py", "resilience/executor.py"} <= scanned
 
 
 @pytest.mark.parametrize("source, flagged", [

@@ -1,9 +1,9 @@
 """The port's resilience layer (``resilience/chaos.py``,
-``resilience/executor.py``) against the JAX package's, on the CPU.
+``resilience/executor.py``, ``resilience/elastic.py``) against the JAX
+package's, on the CPU.
 
-``chaos.py`` is a copy: its code, docstrings aside, is the reference's but
-for the ``device_lost`` branch of ``ChaosPlan.on_call``, which cannot ask an
-elastic runtime the port does not have.  The executor is a port: plan
+``chaos.py`` is a copy: its code, docstrings aside, is the reference's.
+The executor is a port: plan
 schedules, backoff delays, the env policy and the classification of the
 shared exception kinds must equal the reference's, and the behaviour and
 event tests of ``tests/test_resilience.py`` and
@@ -14,7 +14,6 @@ message.
 
 from __future__ import annotations
 
-import ast
 import contextlib
 import dataclasses
 import threading
@@ -33,7 +32,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu.utils import config as jcfg
 from page_rank_and_tfidf_using_apache_spark_tpu.utils.metrics import MetricsRecorder as JMetrics
 import page_rank_and_tfidf_using_apache_spark_tpu_torch as port
 from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs, resilience
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos, elastic
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import executor as rx
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import checkpoint as ckpt
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
@@ -64,54 +63,38 @@ def sink_of(bus_owner):
 
 # ------------------------------------------------------------------ the copy
 
-class _DropDeviceLost(ast.NodeTransformer):
-    """Drop the ``if inj.kind == "device_lost": ...`` branch, the copy's one
-    permitted difference."""
-
-    def __init__(self):
-        self.dropped = 0
-
-    def visit_If(self, node):
-        self.generic_visit(node)
-        t = node.test
-        if (isinstance(t, ast.Compare) and isinstance(t.left, ast.Attribute)
-                and t.left.attr == "kind" and getattr(t.left.value, "id", None) == "inj"
-                and isinstance(t.comparators[0], ast.Constant)
-                and t.comparators[0].value == "device_lost"):
-            self.dropped += 1
-            return None
-        return node
-
-
 def test_chaos_copy_matches_reference():
-    drops = [_DropDeviceLost(), _DropDeviceLost()]
-    got = _code(PORT / "resilience" / "chaos.py", drops[0])
-    want = _code(REF / "resilience" / "chaos.py", drops[1])
-    assert [d.dropped for d in drops] == [1, 1]
-    assert got == want
+    assert _code(PORT / "resilience" / "chaos.py") == _code(REF / "resilience" / "chaos.py")
 
 
-def test_device_lost_stays_lost():
-    """With no elastic runtime to acknowledge it, a lost device raises on
-    every matching call, carrying its index."""
-    with sink_of(obs) as sink, chaos.inject("*:device_lost@dev:1") as plan:
-        for site in ("a", "b", "a"):
-            with pytest.raises(chaos.DeviceLostError) as ei:
-                chaos.on_call(site)
-            assert ei.value.device == 1
-        assert plan.call_count("a") == 2
-    assert [e["device"] for e in sink.of_kind("chaos")] == [1, 1, 1]
+def test_device_lost_fires_until_acknowledged():
+    """tests/test_elastic.py:92: the injection behaves like a dead card:
+    every guarded call fails, carrying the device's index, until a rung
+    marks the device lost; then the run's calls succeed again."""
+    resilience.reset_health()
+    try:
+        with sink_of(obs) as sink, chaos.inject("*:device_lost@dev:3") as plan:
+            for site in ("a", "b"):
+                with pytest.raises(chaos.DeviceLostError) as ei:
+                    chaos.on_call(site)
+                assert ei.value.device == 3
+            elastic.health().mark_lost(3)
+            chaos.on_call("a")  # acknowledged: no further injection
+            assert plan.call_count("a") == 2
+        assert [e["device"] for e in sink.of_kind("chaos")] == [3, 3]
+    finally:
+        resilience.reset_health()
 
 
 def test_surface_matches_reference():
-    elastic = {"DeviceHealth", "ShrinkPlan", "plan_shrink", "reset_health"}
-    assert set(resilience.__all__) == set(jresilience.__all__) - elastic
+    mesh = {"ShrinkPlan", "plan_shrink"}
+    assert set(resilience.__all__) == set(jresilience.__all__) - mesh
     for name in resilience.__all__:
         assert hasattr(resilience, name), name
     assert port.ResilienceExhausted is rx.ResilienceExhausted
     assert "ResilienceExhausted" in port.__all__
     assert tcfg.DEGRADE_LADDER == jcfg.DEGRADE_LADDER
-    knobs = {"GRAFT_CHAOS", "GRAFT_RETRY_MAX", "GRAFT_SYNC_DEADLINE_S",
+    knobs = {"GRAFT_CHAOS", "GRAFT_ELASTIC", "GRAFT_RETRY_MAX", "GRAFT_SYNC_DEADLINE_S",
              "GRAFT_STEP_DEADLINE_S", "GRAFT_BACKOFF_BASE_S", "GRAFT_BACKOFF_MAX_S"}
     assert knobs <= tcfg.GRAFT_ENV_KNOBS and knobs <= jcfg.GRAFT_ENV_KNOBS
 
