@@ -188,8 +188,41 @@ Phases, each of which exits non-zero on failure:
    (14f) each 14a run's wall beside the unbroken card run's,
    and the CPU's iterations/s after the hand-over, with the card's name and
    power limit;
+15. tuned profiles (``utils/config.py``'s ladder, ``tools/autotune.py``),
+   with the port's committed ``tuned_profile_gpu.json``: (15a) the tuner's
+   ``--dry-run`` on the card, the CPU's plan (87 raw points, 45 pruned;
+   survivors/pruned by group); (15b) every point of the declared domain's
+   layouts on the main path's graph: ``rowsum`` over the ``hybrid`` head at
+   ``head_row_width`` 64, 128, 256 and ``head_coverage`` 0.25, 0.5, 0.75,
+   the tail's ``cumsum`` and the head's ``segment`` sum there, and
+   ``sort_shuffle``'s buckets at widths 4, 8, 16 through ``segment``, each
+   against its plain version in float32 and float64 with both times; each
+   layout's 20-iteration loop twice per dtype, equal bits, within L1 1e-3
+   of ``segment`` in float32 and L1 1e-12 in float64, each of its
+   kernels launched once a step; (15c) two sweeps of ``--budget-s 20`` on
+   the tuner's probes into temporary paths: every knob in its domain,
+   stamped ``gpu`` with the card's name and power limit, ``owned`` a
+   fallback at its default, every other group's defaults measured first
+   and left only for a winner whose turns all beat them (the committed
+   profile too), the groups' winners side by side; (15d) the PageRank CLI
+   (``hybrid``, full size) with ``--tuned-profile``, with an explicit
+   ``--head-row-width`` beside it, under ``GRAFT_TUNED_PROFILE``, with
+   ``off`` and with neither (the committed profile): ranks bit-equal to
+   ``run_pagerank`` over ``tuned_config`` of the same profile (the
+   defaults for ``off``), the file byte-equal, the manifest naming the
+   profile's path, source and knobs; a ``cpu`` profile on the card and the
+   ``gpu`` profile under ``--device cpu`` raise ``ProvenanceError`` and
+   run nothing; the streaming TF-IDF CLI killed and resumed from its
+   checkpoint, and the serve CLI (impacted), under the committed profile,
+   held to batch and to a server over ``tuned_config``; (15e)
+   ``TUNABLE_DEFAULTS`` against the committed profile in turns (D P P D P
+   D): config 1 ``hybrid`` iterations/s, the config-2 stream's tokens/s
+   (outputs held to batch) and impacted queries/s of 11b's server over
+   1,024 queries, medians and spreads, not a claim.  Phases 5, 8, 10, 11d
+   and 12a run their CLIs with ``--tuned-profile off``, the setting of the
+   API run they are held to;
 7. one JSON line describing every kernel (with ``workload_launches``, each
-   kernel's launches in 12a-12c, 13a-13c and 14 by workload), then the
+   kernel's launches in 12a-12c, 13a-13c, 14 and 15b by workload), then the
    result line.
 
 Without a CUDA device, or without the port's package beside it, it exits
@@ -1088,7 +1121,7 @@ def check_tfidf_cli(tapi, tops, tio, device) -> None:
         out = os.path.join(tmp, "weights.tsv")
         cmd = [sys.executable, "-m", "page_rank_and_tfidf_using_apache_spark_tpu_torch.cli.tfidf",
                tiny, "--lines", "--vocab-bits", "10", "--idf-mode", "smooth", "--l2-normalize",
-               "--query", *query, "--output", out]
+               "--query", *query, "--output", out, "--tuned-profile", "off"]
         if device.type == "cpu":
             cmd += ["--device", "cpu"]
         proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
@@ -1498,7 +1531,7 @@ def index_phase(device, docs, knobs: dict, chunk_docs: int, card_label: str) -> 
                path, "--lines", "--streaming", "--vocab-bits", str(bits),
                "--chunk-docs", str(chunk_docs), "--chunk-tokens", str(knobs["chunk_tokens"]),
                "--pack-target", str(knobs["pack_target_tokens"]),
-               "--save-index", os.path.join(tmp, "cli")]
+               "--save-index", os.path.join(tmp, "cli"), "--tuned-profile", "off"]
         if device.type == "cpu":
             cmd += ["--device", "cpu"]
         t0 = time.perf_counter()
@@ -2071,7 +2104,7 @@ def cli_phase(serving, index, queries, device, card_label: str) -> None:
         for qid, q in enumerate(qs):
             s, d = srv.query(q)
             want += [f"{qid}\t{int(i)}\t{float(v):.10g}" for v, i in zip(s, d) if v > 0]
-    dev = [] if device.type == "cuda" else ["--device", "cpu"]
+    dev = ["--tuned-profile", "off"] + ([] if device.type == "cuda" else ["--device", "cpu"])
     with tempfile.TemporaryDirectory() as tmp:
         qfile = os.path.join(tmp, "queries.txt")
         with open(qfile, "w") as f:
@@ -2247,7 +2280,8 @@ def pagerank_checkpoint_phase(graph, reset_counts, counts, card_label: str) -> d
         d, out = os.path.join(tmp, "cli"), os.path.join(tmp, "cli.tsv")
         spec = f"synthetic:{N_NODES},{N_EDGES},{SEED}"
         flags = ["--dangling", "redistribute", "--init", "uniform", "--device", "cuda",
-                 "--checkpoint-dir", d, "--checkpoint-every", str(CKPT_EVERY), "--output", out]
+                 "--checkpoint-dir", d, "--checkpoint-every", str(CKPT_EVERY), "--output", out,
+                 "--tuned-profile", "off"]
         t0 = time.perf_counter()
         check(cli.main([spec, str(ITERS // 2), *flags]) == 0, "checkpointed CLI run failed")
         check(cli.main([spec, str(ITERS), *flags, "--resume"]) == 0, "resumed CLI run failed")
@@ -3264,6 +3298,557 @@ def degrade_phase(graph, stream: dict, reset_counts, counts, card_label: str) ->
     return total
 
 
+# Phase 15: tuned profiles (utils/config.py's ladder, tools/autotune.py).
+# The tuner's declared knob domain drives kernels at shapes no earlier phase
+# holds: rowsum over the hybrid head at head_row_width 64, 128 and 256 and
+# head_coverage 0.25, 0.5 and 0.75 (each layout built once, for both dtypes
+# and both runs), the hybrid tail's cumsum and head's segment sum there, and
+# sort_shuffle's bucket loader at widths 4, 8 and 16 (15b).  15c sweeps twice
+# on the tuner's probes, 15d drives the PageRank CLI's ladder at full size,
+# 15e runs defaults against the committed profile at full size in turns.
+TUNE_PLAN = {"hybrid": (9, 0), "owned": (3, 0), "shuffle": (3, 0), "ingest": (9, 36),
+             "serve": (18, 9)}  # survivors / pruned by group, as on the CPU
+TUNE_KERNELS = {"hybrid": ("rowsum", "cumsum", "segment"), "sort_shuffle": ("segment",)}
+TUNE_BUDGET_S = 20
+TUNE_AB_ORDER = "DPPDPD"  # D: TUNABLE_DEFAULTS, P: the committed profile
+TUNE_AB_QUERIES = 1024
+
+
+def loop_ranks(graph, cfg, dg) -> np.ndarray:
+    """``cfg``'s iteration loop on a prebuilt device graph, pulled."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pagerank as ops
+
+    n = graph.n_nodes
+    e = torch.from_numpy(ops.restart_vector(n, cfg)).to("cuda")
+    r0 = torch.from_numpy(ops.init_ranks(n, cfg)).to("cuda")
+    ranks, _, _ = ops.make_pagerank_runner(n, cfg)(dg, r0, e)
+    return ranks.cpu().numpy()
+
+
+def tuned_plan_phase(autotune) -> None:
+    """15a: the tuner's ``--dry-run`` on the card: the CPU's plan."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = autotune.main(["--dry-run", "--json"])
+    doc = json.loads(out.getvalue())
+    plan = doc["plan"]
+    groups = {g: (len(v["survivors"]), len(v["pruned"])) for g, v in plan["groups"].items()}
+    check(rc == 0 and doc["backend"] == "gpu" and plan["raw_points"] == 87
+          and plan["pruned_points"] == 45 and groups == TUNE_PLAN,
+          f"autotune --dry-run: rc {rc}, backend {doc['backend']}, {plan['raw_points']} raw, "
+          f"{plan['pruned_points']} pruned, {groups}")
+    print(f"15a autotune --dry-run: backend {doc['backend']}, {plan['raw_points']} raw points, "
+          f"{plan['pruned_points']} pruned, survivors/pruned by group {groups}")
+
+
+def tuned_kernels_phase(graph, reset_counts, counts, card_label: str) -> dict:
+    """15b: at every point of the declared domain's layouts, each kernel of
+    the layout against its plain version on the main path's uniform ranks,
+    and the 20-iteration loop twice per dtype: bit-equal, within L1 1e-3 of
+    ``segment`` in float32 and L1 1e-12 in float64, launching each of its
+    kernels once a step.  Returns the counted runs' launches."""
+    import dataclasses
+
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import put_graph_for
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pallas_kernels as pk
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import segment_kernels as sk
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import autotune
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import PageRankConfig
+
+    domains = autotune._knob_domains()
+    n = graph.n_nodes
+    base = PageRankConfig(iterations=ITERS, dangling="redistribute", init="uniform")
+    seg, per_dtype = {}, {}
+    for dtype in ("float32", "float64"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        dg = put_graph_for(graph, cfg, "cuda")
+        seg[dtype] = loop_ranks(graph, cfg, dg)
+        per_dtype[dtype] = {f: getattr(dg, f) for f in ("inv_outdeg", "dangling", "has_outlinks")}
+    total: dict = {}
+    worst: dict = {}
+
+    def note(key, value) -> None:
+        worst[key] = max(worst.get(key, 0.0), value)
+
+    def loops(label, impl, cfg32, dg32) -> str:
+        """Both dtypes' loops on one layout: two runs bit-equal, each kernel
+        of the impl ITERS times in the counted one, close to segment."""
+        parts = []
+        for dtype in ("float32", "float64"):
+            cfg = dataclasses.replace(cfg32, dtype=dtype)
+            dg = dg32._replace(**per_dtype[dtype])
+            reset_counts()
+            a = loop_ranks(graph, cfg, dg)
+            launched = counts()
+            b = loop_ranks(graph, cfg, dg)
+            add_counts(total, launched)
+            check(a.tobytes() == b.tobytes(), f"15b {label} {dtype}: two runs differ")
+            want = {k: ITERS for k in TUNE_KERNELS[impl]}
+            check({k: v for k, v in launched.items() if v} == want,
+                  f"15b {label} {dtype}: launched {launched}, wanted {want}")
+            diff = np.abs(a.astype(np.float64) - seg[dtype])
+            l1, mx = float(diff.sum()), float(diff.max())
+            check(bool(np.isfinite(a).all()) and l1 <= (1e-3 if dtype == "float32" else 1e-12),
+                  f"15b {label} {dtype}: L1 {l1:.3g}, max abs {mx:.3g} vs segment")
+            note(("loop L1", dtype), l1)
+            note(("loop max abs", dtype), mx)
+            parts.append(f"{dtype} L1 {l1:.3g} max abs {mx:.3g}")
+        return "; ".join(parts)
+
+    for cov in domains["head_coverage"]:
+        for width in domains["head_row_width"]:
+            label = f"hybrid head_coverage {cov} head_row_width {width}"
+            cfg32 = dataclasses.replace(base, spmv_impl="hybrid", head_coverage=cov,
+                                        head_row_width=width)
+            t0 = time.perf_counter()
+            dg32 = put_graph_for(graph, cfg32, "cuda")
+            build = time.perf_counter() - t0
+            hl = dg32.hybrid
+            h = hl.head_ids.shape[0]
+            times = []
+            for dtype in ("float32", "float64"):
+                weighted = per_dtype[dtype]["inv_outdeg"] / n  # uniform ranks
+                rows = torch.cat([weighted, weighted.new_zeros(1)])[hl.head_src]
+                tail = weighted[hl.tail_src]
+                r = measure_rowsum(pk, rows, f"15b {label} R={rows.shape[0]} W={rows.shape[1]} "
+                                             f"{dtype}")
+                c = measure_cumsum(pk, tail, f"15b {label} tail E={tail.shape[0]} {dtype}")
+                sums = pk.rowsum_kernel(rows)
+                err, _ = check_segment(sk, sums, hl.head_row_ptr, h, f"15b {label} head {dtype}",
+                                       plan=hl.head_row_plan)
+                s_ms = time_ms(lambda: sk.segment_sum_kernel(sums, hl.head_row_ptr, h,
+                                                             plan=hl.head_row_plan))
+                s_plain = time_ms(lambda: sk.segment_sum_plain(sums, hl.head_row_ptr, h))
+                note(("rowsum", dtype), r["max_abs_err"])
+                note(("cumsum", dtype), c["max_abs_err"])
+                note(("segment", dtype), err)
+                times.append(f"{dtype} rowsum {r['ms']:.4f} (plain {r['plain_ms']:.4f}), cumsum "
+                             f"{c['ms']:.4f} ({c['plain_ms']:.4f}), segment {s_ms:.4f} "
+                             f"({s_plain:.4f})")
+            held = loops(label, "hybrid", cfg32, dg32)
+            print(f"15b {label}: head {h} nodes, {hl.head_src.shape[0]} rows x "
+                  f"{hl.head_src.shape[1]}, tail {hl.tail_src.shape[0]} edges (layout "
+                  f"{build:.2f} s); kernel ms (plain ms): {'; '.join(times)}; 20 iterations "
+                  f"twice, equal bits, vs segment: {held} on {card_label}")
+    for width in domains["shuffle_bucket_width"]:
+        label = f"sort_shuffle bucket width {width}"
+        cfg32 = dataclasses.replace(base, spmv_impl="sort_shuffle", shuffle_bucket_width=width)
+        t0 = time.perf_counter()
+        dg32 = put_graph_for(graph, cfg32, "cuda")
+        build = time.perf_counter() - t0
+        sl = dg32.shuffle
+        times = []
+        for dtype in ("float32", "float64"):
+            weighted = per_dtype[dtype]["inv_outdeg"] / n
+            vals = torch.cat([weighted, weighted.new_zeros(1)])[sl.bucket_src].sum(dim=1)
+            err, _ = check_segment(sk, vals, sl.bucket_ptr, n, f"15b {label} {dtype}",
+                                   plan=sl.bucket_plan)
+            k_ms = time_ms(lambda: sk.segment_sum_kernel(vals, sl.bucket_ptr, n,
+                                                         plan=sl.bucket_plan))
+            p_ms = time_ms(lambda: sk.segment_sum_plain(vals, sl.bucket_ptr, n))
+            note(("segment", dtype), err)
+            times.append(f"{dtype} segment {k_ms:.4f} (plain {p_ms:.4f}), max abs diff {err:.3g}")
+        held = loops(label, "sort_shuffle", cfg32, dg32)
+        print(f"15b {label}: {sl.bucket_src.shape[0]} buckets x {sl.bucket_src.shape[1]} "
+              f"(layout {build:.2f} s); kernel ms (plain ms): {'; '.join(times)}; 20 iterations "
+              f"twice, equal bits, vs segment: {held} on {card_label}")
+    print("15b worst differences: " + ", ".join(f"{k} {d} {v:.3g}"
+                                                for (k, d), v in sorted(worst.items())))
+    return total
+
+
+def check_confirm_rule(autotune, tcfg, prof, label: str) -> None:
+    """A profile's groups obey the tuner's rule: ``owned`` a fallback at its
+    default; every other group measured its TUNABLE_DEFAULTS point first,
+    and left it only for a winner each of whose CONFIRM_ORDER runs beat
+    each run of the defaults."""
+    for group, v in prof.measured["groups"].items():
+        default = {k: tcfg.TUNABLE_DEFAULTS[k] for k in dict(autotune.GROUPS)[group]}
+        check({k: prof.knobs[k] for k in default} == v["winner"],
+              f"{label}: {group}'s knobs are not its winner {v['winner']}")
+        if group == "owned":
+            check(v["fallback"] and v["measured"] == [] and v["winner"] == default,
+                  f"{label}: owned {v}")
+            continue
+        first = v["measured"][0] if v["measured"] else {}
+        check(first.get("point") == default and first.get("default") and "secs" in first,
+              f"{label}: {group} did not measure its defaults first ({first})")
+        c = v.get("confirm")
+        check(v["winner"] == default
+              or (c is not None and c["kept"] == "winner"
+                  and len(c["winner"]) + len(c["default"]) == len(autotune.CONFIRM_ORDER)
+                  and max(c["winner"]) < min(c["default"])),
+              f"{label}: {group} left its defaults for {v['winner']} without beating them "
+              f"({c})")
+
+
+def tuned_sweep_phase(autotune, tcfg, smi: dict, tmp: str) -> tuple:
+    """15c: two sweeps on the tuner's probes into temporary paths: every
+    tuned knob in its domain, stamped ``gpu`` with the card's name and
+    power limit, ``owned`` a fallback at its default.  Returns the first
+    sweep's path and profile."""
+    import io
+
+    domains = autotune._knob_domains()
+    swept = []
+    for i in (1, 2):
+        path = os.path.join(tmp, f"sweep{i}.json")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = autotune.main(["--out", path, "--budget-s", str(TUNE_BUDGET_S), "--json"])
+        secs = time.perf_counter() - t0
+        check(rc == 0, f"15c sweep {i} exited {rc}")
+        prof = tcfg.load_tuned_profile(backend="gpu", path=path)
+        m = prof.measured
+        check(set(prof.knobs) == set(domains)
+              and all(prof.knobs[k] in domains[k] for k in domains),
+              f"15c sweep {i}: knobs {prof.knobs}")
+        check(prof.backend == "gpu" and m["device"] == smi["device"]
+              and m["power_limit"] == smi["power_limit"],
+              f"15c sweep {i}: stamped {prof.backend}, {m['device']}, {m['power_limit']}")
+        check_confirm_rule(autotune, tcfg, prof, f"15c sweep {i}")
+        print(f"15c sweep {i} ({secs:.1f} s, sweep_secs {m['sweep_secs']}, budget "
+              f"{TUNE_BUDGET_S} s, {m['device']}, {m['power_limit']}): "
+              + "; ".join(f"{g} {v['winner']} {v['winner_secs']} s"
+                          f"{' fallback' if v['fallback'] else ''} "
+                          f"({sum('secs' in x for x in v['measured'])} measured"
+                          + (f", defaults {v['measured'][0]['secs']} s" if v["measured"] else "")
+                          + (f", {v['confirm']['order']} W {v['confirm']['winner']} D "
+                             f"{v['confirm']['default']} kept {v['confirm']['kept']}"
+                             if "confirm" in v else "") + ")"
+                          for g, v in m["groups"].items()))
+        swept.append((path, prof))
+    agree = [g for g in swept[0][1].measured["groups"]
+             if swept[0][1].measured["groups"][g]["winner"]
+             == swept[1][1].measured["groups"][g]["winner"]]
+    print(f"15c: the two sweeps pick the same winner in {agree}, differ in "
+          f"{[g for g in swept[0][1].measured['groups'] if g not in agree]}")
+    return swept[0]
+
+
+def profile_snapshot(prof, source: str) -> dict:
+    """The manifest's ``tuned_profile`` for ``prof`` resolved by ``source``."""
+    return {"path": str(prof.path), "backend": prof.backend, "git_sha": prof.git_sha,
+            "source": source, "knobs": prof.knobs}
+
+
+def tuned_ladder_phase(graph, default_ranks, path: str, prof, committed, reset_counts, counts,
+                       tmp: str) -> None:
+    """15d: the PageRank CLI (``hybrid``, float32, full size) through each
+    rung of the ladder: its ranks bit-equal to ``run_pagerank`` with
+    ``tuned_config`` over the same profile (the committed one with no flag
+    and no env, the defaults' for ``off``), its output file byte-equal to
+    ``save_ranks`` of them, its manifest naming the profile; a ``cpu``
+    profile on the card and the ``gpu`` profile under ``--device cpu``
+    raise ``ProvenanceError`` and run nothing."""
+    import glob
+
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.cli import pagerank as cli
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import save_ranks
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.artifacts import ProvenanceError
+
+    base = dict(iterations=ITERS, dangling="redistribute", init="uniform", spmv_impl="hybrid")
+    argv = [f"synthetic:{N_NODES},{N_EDGES},{SEED}", str(ITERS), "--spmv-impl", "hybrid",
+            "--dangling", "redistribute", "--init", "uniform"]
+    other = 64 if prof.knobs["head_row_width"] != 64 else 256
+    api = {
+        "profile": run_pagerank(graph, tcfg.tuned_config(tcfg.PageRankConfig, prof, **base),
+                                device="cuda").ranks,
+        "explicit": run_pagerank(graph, tcfg.tuned_config(tcfg.PageRankConfig, prof,
+                                                          head_row_width=other, **base),
+                                 device="cuda").ranks,
+        "committed": run_pagerank(graph, tcfg.tuned_config(tcfg.PageRankConfig, committed,
+                                                           **base), device="cuda").ranks,
+        "defaults": default_ranks,
+    }
+    rungs = (  # name, CLI flags, GRAFT_TUNED_PROFILE, API ranks, manifest snapshot
+        ("--tuned-profile", ["--tuned-profile", path], None, "profile",
+         profile_snapshot(prof, "explicit")),
+        ("--head-row-width beats it", ["--tuned-profile", path, "--head-row-width", str(other)],
+         None, "explicit", profile_snapshot(prof, "explicit")),
+        ("GRAFT_TUNED_PROFILE", [], path, "profile", profile_snapshot(prof, "env")),
+        ("off beats GRAFT_TUNED_PROFILE", ["--tuned-profile", "off"], path, "defaults", None),
+        ("no flag, no env: the committed profile", [], None, "committed",
+         profile_snapshot(committed, "committed")),
+    )
+    seen = []
+    real = cli.run_pagerank
+
+    def spy(g, cfg, **kw):
+        res = real(g, cfg, **kw)
+        seen.append((cfg, res.ranks))
+        return res
+
+    cli.run_pagerank = spy
+    try:
+        for i, (name, flags, env, want, want_snap) in enumerate(rungs):
+            d = os.path.join(tmp, f"ladder{i}")
+            out = os.path.join(d, "ranks.tsv")
+            if env is not None:
+                os.environ["GRAFT_TUNED_PROFILE"] = env
+            try:
+                rc = cli.main([*argv, *flags, "--output", out, "--trace-dir", d])
+            finally:
+                os.environ.pop("GRAFT_TUNED_PROFILE", None)
+            check(rc == 0, f"15d {name}: CLI exited {rc}")
+            cfg, ranks = seen[-1]
+            check(ranks.tobytes() == api[want].tobytes(),
+                  f"15d {name}: the CLI's ranks differ from the API's ({want})")
+            save_ranks(os.path.join(d, "api.tsv"), graph, api[want])
+            with open(out, "rb") as f, open(os.path.join(d, "api.tsv"), "rb") as g:
+                check(f.read() == g.read(), f"15d {name}: the output file differs from the API's")
+            (man,) = glob.glob(os.path.join(d, "pagerank.*.manifest.json"))
+            with open(man) as f:
+                got_snap = json.load(f)["tuned_profile"]
+            check(got_snap == want_snap, f"15d {name}: manifest tuned_profile {got_snap}")
+            print(f"15d {name}: head_coverage {cfg.head_coverage}, head_row_width "
+                  f"{cfg.head_row_width}, shuffle_bucket_width {cfg.shuffle_bucket_width}; ranks "
+                  f"equal to run_pagerank's ({want}) bit for bit, the file byte for byte; "
+                  f"manifest source {None if got_snap is None else got_snap['source']}")
+        cpu_path = os.path.join(tmp, "cpu_profile.json")
+        tcfg.write_tuned_profile(cpu_path, "cpu", prof.knobs)
+        for name, flags in (("a cpu profile on the card", ["--tuned-profile", cpu_path]),
+                            ("the gpu profile under --device cpu",
+                             ["--tuned-profile", path, "--device", "cpu"])):
+            reset_counts()
+            ran = len(seen)
+            try:
+                cli.main([*argv, *flags])
+                raised = None
+            except ProvenanceError as exc:
+                raised = exc
+            check(raised is not None and len(seen) == ran and not any(counts().values()),
+                  f"15d {name}: raised {raised!r}, ran {len(seen) - ran}, launched {counts()}")
+            print(f"15d {name}: ProvenanceError, nothing run ({str(raised)[:90]}...)")
+    finally:
+        cli.run_pagerank = real
+
+
+def tuned_cli_phase(docs, committed, out, index, tmp: str) -> None:
+    """15d, the other CLIs under the committed profile (no flag, no env):
+    the streaming TF-IDF CLI killed after chunk KILL_AFTER with a
+    checkpoint every KILL_EVERY and resumed, its tuned knobs those of
+    ``tuned_config(TfidfConfig, committed)`` and its sorted COO, counts,
+    weights, DF and IDF equal to batch's bit for bit, as are those of
+    ``run_tfidf_streaming`` over that config; the serve CLI (impacted) on
+    the config-2 index, its knobs those of ``tuned_config(ServeConfig,
+    committed)`` and its lines a server's over that config.  Each manifest
+    names the committed profile."""
+    import dataclasses
+    import glob
+    import io
+
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch import serving
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.cli import serve as cli_serve
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.cli import tfidf as cli_tfidf
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models import tfidf as tm
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
+
+    want_snap = profile_snapshot(committed, "committed")
+
+    def knobs_of(cfg) -> dict:
+        return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+                if f.name in tcfg.TUNABLE_DEFAULTS}
+
+    def manifest_of(d: str, name: str) -> dict:
+        (path,) = glob.glob(os.path.join(d, f"{name}.*.manifest.json"))
+        with open(path) as f:
+            return json.load(f)
+
+    corpus = os.path.join(tmp, "corpus.txt")
+    with open(corpus, "w") as f:
+        f.writelines(d + "\n" for d in docs)
+    ck, trace_dir = os.path.join(tmp, "tfidf_ck"), os.path.join(tmp, "tfidf_trace")
+    argv = [corpus, "--lines", "--streaming", "--vocab-bits", str(TFIDF_BITS), "--chunk-docs",
+            str(STREAM_CHUNK_DOCS), "--checkpoint-dir", ck, "--checkpoint-every",
+            str(KILL_EVERY), "--trace-dir", trace_dir]
+    real_chunks, real_stream, seen = cli_tfidf.iter_corpus_chunks, cli_tfidf.run_tfidf_streaming, []
+
+    def killed(*args, **kwargs):
+        for i, chunk in enumerate(real_chunks(*args, **kwargs)):
+            if i == KILL_AFTER:
+                raise Killed(f"killed after chunk {KILL_AFTER}")
+            yield chunk
+
+    def spy(chunks, cfg, **kwargs):
+        res = real_stream(chunks, cfg, **kwargs)
+        seen.append((cfg, res))
+        return res
+
+    cli_tfidf.run_tfidf_streaming = spy
+    try:
+        cli_tfidf.iter_corpus_chunks = killed
+        try:
+            with contextlib.redirect_stderr(io.StringIO()):
+                cli_tfidf.main(argv)
+            raised = None
+        except Killed as exc:
+            raised = exc
+        cli_tfidf.iter_corpus_chunks = real_chunks
+        check(raised is not None and not seen, f"15d tfidf CLI: not killed ({raised!r})")
+        check(manifest_of(trace_dir, "tfidf")["tuned_profile"] == want_snap,
+              "15d tfidf CLI (killed): manifest tuned_profile")
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = cli_tfidf.main([*argv, "--resume"])
+    finally:
+        cli_tfidf.iter_corpus_chunks, cli_tfidf.run_tfidf_streaming = real_chunks, real_stream
+    check(rc == 0 and len(seen) == 1, f"15d tfidf CLI --resume: exited {rc}")
+    cfg, res = seen[0]
+    tuned = tcfg.tuned_config(tcfg.TfidfConfig, committed, vocab_bits=TFIDF_BITS)
+    check(knobs_of(cfg) == knobs_of(tuned),
+          f"15d tfidf CLI: knobs {knobs_of(cfg)}, tuned_config's {knobs_of(tuned)}")
+    check_same_coo(res, out, "15d tfidf CLI (killed and resumed)")
+    check_same_coo(tm.run_tfidf_streaming(iter(chunked(docs, STREAM_CHUNK_DOCS)), tuned,
+                                          device="cuda"),
+                   out, "15d run_tfidf_streaming over tuned_config(committed)")
+    man = manifest_of(trace_dir, "tfidf")
+    check(man["tuned_profile"] == want_snap and man["status"] == "ok",
+          f"15d tfidf CLI: manifest {man['status']} {man['tuned_profile']}")
+    print(f"15d the tfidf CLI under the committed profile: killed after chunk {KILL_AFTER} "
+          f"(checkpoint every {KILL_EVERY}) and resumed; knobs {knobs_of(cfg)}; COO, counts, "
+          f"weights, DF and IDF equal to batch bit for bit, as are run_tfidf_streaming's over "
+          f"tuned_config; manifest source committed")
+
+    qs = serving_queries(docs, SERVE_QUERIES, SERVE_SEED)[:CLI_QUERIES]
+    scfg = tcfg.tuned_config(serving.ServeConfig, committed, scoring="impacted")
+    want = []
+    with serving.TfidfServer(index, scfg, device="cuda") as srv:
+        for qid, q in enumerate(qs):
+            s, d = srv.query(q)
+            want += [f"{qid}\t{int(i)}\t{float(v):.10g}" for v, i in zip(s, d) if v > 0]
+    qfile, trace_dir = os.path.join(tmp, "queries.txt"), os.path.join(tmp, "serve_trace")
+    with open(qfile, "w") as f:
+        f.writelines(" ".join(q) + "\n" for q in qs)
+    real_server, served = cli_serve.TfidfServer, []
+
+    def server_spy(idx, c, **kwargs):
+        served.append(c)
+        return real_server(idx, c, **kwargs)
+
+    cli_serve.TfidfServer = server_spy
+    try:
+        lines = io.StringIO()
+        with contextlib.redirect_stdout(lines), contextlib.redirect_stderr(io.StringIO()):
+            rc = cli_serve.main([os.path.dirname(index.path), "--queries", qfile, "--scoring",
+                                 "impacted", "--trace-dir", trace_dir])
+    finally:
+        cli_serve.TfidfServer = real_server
+    check(rc == 0 and len(served) == 1, f"15d serve CLI exited {rc}")
+    check(knobs_of(served[0]) == knobs_of(scfg),
+          f"15d serve CLI: knobs {knobs_of(served[0])}, tuned_config's {knobs_of(scfg)}")
+    check(lines.getvalue().splitlines() == want,
+          "15d serve CLI: lines differ from a server over tuned_config(committed)")
+    man = manifest_of(trace_dir, "serve")
+    check(man["tuned_profile"] == want_snap and man["status"] == "ok",
+          f"15d serve CLI: manifest {man['status']} {man['tuned_profile']}")
+    print(f"15d the serve CLI under the committed profile (impacted, {len(qs)} queries): knobs "
+          f"{knobs_of(served[0])}; {len(want)} lines equal to a server's over tuned_config; "
+          f"manifest source committed")
+
+
+def spread(d: list, p: list) -> str:
+    """Medians and spreads of two sides; a side is ahead only when its
+    spread lies wholly beyond the other's."""
+    verdict = ("profile ahead" if min(p) > max(d) else "defaults ahead" if min(d) > max(p)
+               else "unresolved")
+    return (f"defaults median {np.median(d):.6g} ({min(d):.6g}-{max(d):.6g}), profile median "
+            f"{np.median(p):.6g} ({min(p):.6g}-{max(p):.6g}): {verdict}")
+
+
+def tuned_ab_phase(graph, docs, prof, out, index, card_label: str) -> None:
+    """15e: TUNABLE_DEFAULTS (D) against the committed profile (P) in turns
+    (TUNE_AB_ORDER), at full size: config 1 ``hybrid`` iterations/s, the
+    config-2 stream's tokens/s (every run's sorted COO, weights, DF and IDF
+    equal to batch's bit for bit) and
+    11b's server (impacted, four closed-loop clients) over TUNE_AB_QUERIES
+    queries.  Not a claim: medians and spreads."""
+    import dataclasses
+
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch import serving
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models import tfidf as tm
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
+
+    tuned = tcfg.tuned_config
+    pr = dict(iterations=ITERS, dangling="redistribute", init="uniform", spmv_impl="hybrid")
+    queries = serving_queries(docs, SERVE_QUERIES, SERVE_SEED)[:TUNE_AB_QUERIES]
+    sv = dict(scoring="impacted", cache_size=2 * len(queries))
+    cfgs = {
+        "pagerank": {"D": tcfg.PageRankConfig(**pr), "P": tuned(tcfg.PageRankConfig, prof, **pr)},
+        "stream": {"D": tcfg.TfidfConfig(vocab_bits=TFIDF_BITS),
+                   "P": tuned(tcfg.TfidfConfig, prof, vocab_bits=TFIDF_BITS)},
+        "serve": {"D": serving.ServeConfig(**sv), "P": tuned(serving.ServeConfig, prof, **sv)},
+    }
+    for name, c in cfgs.items():
+        knobs = sorted(set(tcfg.TUNABLE_DEFAULTS) & {f.name for f in dataclasses.fields(c["D"])})
+        print(f"15e {name} knobs, defaults -> profile: "
+              + ", ".join(f"{k} {getattr(c['D'], k)} -> {getattr(c['P'], k)}" for k in knobs))
+    chunks = chunked(docs, STREAM_CHUNK_DOCS)
+    rates = {name: {"D": [], "P": []} for name in cfgs}
+    for side in TUNE_AB_ORDER:
+        res = run_pagerank(graph, cfgs["pagerank"][side], device="cuda")
+        rates["pagerank"][side].append(res.metrics.records[-1]["iters_per_sec"])
+        t0 = time.perf_counter()
+        s = tm.run_tfidf_streaming(iter(chunks), cfgs["stream"][side], device="cuda")
+        secs = time.perf_counter() - t0
+        rates["stream"][side].append(float(s.doc_lengths.sum()) / secs)
+        check_same_coo(s, out, f"15e stream {side}")
+        with serving.TfidfServer(index, cfgs["serve"][side], device="cuda") as srv:
+            r = closed_loop(srv, queries, 4)
+        rates["serve"][side].append(len(queries) / r["secs"])
+    for name, unit in (("pagerank", "config 1 hybrid iterations/s"),
+                       ("stream", "config-2 stream tokens/s"),
+                       ("serve", f"impacted queries/s, 4 clients, {len(queries)} queries")):
+        d, p = rates[name]["D"], rates[name]["P"]
+        print(f"15e {unit} ({TUNE_AB_ORDER}, {card_label}): D "
+              + " ".join(f"{x:.6g}" for x in d) + "; P " + " ".join(f"{x:.6g}" for x in p)
+              + f"; {spread(d, p)}")
+
+
+def tuned_phase(graph, docs, default_ranks, smi: dict, reset_counts, counts,
+                card_label: str) -> dict:
+    """Phase 15 (see the module docstring); every check raises on failure.
+    Returns 15b's launches, for the kernels line."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch import serving
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models import tfidf as tm
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import autotune
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
+
+    check(os.environ.get("GRAFT_TUNED_PROFILE") is None,
+          "phase 15 needs GRAFT_TUNED_PROFILE unset")
+    committed = tcfg.load_tuned_profile(backend="gpu")
+    check(committed is not None and committed.source == "committed",
+          f"no committed {tcfg.profile_path('gpu')}")
+    check_confirm_rule(autotune, tcfg, committed, "the committed profile")
+    t0 = time.perf_counter()
+    tuned_plan_phase(autotune)
+    print(f"phase 15a (plan): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launched = tuned_kernels_phase(graph, reset_counts, counts, card_label)
+    print(f"phase 15b (kernels over the domain): {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path, prof = tuned_sweep_phase(autotune, tcfg, smi, tmp)
+        print(f"phase 15c (two sweeps): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        bits = tcfg.TfidfConfig(vocab_bits=TFIDF_BITS)
+        out = tm.run_tfidf(docs, bits, device="cuda")
+        serving.save_index(os.path.join(tmp, "index"), out, bits)
+        index = serving.load_index(os.path.join(tmp, "index"))
+        tuned_ladder_phase(graph, default_ranks, path, prof, committed, reset_counts, counts, tmp)
+        tuned_cli_phase(docs, committed, out, index, tmp)
+        print(f"phase 15d (ladder): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        tuned_ab_phase(graph, docs, committed, out, index, card_label)
+        print(f"phase 15e (defaults against the profile): {time.perf_counter() - t0:.1f} s")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs one CUDA GPU",
@@ -3548,7 +4133,8 @@ def main() -> int:
         rc = cli.main([f"synthetic:{N_NODES},{N_EDGES},{SEED}", str(ITERS),
                        "--spmv-impl", "pallas", "--dangling", "redistribute",
                        "--init", "uniform", "--device", "cuda", "--output", out,
-                       "--trace-dir", trace_dir, "--profile-dir", profile_dir])
+                       "--trace-dir", trace_dir, "--profile-dir", profile_dir,
+                       "--tuned-profile", "off"])
         check(rc == 0, f"CLI exited {rc}")
         table = np.loadtxt(out, dtype=np.float64, delimiter="\t", ndmin=2)
         check_cli_trace(trace_dir, profile_dir)
@@ -3656,6 +4242,13 @@ def main() -> int:
     print(f"phase 14 (degrade): {time.perf_counter() - t0:.1f} s")
     obs.bus().detach(degraded)
 
+    # 15. tuned profiles: the tuner's plan, the kernels over the knob domain,
+    # two sweeps, the CLI's ladder, defaults against the committed profile
+    t0 = time.perf_counter()
+    workload_launches["tuned"] = tuned_phase(graph, stream["docs"], ranks_by_impl["hybrid"], smi,
+                                             reset_counts, counts, card_label)
+    print(f"phase 15 (tuned profiles): {time.perf_counter() - t0:.1f} s")
+
     # 7. the kernels line, then the result line; launches are those of the
     # kernel's own path: cumsum's from the hybrid run (its tail's prefix
     # sum), segment's from the segment run
@@ -3677,8 +4270,9 @@ def main() -> int:
     }
     # workload_launches: each kernel's launches in phase 12's counted runs
     # (12a's resumed runs, 12b's API runs, 12c's first runs), phase 13's
-    # (13a's and 13b's faulted runs, 13c's resumed run) and phase 14's (the
-    # card's launches before each loss, and 14b's), by workload
+    # (13a's and 13b's faulted runs, 13c's resumed run), phase 14's (the
+    # card's launches before each loss, and 14b's) and phase 15b's (one run
+    # of each layout and dtype), by workload
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": n, **main_rows[name],

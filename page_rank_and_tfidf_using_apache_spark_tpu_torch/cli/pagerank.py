@@ -10,9 +10,13 @@ Usage::
     python -m ...cli.pagerank edges.txt 20 --checkpoint-dir ck \
         --checkpoint-every 5 [--resume]
 
-The flags are the JAX CLI's.  Those of paths the port does not run yet
-(the mesh and its strategies, the tuned profile) are accepted and refused:
-the command exits non-zero naming the ROADMAP item that ports them.
+The flags are the JAX CLI's.  Every tunable knob resolves as the flag,
+then the tuned profile of the device's backend (``--tuned-profile``, else
+``$GRAFT_TUNED_PROFILE``, else the port's committed
+``tuned_profile_<backend>.json``; ``off`` disables it), then
+``TUNABLE_DEFAULTS``.  The flags of paths the port does not run yet (the
+mesh and its strategies) are accepted and refused: the command exits
+non-zero naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -28,9 +32,15 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import (
     synthetic_powerlaw,
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.obs import manifest
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
     SPMV_IMPLS,
     PageRankConfig,
+    tuned_config,
+)
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import (
+    backend_name,
+    resolve_device,
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder, Timer
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.profiling import trace
@@ -41,7 +51,6 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.profiling import tra
 LATER_FLAGS = {
     "--mesh": ("multi-GPU PageRank", 11),
     "--shard-strategy": ("multi-GPU PageRank", 11),
-    "--tuned-profile": ("the tuned profile", 5),
 }
 
 
@@ -67,10 +76,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spmv-impl", choices=list(SPMV_IMPLS), default="segment")
     p.add_argument("--head-coverage", type=float, default=None,
                    help="hybrid impl: edge-coverage threshold of the dense "
-                        "high-in-degree head (default: TUNABLE_DEFAULTS)")
+                        "high-in-degree head (default: tuned profile, then "
+                        "TUNABLE_DEFAULTS)")
     p.add_argument("--head-row-width", type=int, default=None,
                    help="hybrid impl: dense row width (adapts down on small "
-                        "graphs; default: TUNABLE_DEFAULTS)")
+                        "graphs; default: tuned profile, then "
+                        "TUNABLE_DEFAULTS)")
+    p.add_argument("--tuned-profile", default=None, metavar="PATH",
+                   help="tuned-profile artifact to resolve unset knobs "
+                        "from ('off' disables profile loading; default: "
+                        "$GRAFT_TUNED_PROFILE, then the port's committed "
+                        "tuned_profile_<backend>.json)")
     p.add_argument("--dtype", default="float32")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=0,
@@ -105,11 +121,20 @@ def main(argv: list[str] | None = None) -> int:
     # The traced run covers the whole command: manifest at startup, every
     # span and metric event flushed per-event to the JSONL trace, run-end
     # summary at exit (no-op without --trace-dir/GRAFT_TRACE_DIR).
-    with obs.run("pagerank", trace_dir=args.trace_dir):
-        return _main(args)
+    # knob resolution ladder: explicit flag > tuned profile of the
+    # requested device's backend (same-backend only, ProvenanceError
+    # otherwise) > TUNABLE_DEFAULTS; the manifest records the profile, or
+    # why it was refused
+    profile, snapshot, refused = manifest.resolve_tuned_profile(
+        backend_name(args.device), args.tuned_profile)
+    with manifest.recording_profile(snapshot), obs.run("pagerank", trace_dir=args.trace_dir):
+        if refused is not None:
+            raise refused
+        return _main(args, profile)
 
 
-def _main(args) -> int:
+def _main(args, profile) -> int:
+    device = resolve_device(args.device)
     metrics = MetricsRecorder()
 
     with Timer() as t_load:
@@ -123,11 +148,8 @@ def _main(args) -> int:
     metrics.record(event="load", nodes=graph.n_nodes, edges=graph.n_edges,
                    secs=t_load.elapsed)
 
-    # knob resolution: explicit flag, else the field default
-    # (TUNABLE_DEFAULTS); an unset flag is None and is left out
-    knobs = {"head_coverage": args.head_coverage,
-             "head_row_width": args.head_row_width}
-    cfg = PageRankConfig(
+    cfg = tuned_config(
+        PageRankConfig, profile,
         iterations=args.iterations,
         damping=args.damping,
         tol=args.tol,
@@ -136,14 +158,15 @@ def _main(args) -> int:
         spark_exact=args.spark_exact,
         personalize=tuple(args.personalize) if args.personalize else None,
         spmv_impl=args.spmv_impl,
+        head_coverage=args.head_coverage,
+        head_row_width=args.head_row_width,
         dtype=args.dtype,
         checkpoint_every=args.checkpoint_every,
         checkpoint_dir=args.checkpoint_dir,
-        **{k: v for k, v in knobs.items() if v is not None},
     )
     with trace(args.profile_dir):
         result = run_pagerank(graph, cfg, metrics=metrics, resume=args.resume,
-                              device=args.device)
+                              device=device)
 
     if args.output:
         save_ranks(args.output, graph, result.ranks, top_k=args.top_k)

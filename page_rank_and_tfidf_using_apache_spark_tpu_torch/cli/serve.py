@@ -20,9 +20,11 @@ manifest, ``serving/segments.py``) serves its whole live set.  Output: one
 latency percentiles) lands on stderr at exit.  With ``GRAFT_METRICS_PORT``
 set, the process serves ``/snapshot.json`` and ``/metrics`` while it runs.
 
-The flags are the JAX CLI's, plus ``--device``.  ``--tuned-profile`` is
-accepted and refused: the command exits non-zero naming the ROADMAP item
-that ports it; an unset knob takes its ``TUNABLE_DEFAULTS`` value.
+The flags are the JAX CLI's, plus ``--device``.  An unset knob resolves
+through the tuned profile of the device's backend (``--tuned-profile``,
+else ``$GRAFT_TUNED_PROFILE``, else the port's committed
+``tuned_profile_<backend>.json``; ``off`` disables it), then
+``TUNABLE_DEFAULTS``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import signal
 import sys
 
 from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.obs import manifest
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import (
     ServeConfig,
     ServerShutdown,
@@ -40,14 +43,12 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import (
     load_index,
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import segments as sgm
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import tuned_config
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import (
+    backend_name,
+    resolve_device,
+)
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import percentile
-
-# Flags of the JAX CLI whose paths are not ported yet: flag -> (what it
-# needs, ROADMAP Queue 1 item).  Each defaults to None, so a given flag is
-# one that is not None.
-LATER_FLAGS = {
-    "--tuned-profile": ("the tuned profile", 5),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top-k", type=int, default=10)
     p.add_argument("--max-batch", type=int, default=None,
                    help="micro-batch cap (padded shapes are powers of two; "
-                        "default: TUNABLE_DEFAULTS)")
+                        "default: tuned profile, then TUNABLE_DEFAULTS)")
     p.add_argument("--max-query-terms", type=int, default=16)
     p.add_argument("--cache-size", type=int, default=1024,
                    help="hot-query LRU entries (0 disables)")
@@ -92,32 +93,38 @@ def build_parser() -> argparse.ArgumentParser:
                         "proportional to the query, not the corpus)")
     p.add_argument("--impact-bucket-width", type=int, default=None,
                    help="fixed bucket width the impacted planner pads "
-                        "posting runs to (default: TUNABLE_DEFAULTS)")
+                        "posting runs to (default: tuned profile, then "
+                        "TUNABLE_DEFAULTS)")
+    p.add_argument("--tuned-profile", default=None, metavar="PATH",
+                   help="tuned-profile artifact to resolve unset knobs "
+                        "from ('off' disables profile loading; default: "
+                        "$GRAFT_TUNED_PROFILE, then the port's committed "
+                        "tuned_profile_<backend>.json)")
     p.add_argument("--no-mmap", action="store_true",
                    help="copy the index into RAM instead of mapping it")
     p.add_argument("--device", default=None,
                    help="torch device to serve on (default: cuda)")
     p.add_argument("--trace-dir", default=None,
                    help="obs run-telemetry dir (default: $GRAFT_TRACE_DIR)")
-    later = p.add_argument_group("not ported yet (each exits non-zero naming its ROADMAP item)")
-    for flag, (what, item) in LATER_FLAGS.items():
-        later.add_argument(flag, default=None, metavar="VALUE",
-                           help=f"{what}: ROADMAP Queue 1 item {item}")
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    given = [f for f in LATER_FLAGS if getattr(args, f[2:].replace("-", "_")) is not None]
-    if given:
-        parser.error("; ".join(f"{f} ({LATER_FLAGS[f][0]}) is not ported yet: "
-                               f"ROADMAP Queue 1 item {LATER_FLAGS[f][1]}" for f in given))
-    with obs.run("serve", trace_dir=args.trace_dir):
-        return _main(args)
+    args = build_parser().parse_args(argv)
+    # knob resolution ladder: explicit flag > tuned profile of the
+    # requested device's backend (same-backend only, ProvenanceError
+    # otherwise) > TUNABLE_DEFAULTS; the manifest records the profile, or
+    # why it was refused
+    profile, snapshot, refused = manifest.resolve_tuned_profile(
+        backend_name(args.device), args.tuned_profile)
+    with manifest.recording_profile(snapshot), obs.run("serve", trace_dir=args.trace_dir):
+        if refused is not None:
+            raise refused
+        return _main(args, profile)
 
 
-def _main(args) -> int:
+def _main(args, profile) -> int:
+    device = resolve_device(args.device)
     # A segmented index directory (delta commits of the streaming ingest)
     # serves its whole live set — merged on the device; a plain artifact
     # directory serves its LATEST version.
@@ -126,17 +133,16 @@ def _main(args) -> int:
     else:
         index = load_index(args.index, version=args.version,
                            mmap=not args.no_mmap)
-    # an unset knob takes the config's default (TUNABLE_DEFAULTS)
-    knobs = {"max_batch": args.max_batch,
-             "impact_bucket_width": args.impact_bucket_width}
-    cfg = ServeConfig(
+    cfg = tuned_config(
+        ServeConfig, profile,
         top_k=args.top_k,
+        max_batch=args.max_batch,
         max_query_terms=args.max_query_terms,
         cache_size=args.cache_size,
         rank_alpha=args.rank_alpha,
         prior_alpha=args.prior_alpha,
         scoring=args.scoring,
-        **{k: v for k, v in knobs.items() if v is not None},
+        impact_bucket_width=args.impact_bucket_width,
     )
     # Live SLO telemetry: with GRAFT_METRICS_PORT set, the serve process
     # exposes /snapshot.json + /metrics over the default hub (fed from the
@@ -166,7 +172,7 @@ def _main(args) -> int:
         # reads the next line.  A query FILE is throughput mode: keep a
         # full batch in flight.
         interactive = source is sys.stdin
-        with TfidfServer(index, cfg, device=args.device) as srv:
+        with TfidfServer(index, cfg, device=device) as srv:
             pending = []
             try:
                 for qid, line in enumerate(source):

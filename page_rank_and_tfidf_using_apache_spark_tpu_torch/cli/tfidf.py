@@ -9,11 +9,13 @@ Usage::
     python -m ...cli.tfidf corpus.txt --lines --streaming --chunk-docs 1000 \
         --checkpoint-dir ck --checkpoint-every 4 [--resume] --save-index idx
 
-The flags and defaults are the JAX CLI's (``--tuned-profile off``: no
-tuned profile exists for CUDA, so an unset knob takes its
-``TUNABLE_DEFAULTS`` value).  Its flags for paths the port does not run yet
-(the mesh, the tuned profile) are accepted and refused: the command exits
-non-zero naming the ROADMAP item that ports them.
+The flags and defaults are the JAX CLI's.  An unset knob resolves through
+the tuned profile of the device's backend (``--tuned-profile``, else
+``$GRAFT_TUNED_PROFILE``, else the port's committed
+``tuned_profile_<backend>.json``; ``off`` disables it), then
+``TUNABLE_DEFAULTS``.  Its flag for a path the port does not run yet (the
+mesh) is accepted and refused: the command exits non-zero naming the
+ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -40,11 +42,19 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import (
     run_tfidf,
     run_tfidf_streaming,
 )
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.obs import manifest
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops.tfidf import TfidfResult, score_query
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import save_index
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import checkpoint as ckpt
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import Bm25Config, TfidfConfig
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import resolve_device
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
+    Bm25Config,
+    TfidfConfig,
+    tuned_config,
+)
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import (
+    backend_name,
+    resolve_device,
+)
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.profiling import trace
 
@@ -53,7 +63,6 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.profiling import tra
 # one that is not None.
 LATER_FLAGS = {
     "--mesh": ("multi-GPU ingest", 11),
-    "--tuned-profile": ("the tuned profile", 5),
 }
 
 
@@ -84,16 +93,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefetch", type=int, default=None,
                    help="tokenized chunks the tokenizer thread may run ahead, "
                         "and launches in flight (0 = serial; default: "
-                        "TUNABLE_DEFAULTS)")
+                        "tuned profile, then TUNABLE_DEFAULTS)")
     p.add_argument("--pipeline-depth", type=int, default=None,
                    help="H2D-staged chunks the transfer thread may hold: "
                         "chunk N+1's copy runs under chunk N's compute "
-                        "(0 = stage inline; default: TUNABLE_DEFAULTS)")
+                        "(0 = stage inline; default: tuned profile, then "
+                        "TUNABLE_DEFAULTS)")
     p.add_argument("--pack-target", type=int, default=None, metavar="TOKENS",
                    help="re-pack incoming chunks to ~TOKENS tokens each "
                         "before padding (0 = keep the source chunking; a "
-                        "resume must use the same value; default: "
-                        "TUNABLE_DEFAULTS)")
+                        "resume must use the same value; default: tuned "
+                        "profile, then TUNABLE_DEFAULTS)")
+    p.add_argument("--tuned-profile", default=None, metavar="PATH",
+                   help="tuned-profile artifact to resolve unset knobs "
+                        "from ('off' disables profile loading; default: "
+                        "$GRAFT_TUNED_PROFILE, then the port's committed "
+                        "tuned_profile_<backend>.json)")
     p.add_argument("--save-index", default=None, metavar="DIR",
                    help="write the result as the next servable index "
                         "version under DIR (serving/artifact.py)")
@@ -134,11 +149,19 @@ def main(argv: list[str] | None = None) -> int:
                                f"ROADMAP Queue 1 item {LATER_FLAGS[f][1]}" for f in given))
     # The traced run covers the whole command (no-op without
     # --trace-dir/GRAFT_TRACE_DIR), as in the pagerank CLI.
-    with obs.run("tfidf", trace_dir=args.trace_dir):
-        return _main(args)
+    # knob resolution ladder: explicit flag > tuned profile of the
+    # requested device's backend (same-backend only, ProvenanceError
+    # otherwise) > TUNABLE_DEFAULTS; the manifest records the profile, or
+    # why it was refused
+    profile, snapshot, refused = manifest.resolve_tuned_profile(
+        backend_name(args.device), args.tuned_profile)
+    with manifest.recording_profile(snapshot), obs.run("tfidf", trace_dir=args.trace_dir):
+        if refused is not None:
+            raise refused
+        return _main(args, profile)
 
 
-def _main(args) -> int:
+def _main(args, profile) -> int:
     device = resolve_device(args.device)
     metrics = MetricsRecorder()
 
@@ -148,10 +171,8 @@ def _main(args) -> int:
         names: list[str] = []
     else:
         docs, names = (load_corpus_lines if args.lines else load_corpus_dir)(args.input)
-    # an unset knob takes the config's default (TUNABLE_DEFAULTS)
-    knobs = {"prefetch": args.prefetch, "pipeline_depth": args.pipeline_depth,
-             "pack_target_tokens": args.pack_target}
-    cfg = TfidfConfig(
+    cfg = tuned_config(
+        TfidfConfig, profile,
         vocab_bits=args.vocab_bits,
         ngram=args.ngram,
         tf_mode=args.tf_mode,
@@ -159,16 +180,21 @@ def _main(args) -> int:
         l2_normalize=args.l2_normalize,
         min_token_len=args.min_token_len,
         chunk_tokens=args.chunk_tokens,
+        prefetch=args.prefetch,
+        pipeline_depth=args.pipeline_depth,
+        pack_target_tokens=args.pack_target,
         checkpoint_every=args.checkpoint_every,
         checkpoint_dir=args.checkpoint_dir,
-        **{k: v for k, v in knobs.items() if v is not None},
     )
     # On resume, probe the checkpoint for the restart chunk so the chunker
     # never reads the ingested prefix into memory; its document count rides
     # along, so a changed --chunk-docs raises instead of skipping the
-    # wrong documents.
+    # wrong documents.  Under a pack target (a flag or a tuned profile) the
+    # checkpoint counts re-packed chunks, not the chunker's: the prefix is
+    # read again, re-packed the same way, and skipped after packing (the
+    # JAX CLI skips source chunks here and refuses the resume).
     skip, skip_docs = 0, None
-    if args.streaming and args.resume:
+    if args.streaming and args.resume and not cfg.pack_target_tokens:
         skip = resume_point(cfg)
         if skip:
             meta = ckpt.peek_meta(ckpt.latest_checkpoint(cfg.checkpoint_dir))

@@ -5,13 +5,17 @@ Reference counterpart: the Spark application page — app id, executors,
 resolved ``SparkConf``.  Here the manifest records the backend and device
 topology (from ``torch.cuda``, when torch is already imported — writing a
 manifest never forces the torch import in), the resolved value of every
-declared ``GRAFT_*`` knob (``utils/config.GRAFT_ENV_KNOBS``), the git sha,
-and run identity.  Processes that only read manifests do so through the
-stdlib-only ``tools/trace_report.py``.
+declared ``GRAFT_*`` knob (``utils/config.GRAFT_ENV_KNOBS``), the tuned
+profile the run resolved its knobs from, the git sha, and run identity.
+Processes that only read manifests do so through the stdlib-only
+``tools/trace_report.py``.
 
 Counterpart of the JAX package's ``obs/manifest.py``, which reads jax's
-devices and its tuned profile.  The port has no tuned profile yet, so
-``tuned_profile`` is always None here.
+devices and records the default backend's profile in every manifest.
+Here a run records the profile it was handed: a CLI resolves the profile
+of the device it runs on (:func:`resolve_tuned_profile`) and opens its run
+inside :func:`recording_profile`, and a run opened outside one (an API
+caller's) records None.
 
 The startup write is atomic (tmp + rename) and self-sufficient: a child
 that is later SIGKILLed still leaves ``status: "running"`` plus its full
@@ -22,13 +26,15 @@ counter/gauge/histogram summary).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
-from typing import Any
+from typing import Any, Iterator
 
 
 def _git_sha() -> str | None:
@@ -78,6 +84,59 @@ def knob_snapshot() -> dict[str, str | None]:
     return {k: os.environ.get(k) for k in sorted(GRAFT_ENV_KNOBS)}
 
 
+def _snapshot(prof) -> dict[str, Any] | None:
+    if prof is None:
+        return None
+    return {
+        "path": str(prof.path) if prof.path is not None else None,
+        "backend": prof.backend,
+        "git_sha": prof.git_sha,
+        "source": prof.source,
+        "knobs": dict(prof.knobs),
+    }
+
+
+# The snapshot of the profile that the command in this context resolved:
+# the startup write records it, None outside recording_profile().
+_PROFILE: contextvars.ContextVar = contextvars.ContextVar("tuned_profile", default=None)
+
+
+@contextlib.contextmanager
+def recording_profile(snapshot: dict[str, Any] | None) -> Iterator[None]:
+    """Runs opened inside record ``snapshot`` (from
+    :func:`resolve_tuned_profile`) as their manifest's ``tuned_profile``."""
+    token = _PROFILE.set(snapshot)
+    try:
+        yield
+    finally:
+        _PROFILE.reset(token)
+
+
+def resolve_tuned_profile(backend: str, path: str | None) -> tuple:
+    """The CLIs' tuned-profile rung, resolved before the run opens: load
+    the profile for ``backend`` (the backend of the device the command
+    resolved) through ``utils/config.load_tuned_profile``, ``path`` being
+    ``--tuned-profile`` (``"off"`` disables profile loading).  Returns
+    ``(profile, snapshot, refused)``: the profile or None, its manifest
+    snapshot (the reference's ``_tuned_profile_snapshot`` for this backend
+    and path), and the error a broken or wrong-backend profile raised —
+    its snapshot is ``{"error": ...}``, evidence rather than a crash inside
+    manifest writing; the command raises it once its run is open."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.artifacts import (
+        ProvenanceError,
+    )
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
+        TunedProfileError,
+        load_tuned_profile,
+    )
+
+    try:
+        prof = None if path == "off" else load_tuned_profile(backend, path=path)
+    except (TunedProfileError, ProvenanceError) as exc:
+        return None, {"error": f"{type(exc).__name__}: {exc}"}, exc
+    return prof, _snapshot(prof), None
+
+
 def _atomic_write(path: str, doc: dict[str, Any]) -> None:
     d = os.path.dirname(os.path.abspath(path))
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
@@ -109,7 +168,7 @@ def write_manifest(
         "git_sha": _git_sha(),
         "lint_clean": None,  # filled by callers that ran the gate (bench.py)
         "knobs": knob_snapshot(),
-        "tuned_profile": None,  # the port has no tuned profile yet
+        "tuned_profile": _PROFILE.get(),
     }
     doc.update(_device_snapshot())
     if extra:

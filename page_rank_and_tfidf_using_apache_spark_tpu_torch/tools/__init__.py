@@ -21,7 +21,10 @@ import sys
 import torch
 
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import artifacts, timing
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import resolve_device
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import (
+    backend_name,
+    resolve_device,
+)
 
 
 def add_common_args(ap: argparse.ArgumentParser) -> None:
@@ -35,15 +38,22 @@ def add_common_args(ap: argparse.ArgumentParser) -> None:
                          "stage and writes null times)")
 
 
+def device_stamp(device: torch.device) -> dict:
+    """What a record measured on ``device`` carries beside its backend: the
+    card's name and power limit (``utils/timing.card``), or the device
+    type and ``None`` off the card."""
+    if device.type == "cuda":
+        return timing.card()
+    return {"device": device.type, "power_limit": None}
+
+
 def start(args: argparse.Namespace) -> tuple[torch.device, str, dict] | None:
     """Resolve the device and its stamp, and check ``--out`` before any
     measurement.  Returns ``(device, backend, stamp)``, or ``None`` after
     printing why the write would be refused."""
     device = resolve_device(args.device)
-    if device.type == "cuda":
-        backend, stamp = "gpu", timing.card()
-    else:
-        backend, stamp = device.type, {"device": device.type, "power_limit": None}
+    backend = backend_name(device)
+    stamp = device_stamp(device)
     try:
         artifacts.check_overwrite(args.out, backend, force=args.force)
     except artifacts.ProvenanceError as exc:

@@ -5,15 +5,19 @@ Counterpart of the JAX package's ``utils/config.py`` (``PageRankConfig``,
 ``DanglingMode``, ``RankInit``, ``IngestConfig``, ``TfidfConfig``,
 ``IdfMode``, ``TfMode``, ``HitsConfig``, ``ComponentsConfig``,
 ``Bm25Config``, the keys of ``TUNABLE_DEFAULTS``
-they read, ``config_hash`` and ``config_to_json``), copied so the port
-never imports that package.  Field names, defaults, validation and hashes
+they read, ``config_hash`` and ``config_to_json``, and the tuned-profile
+API: ``TunedProfileError``, ``TunedProfile``, ``default_backend``,
+``profile_path``, ``load_tuned_profile``, ``write_tuned_profile`` and
+``tuned_config``), copied so the port never imports that package.  Field names, defaults, validation and hashes
 are held equal to the JAX package by ``tests/test_torch_graph.py``
 (PageRank), ``tests/test_torch_tfidf.py`` (TF-IDF),
 ``tests/test_torch_ingest.py`` / ``tests/test_torch_artifact.py``
 (ingest, BM25) and ``tests/test_torch_fixpoint.py`` (the hashes of
 ``PageRankConfig``, ``HitsConfig`` and ``ComponentsConfig``, which a
-checkpoint carries).  The JAX package's ``ensure_dtype_support`` has no
-counterpart: PyTorch takes float64 as it is.
+checkpoint carries), the tuned-profile API by
+``tests/test_torch_tuned_profile.py``.  The JAX package's
+``ensure_dtype_support`` has no counterpart: PyTorch takes float64 as it
+is.
 """
 
 from __future__ import annotations
@@ -22,11 +26,15 @@ import dataclasses
 import enum
 import hashlib
 import json
+import os
+import pathlib
+import tempfile
+import time
 from typing import Any
 
-# The performance knobs the configs read and their hand-picked defaults.  No tuned
-# profile exists for CUDA yet, so a knob resolves as explicit value, then
-# this table.
+# The performance knobs the configs read and their hand-picked defaults.  A
+# knob resolves as explicit value, then the tuned profile of the backend the
+# run computes on (load_tuned_profile below), then this table.
 TUNABLE_DEFAULTS: dict = {
     # hybrid SpMV dense-head layout (ops/pagerank.py, PageRankConfig)
     "head_coverage": 0.5,
@@ -68,6 +76,13 @@ GRAFT_ENV_KNOBS: frozenset = frozenset({
     "GRAFT_STEP_DEADLINE_S",  # watchdog deadline for segment dispatch
     "GRAFT_BACKOFF_BASE_S",  # first backoff delay
     "GRAFT_BACKOFF_MAX_S",  # backoff ceiling
+    "GRAFT_TUNE_BUDGET_S",  # tools/autotune.py wall-clock budget for
+    # the measured sweep over cost-model survivors (default 60s — the
+    # pruned grid must fit)
+    "GRAFT_TUNED_PROFILE",  # path to a tuned_profile_<backend>.json the
+    # knob resolution ladder loads instead of the committed per-backend
+    # default ("off" or empty disables profile loading
+    # entirely: every knob falls back to TUNABLE_DEFAULTS)
 })
 
 # The degradation rungs of the resilience executor (resilience/executor.py
@@ -408,3 +423,227 @@ def _hash_config(cfg: Any, exclude: set[str] = frozenset()) -> str:
     configuration; equal to the JAX package's for equal configs."""
     d = {k: v for k, v in _to_jsonable(cfg).items() if k not in exclude}
     return hashlib.sha256(json.dumps(d, sort_keys=True).encode()).hexdigest()[:16]
+
+
+# --------------------------------------------------------------------------
+# Tuned-profile artifact: the committed per-backend knob optimum
+# tools/autotune.py measures.  Spark counterpart: a tuned ``spark.conf``
+# shipped alongside the job — platform-specific values for the same named
+# knobs the code reads through one resolution ladder.
+# --------------------------------------------------------------------------
+
+# The port's committed profiles live in its package directory.
+_PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
+
+
+class TunedProfileError(ValueError):
+    """A tuned-profile artifact failed structural validation."""
+
+
+@dataclasses.dataclass(frozen=True)
+class TunedProfile:
+    """One backend's measured knob optimum, as loaded from a
+    ``tuned_profile_<backend>.json`` artifact.
+
+    ``knobs`` maps TUNABLE_DEFAULTS names to the measured-best values;
+    ``measured`` carries the sweep evidence (per-group times, the card's
+    name and power limit) for forensics.  ``source`` records which rung of
+    the resolution ladder produced this profile ("explicit" path argument,
+    "env" GRAFT_TUNED_PROFILE, or the "committed" per-backend default) —
+    run manifests persist it so a run's numbers are attributable."""
+
+    backend: str
+    knobs: dict
+    path: str | None = None
+    git_sha: str | None = None
+    created_wall: float | None = None
+    measured: dict | None = None
+    source: str = "explicit"
+
+    def knob(self, name: str, default: Any = None) -> Any:
+        return self.knobs.get(name, default)
+
+
+def default_backend() -> str:
+    """The backend stamp of a process that has resolved no device:
+    ``"gpu"`` where CUDA is available, else ``"cpu"``.  An entry point that
+    resolved its device passes that device's backend
+    (``utils.device.backend_name``) instead, so a ``--device cpu`` run on a
+    machine with a card resolves the CPU's profile."""
+    import torch
+
+    return "gpu" if torch.cuda.is_available() else "cpu"
+
+
+def profile_path(backend: str, root: str | pathlib.Path | None = None) -> str:
+    """Committed location of ``backend``'s tuned profile artifact:
+    ``tuned_profile_<backend>.json`` in the port's package directory (or in
+    ``root``).  The JAX package keeps its profiles at the repository root,
+    where its ``profile-drift`` lint reads every ``tuned_profile_*.json``
+    as its own, so neither package loads (or audits) the other's."""
+    base = pathlib.Path(root) if root is not None else _PACKAGE_DIR
+    return str(base / f"tuned_profile_{backend}.json")
+
+
+def load_tuned_profile(
+    backend: str | None = None,
+    path: str | pathlib.Path | None = None,
+    *,
+    root: str | pathlib.Path | None = None,
+) -> TunedProfile | None:
+    """Resolve and load the tuned profile for ``backend``.
+
+    Resolution ladder (highest wins):
+
+    1. an explicit ``path`` argument (CLI ``--tuned-profile``);
+    2. the ``GRAFT_TUNED_PROFILE`` env knob — ``"off"``/empty disables
+       profile loading entirely (returns None: every knob falls back to
+       ``TUNABLE_DEFAULTS``);
+    3. the committed ``tuned_profile_<backend>.json`` in the port's
+       package directory (None when absent — a missing committed profile is not an
+       error).
+
+    A profile stamped for a DIFFERENT backend raises ``ProvenanceError``
+    (same guard class as the measured cost artifacts): a CPU-tuned
+    optimum must never silently steer a GPU run, nor vice versa.
+    """
+    from .artifacts import ProvenanceError
+
+    if backend is None:
+        backend = default_backend()
+    source = "explicit"
+    if path is None:
+        env = os.environ.get("GRAFT_TUNED_PROFILE")
+        if env is not None:
+            if env.strip().lower() in ("", "off", "0", "none"):
+                return None
+            path, source = env, "env"
+        else:
+            path, source = profile_path(backend, root=root), "committed"
+            if not os.path.exists(path):
+                return None
+    try:
+        text = pathlib.Path(path).read_text()
+    except OSError as exc:
+        raise TunedProfileError(
+            f"tuned profile {path} unreadable: {exc}"
+        ) from exc
+    try:
+        record = json.loads(text)
+    except json.JSONDecodeError as exc:
+        raise TunedProfileError(
+            f"tuned profile {path} is not valid JSON: {exc}"
+        ) from exc
+    if not isinstance(record, dict) or "backend" not in record \
+            or "knobs" not in record:
+        raise TunedProfileError(
+            f"tuned profile {path} missing required keys "
+            "('backend', 'knobs')"
+        )
+    stamped = str(record["backend"])
+    if stamped != backend:
+        raise ProvenanceError(
+            f"tuned profile {path} was measured on backend {stamped!r} but "
+            f"this run computes on {backend!r}; refusing to load a "
+            "cross-backend optimum (re-tune with tools/autotune.py on this "
+            "backend, or point GRAFT_TUNED_PROFILE at the right artifact)"
+        )
+    knobs = record["knobs"]
+    if not isinstance(knobs, dict) or not all(
+        isinstance(v, (int, float)) and not isinstance(v, bool)
+        for v in knobs.values()
+    ):
+        raise TunedProfileError(
+            f"tuned profile {path} knobs must map names to numbers"
+        )
+    return TunedProfile(
+        backend=stamped,
+        knobs=dict(knobs),
+        path=str(path),
+        git_sha=record.get("git_sha"),
+        created_wall=record.get("created_wall"),
+        measured=record.get("measured"),
+        source=source,
+    )
+
+
+def write_tuned_profile(
+    path: str | pathlib.Path,
+    backend: str,
+    knobs: dict,
+    *,
+    measured: dict | None = None,
+    force: bool = False,
+) -> dict:
+    """Commit a tuned profile artifact durably.
+
+    Same write discipline as the cost artifacts: backend-stamped,
+    ``check_overwrite`` guarded (a run on another backend may not clobber
+    an accelerator-stamped profile without ``force``), staged to a temp
+    file and published with ``durable_replace`` so a crash at any point
+    leaves either the old profile or the new one — never a torn JSON."""
+    from .artifacts import check_overwrite
+    from .checkpoint import durable_replace
+
+    check_overwrite(path, backend, force=force)
+    record = {
+        "backend": backend,
+        "knobs": {str(k): knobs[k] for k in sorted(knobs)},
+        "git_sha": _git_short_sha(),
+        "created_wall": time.time(),
+        "measured": dict(measured or {}),
+    }
+    target = pathlib.Path(path)
+    fd, tmp = tempfile.mkstemp(dir=str(target.parent) or ".",
+                               suffix=".tuned.tmp")
+    try:
+        with os.fdopen(fd, "w") as f:
+            f.write(json.dumps(record, sort_keys=True) + "\n")
+        durable_replace(tmp, str(target))
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return record
+
+
+def tuned_config(cls: type, profile: TunedProfile | None = None,
+                 **overrides: Any) -> Any:
+    """Build config dataclass ``cls`` through the knob resolution ladder:
+    explicit non-None override > tuned-profile knob > field default (which
+    reads ``TUNABLE_DEFAULTS``).  ``None`` overrides mean "not specified"
+    — exactly what argparse hands over for an unset flag — so CLI layers
+    pass their whole namespace through without pre-filtering."""
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    unknown = set(overrides) - set(fields)
+    if unknown:
+        raise TypeError(
+            f"{cls.__name__} has no fields {sorted(unknown)}"
+        )
+    kwargs: dict = {}
+    for name, field in fields.items():
+        if overrides.get(name) is not None:
+            kwargs[name] = overrides[name]
+        elif profile is not None and name in TUNABLE_DEFAULTS \
+                and name in profile.knobs:
+            value = profile.knobs[name]
+            # int knobs arrive as JSON numbers; preserve the field's kind
+            if isinstance(TUNABLE_DEFAULTS.get(name), int):
+                value = int(value)
+            kwargs[name] = value
+    return cls(**kwargs)
+
+
+def _git_short_sha() -> str | None:
+    """Short HEAD sha of the repo the profile was tuned in (None when git
+    is unavailable — e.g. a deployed artifact tree)."""
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["git", "rev-parse", "--short", "HEAD"],
+            cwd=str(_PACKAGE_DIR), capture_output=True, text=True, timeout=10,
+        )
+    except (OSError, subprocess.SubprocessError):
+        return None
+    sha = out.stdout.strip()
+    return sha if out.returncode == 0 and sha else None

@@ -21,3 +21,12 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def backend_name(device: str | torch.device | None = None) -> str:
+    """The backend stamp of a run on ``device`` (``None`` means ``cuda``;
+    availability is not checked): ``"gpu"`` for a CUDA device, else the
+    device type (``"cpu"``).  Measured records and tuned profiles carry
+    it."""
+    dev = torch.device(DEFAULT_DEVICE if device is None else device)
+    return "gpu" if dev.type == "cuda" else dev.type

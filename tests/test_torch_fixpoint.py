@@ -279,7 +279,6 @@ def test_cli_checkpoint_flags_match_jax_cli(tmp_path):
 @pytest.mark.parametrize("flags, item", [
     (["--mesh", "2"], 11),
     (["--shard-strategy", "nodes"], 11),
-    (["--tuned-profile", "off"], 5),
 ])
 def test_later_flags_exit_naming_their_item(flags, item, capsys):
     with pytest.raises(SystemExit) as exc:

@@ -31,6 +31,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import (
     run_tfidf_streaming,
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import (
+    autotune,
     gather_micro,
     spmv_breakdown,
     xla_cost_micro,
@@ -118,6 +119,14 @@ def test_scan_covers_the_resilience_slice():
             "resilience/elastic.py", "resilience/executor.py"} <= scanned
 
 
+def test_scan_covers_the_tuned_profile_slice():
+    """The tuner and the modules of the knob resolution ladder are among
+    the files the scan reads."""
+    scanned = {p.relative_to(PORT).as_posix() for p in FILES if p.is_relative_to(PORT)}
+    assert {"tools/autotune.py", "utils/config.py", "obs/manifest.py", "cli/pagerank.py",
+            "cli/tfidf.py", "cli/serve.py"} <= scanned
+
+
 @pytest.mark.parametrize("source, flagged", [
     ("import page_rank_and_tfidf_using_apache_spark_tpu_torch.ops", set()),
     ("from page_rank_and_tfidf_using_apache_spark_tpu_torch import api", set()),
@@ -170,7 +179,7 @@ TOOLS = {"gather_micro": gather_micro, "spmv_breakdown": spmv_breakdown,
                                    "run_tfidf_streaming", "cli_tfidf_streaming",
                                    "run_ppr_batch", "run_hits", "run_components",
                                    "cli_workloads_ppr", "cli_workloads_hits",
-                                   "cli_workloads_cc"])
+                                   "cli_workloads_cc", "autotune"])
 def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
     """With no CUDA and no ``device=``, every entry point raises rather than
     running on the CPU."""
@@ -208,6 +217,8 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
             extra = ["--queries", "1"] if workload == "ppr" else []
             workloads_cli.main([workload, TINY, *extra, "--metrics-json",
                                 str(tmp_path / "r.json")])
+        elif entry == "autotune":
+            autotune.main(["--budget-s", "0", "--out", str(tmp_path / "r.json")])
         else:
             TOOLS[entry].main(["--reps", "1", "--out", str(tmp_path / "r.json")])
     assert not (tmp_path / "r.json").exists()
