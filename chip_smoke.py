@@ -201,10 +201,11 @@ Phases, each of which exits non-zero on failure:
    of ``segment`` in float32 and L1 1e-12 in float64, each of its
    kernels launched once a step; (15c) two sweeps of ``--budget-s 20`` on
    the tuner's probes into temporary paths: every knob in its domain,
-   stamped ``gpu`` with the card's name and power limit, ``owned`` a
-   fallback at its default, every other group's defaults measured first
-   and left only for a winner whose turns all beat them (the committed
-   profile too), the groups' winners side by side; (15d) the PageRank CLI
+   stamped ``gpu`` with the card's name and power limit, each measured
+   group's defaults measured first (``owned`` on four slots of the card)
+   and left only for a winner whose turns all beat them, a group the
+   budget left unmeasured at its defaults (the committed profile too),
+   the groups' winners side by side; (15d) the PageRank CLI
    (``hybrid``, full size) with ``--tuned-profile``, with an explicit
    ``--head-row-width`` beside it, under ``GRAFT_TUNED_PROFILE``, with
    ``off`` and with neither (the committed profile): ranks bit-equal to
@@ -221,12 +222,33 @@ Phases, each of which exits non-zero on failure:
    1,024 queries, medians and spreads, not a claim.  Phases 5, 8, 10, 11d
    and 12a run their CLIs with ``--tuned-profile off``, the setting of the
    API run they are held to;
+16. the mesh of slots (``parallel/``), D slots of ``cuda:0`` (the D-shard
+   layout on one card, not multi-GPU scaling): (16a) each collective on 1,
+   2 and 4 slots against the same collective over CPU tensors, gathers and
+   permutes exact, float64 reductions within 1e-12; (16b)
+   ``run_pagerank_sharded`` on the main path's graph, 20 iterations, every
+   strategy at 4 slots under ``segment`` (``owned`` at 2 too) and
+   ``cumsum`` under ``edges`` and ``nodes``: float64 within 1e-9 L1 of the
+   single-device float64 run, float32 within L1 1e-3 of it, two float32
+   runs equal bit for bit, ``segment.cu`` launched at least D x 20 times
+   (``cumsum.cu`` under ``cumsum``, ``rowsum.cu`` at least 20 under
+   ``hybrid``), iterations/s, partition and put seconds; (16c) ``owned``
+   and ``edges`` at 4 slots, a checkpoint every 5, slot 1 lost at the step
+   and slot 2 at the rerun: degraded ``mesh_shrink`` 4 -> 2 then
+   ``single_device`` 2 -> 1, float64 within 1e-9 L1 of the unbroken run;
+   (16d) ``run_tfidf_sharded`` over config 2 at 4 slots against
+   ``run_tfidf_streaming``: COO, counts and DF equal, weights within 2e-6,
+   whether the bits are equal; (16e) PPR (B = 8), HITS and components at
+   4 slots against the single-device runs at phase 12's bars; (16f)
+   ``cli.pagerank --mesh 1 --shard-strategy auto`` byte-equal to the API,
+   ``--mesh`` past the visible cards failing with the reference's message;
 7. one JSON line describing every kernel (with ``workload_launches``, each
-   kernel's launches in 12a-12c, 13a-13c, 14 and 15b by workload), then the
-   result line.
+   kernel's launches in 12a-12c, 13a-13c, 14, 15b and 16 by workload), then
+   the result line.
 
 Without a CUDA device, or without the port's package beside it, it exits
-non-zero and prints no result.
+non-zero and prints no result.  ``python3 chip_smoke.py --cards`` on a
+machine with four or more cards runs phase 16 alone with one slot a card.
 """
 
 from __future__ import annotations
@@ -3460,17 +3482,16 @@ def tuned_kernels_phase(graph, reset_counts, counts, card_label: str) -> dict:
 
 
 def check_confirm_rule(autotune, tcfg, prof, label: str) -> None:
-    """A profile's groups obey the tuner's rule: ``owned`` a fallback at its
-    default; every other group measured its TUNABLE_DEFAULTS point first,
-    and left it only for a winner each of whose CONFIRM_ORDER runs beat
-    each run of the defaults."""
+    """A profile's groups obey the tuner's rule: a group the budget left
+    unmeasured (a fallback) at its default; every other group measured its
+    TUNABLE_DEFAULTS point first, and left it only for a winner each of
+    whose CONFIRM_ORDER runs beat each run of the defaults."""
     for group, v in prof.measured["groups"].items():
         default = {k: tcfg.TUNABLE_DEFAULTS[k] for k in dict(autotune.GROUPS)[group]}
         check({k: prof.knobs[k] for k in default} == v["winner"],
               f"{label}: {group}'s knobs are not its winner {v['winner']}")
-        if group == "owned":
-            check(v["fallback"] and v["measured"] == [] and v["winner"] == default,
-                  f"{label}: owned {v}")
+        if v["fallback"]:
+            check(v["winner"] == default, f"{label}: {group} {v}")
             continue
         first = v["measured"][0] if v["measured"] else {}
         check(first.get("point") == default and first.get("default") and "secs" in first,
@@ -3487,7 +3508,8 @@ def check_confirm_rule(autotune, tcfg, prof, label: str) -> None:
 def tuned_sweep_phase(autotune, tcfg, smi: dict, tmp: str) -> tuple:
     """15c: two sweeps on the tuner's probes into temporary paths: every
     tuned knob in its domain, stamped ``gpu`` with the card's name and
-    power limit, ``owned`` a fallback at its default.  Returns the first
+    power limit, each group under the tuner's rule (``owned`` measured on
+    four slots of the card when the budget reaches it).  Returns the first
     sweep's path and profile."""
     import io
 
@@ -3847,6 +3869,362 @@ def tuned_phase(graph, docs, default_ranks, smi: dict, reset_counts, counts,
         tuned_ab_phase(graph, docs, committed, out, index, card_label)
         print(f"phase 15e (defaults against the profile): {time.perf_counter() - t0:.1f} s")
     return launched
+
+
+# ---------------------------------------------------------------- phase 16
+
+SHARD_SLOTS = 4
+SHARD_STRATEGIES = ("edges", "nodes", "nodes_balanced", "src", "src_ring", "hybrid", "owned")
+# the elastic plan: slot 1 lost at the step, slot 2 at the rerun (4 -> 2 -> 1)
+SHRINK_PLAN = "pagerank_step:device_lost@dev:1;pagerank_elastic_rerun:device_lost@dev:2"
+SHRINK_LADDER = [("mesh_shrink", 4, 2), ("single_device", 2, 1)]
+
+
+# Phase 16's slots: ``d`` slots of cuda:0 (the default: the D-shard layout on
+# the one card), or one slot a card under ``--cards`` (cards_main).
+SLOT_DEVICES: list = ["cuda:0"] * SHARD_SLOTS
+
+
+def card_mesh(d: int, axis: str | None = None):
+    """A mesh of the first ``d`` of phase 16's slot devices."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel import mesh as pmesh
+
+    return pmesh.make_mesh(d, axis or pmesh.NODES_AXIS, devices=SLOT_DEVICES[:d])
+
+
+def collectives_phase() -> None:
+    """16a: each collective on 1, 2 and 4 slots (of cuda:0) against the same
+    collective over CPU tensors: gathers and permutes exact; float64
+    ring_reduce_scatter against reduce_scatter, and psum against a float64
+    sum, within 1e-12."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel import collectives as coll
+
+    rng = np.random.default_rng(SEED)
+    worst = 0.0
+    for d in (1, 2, 4):
+        x = rng.standard_normal((d, d * 1024))
+        cards = [torch.from_numpy(x[i]).to(SLOT_DEVICES[i]) for i in range(d)]
+        cpus = [torch.from_numpy(x[i]) for i in range(d)]
+        for name in ("all_gather", "ppermute_ring", "butterfly_all_gather", "pmax"):
+            got = [t.cpu().numpy() for t in getattr(coll, name)(cards)]
+            want = [t.numpy() for t in getattr(coll, name)(cpus)]
+            check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+                  f"16a {name} d={d}: the card differs from the CPU")
+        rs = np.stack([t.cpu().numpy() for t in coll.reduce_scatter(cards)])
+        ring = np.stack([t.cpu().numpy() for t in coll.ring_reduce_scatter(cards)])
+        ps = coll.psum(cards)[d - 1].cpu().numpy()
+        exact = x.sum(axis=0, dtype=np.float64)
+        err = max(float(np.abs(ring - rs).max()), float(np.abs(ps - exact).max()),
+                  float(np.abs(rs.ravel() - exact).max()))
+        worst = max(worst, err)
+        check(err <= 1e-12, f"16a d={d}: reduce error {err:.3g} > 1e-12")
+    print(f"16a collectives on 1, 2, 4 slots of {sorted(set(SLOT_DEVICES))}: gathers and "
+          f"permutes equal to the CPU's, reductions within {worst:.3g} of float64")
+
+
+def sharded_run(graph, cfg, strategy: str, d: int, reset_counts, counts):
+    """One run_pagerank_sharded on ``d`` slots of the card, its launches
+    counted from a reset just before it."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel import run_pagerank_sharded
+
+    mesh = card_mesh(d)
+    reset_counts()
+    res = run_pagerank_sharded(graph, cfg, mesh=mesh, strategy=strategy)
+    return res, counts()
+
+
+def sharded_pagerank_phase(graph, reset_counts, counts, card_label: str) -> dict:
+    """16b: every strategy at 4 slots under segment (owned also at 2), and
+    cumsum under edges and nodes: float64 within 1e-9 L1 of the
+    single-device float64 run, float32 within L1 1e-3 of float64, two
+    float32 runs equal bit for bit, the launches (segment >= D x 20, rowsum
+    >= 20 under hybrid, cumsum >= D x 20 under cumsum), iterations/s,
+    partition and put seconds.  Returns the launches of the float32 runs."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import PageRankConfig
+
+    base = dict(iterations=ITERS, dangling="redistribute", init="uniform")
+    ref = run_pagerank(graph, PageRankConfig(**base, dtype="float64"), device="cuda").ranks
+    runs = ([(s, SHARD_SLOTS, "segment") for s in SHARD_STRATEGIES]
+            + [("owned", 2, "segment"), ("edges", SHARD_SLOTS, "cumsum"),
+               ("nodes", SHARD_SLOTS, "cumsum")])
+    total: dict = {}
+    for strategy, d, impl in runs:
+        label = f"16b {strategy} D={d} {impl}"
+        r64, _ = sharded_run(graph, PageRankConfig(**base, dtype="float64", spmv_impl=impl),
+                             strategy, d, reset_counts, counts)
+        cfg32 = PageRankConfig(**base, dtype="float32", spmv_impl=impl)
+        r32, launched = sharded_run(graph, cfg32, strategy, d, reset_counts, counts)
+        again, _ = sharded_run(graph, cfg32, strategy, d, reset_counts, counts)
+        add_counts(total, launched)
+        l1_64 = float(np.abs(r64.ranks - ref).sum())
+        l1_32 = float(np.abs(r32.ranks.astype(np.float64) - ref).sum())
+        differ = bits_differ(r32.ranks, again.ranks)
+        part = next(r for r in r32.metrics.records if r.get("event") == "partition")
+        rate = r32.metrics.records[-1]["iters_per_sec"]
+        where = (f"{d} cards" if len(set(SLOT_DEVICES[:d])) == d
+                 else f"{d} slots of one card, not multi-GPU scaling")
+        print(f"{label} ({card_label}; {where}): "
+              f"{rate:.2f} iterations/s, partition {part['secs']:.3f} s, put "
+              f"{part['put_secs']:.3f} s, pad_frac {part['pad_frac']}, "
+              f"comm_bytes_per_step {part['comm_bytes_per_step']}; float64 L1 {l1_64:.3g} vs one "
+              f"device, float32 L1 {l1_32:.3g}; {differ} entries differ over two float32 runs; "
+              f"launches {launched}")
+        check(r64.iterations == r32.iterations == ITERS, f"{label}: iterations")
+        check(bool(np.isfinite(r32.ranks).all()) and r32.ranks.shape == (graph.n_nodes,),
+              f"{label}: ranks not finite or wrong shape")
+        check(l1_64 <= 1e-9, f"{label}: float64 L1 {l1_64} from the single-device run > 1e-9")
+        check(l1_32 <= 1e-3, f"{label}: float32 L1 {l1_32} from float64 > 1e-3")
+        check(differ == 0, f"{label}: two runs differ in {differ} entries")
+        if impl == "segment":
+            check(launched["segment"] >= d * ITERS, f"{label}: segment launched "
+                                                     f"{launched['segment']} times")
+        else:
+            check(launched["cumsum"] >= d * ITERS, f"{label}: cumsum launched "
+                                                    f"{launched['cumsum']} times")
+        if strategy == "hybrid":
+            check(launched["rowsum"] >= ITERS, f"{label}: rowsum launched "
+                                               f"{launched['rowsum']} times")
+    return total
+
+
+def sharded_shrink_phase(graph, reset_counts, counts) -> dict:
+    """16c: owned and edges at 4 slots, float64, a checkpoint every 5, under
+    slot 1 lost at the step and slot 2 at the rerun: one degraded event a
+    shrink with the reference's ladder and counts (4 -> 2 -> 1), ranks
+    within 1e-9 L1 of the unbroken run.  Returns the launches."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel import run_pagerank_sharded
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos, elastic
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import PageRankConfig
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder
+
+    base = dict(iterations=ITERS, dangling="redistribute", init="uniform", dtype="float64")
+    ref = run_pagerank(graph, PageRankConfig(**base), device="cuda").ranks
+    total: dict = {}
+    for strategy in ("owned", "edges"):
+        elastic.reset_health()
+        m = MetricsRecorder()
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = PageRankConfig(**base, checkpoint_every=5, checkpoint_dir=tmp)
+            reset_counts()
+            t0 = time.perf_counter()
+            with chaos.inject(SHRINK_PLAN):
+                res = run_pagerank_sharded(graph, cfg, mesh=card_mesh(SHARD_SLOTS),
+                                           strategy=strategy, metrics=m)
+            secs = time.perf_counter() - t0
+            add_counts(total, counts())
+        elastic.reset_health()
+        ladder = [(r["ladder"], r["devices_old"], r["devices_new"])
+                  for r in m.records if r.get("event") == "degraded"]
+        parts = [r["devices"] for r in m.records if r.get("event") == "partition"]
+        l1 = float(np.abs(res.ranks - ref).sum())
+        print(f"16c {strategy} under {SHRINK_PLAN}: degraded {ladder}, partitions over {parts} "
+              f"slots, {res.iterations} iterations in {secs:.2f} s, float64 L1 {l1:.3g} from "
+              "the unbroken single-device run")
+        check(ladder == SHRINK_LADDER, f"16c {strategy}: ladder {ladder}, wanted {SHRINK_LADDER}")
+        check(parts == [4, 2, 1], f"16c {strategy}: partitions {parts}")
+        check(res.iterations == ITERS and l1 <= 1e-9, f"16c {strategy}: L1 {l1}, "
+                                                      f"{res.iterations} iterations")
+    return total
+
+
+def sharded_tfidf_phase(stream: dict, card_label: str) -> None:
+    """16d: run_tfidf_sharded over config 2 at 4 slots against the port's
+    run_tfidf_streaming on the same chunks: COO, counts and DF exact,
+    weights within 2e-6; whether the bits are equal is printed."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models import tfidf as tm
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel import run_tfidf_sharded
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel.mesh import DATA_AXIS
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
+
+    chunks = chunked(stream["docs"], stream["chunk_docs"])
+    cfg = tcfg.TfidfConfig(**stream["knobs"], idf_mode="smooth", l2_normalize=True)
+    t0 = time.perf_counter()
+    want = tm.run_tfidf_streaming(iter(chunks), cfg, device="cuda")
+    t1 = time.perf_counter()
+    got = run_tfidf_sharded(iter(chunks), cfg, mesh=card_mesh(SHARD_SLOTS, DATA_AXIS))
+    t2 = time.perf_counter()
+    for f in ("doc", "term", "count", "df"):
+        check(np.array_equal(getattr(got, f), getattr(want, f)), f"16d: {f} differs")
+    err = float(np.abs(got.weight - want.weight).max())
+    same = all(getattr(got, f).tobytes() == getattr(want, f).tobytes()
+               for f in ("weight", "idf"))
+    sc = [r for r in got.metrics.records if r.get("event") == "super_chunk"]
+    print(f"16d tfidf config 2 at {SHARD_SLOTS} slots ({card_label}): {got.nnz} pairs, "
+          f"{len(sc)} super-chunks in {t2 - t1:.3f} s against the stream's {t1 - t0:.3f} s; "
+          f"COO, counts, DF equal; weights max abs {err:.3g}; bits equal: {same}")
+    check(err <= 2e-6, f"16d: weights {err} > 2e-6")
+    n_chunks = sum(1 for r in want.metrics.records if r.get("event") == "chunk")
+    check(sum(r["devices"] for r in sc) == n_chunks,
+          f"16d: {sum(r['devices'] for r in sc)} chunks ingested, the stream's {n_chunks}")
+
+
+def sharded_workloads_phase(graph, reset_counts, counts, card_label: str) -> dict:
+    """16e: PPR (B = 8, 10 iterations, segment), HITS (tol 1e-8) and
+    components at 4 slots against the single-device runs at phase 12's
+    bars: PPR float64 within 1e-12, float32 within L1 1e-3 of float64;
+    HITS float64 within 1e-12; labels equal.  Returns the launches."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.components import (
+        run_components,
+    )
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.hits import run_hits
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.ppr import run_ppr_batch
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel import workloads_sharded as ws
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel.mesh import DATA_AXIS
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
+        HitsConfig,
+        PageRankConfig,
+    )
+
+    total: dict = {}
+    rng = np.random.default_rng(SEED)
+    queries = [[int(graph.node_ids[i])] for i in rng.integers(0, graph.n_nodes, size=PPR_BATCH)]
+    ppr = {}
+    for dtype in ("float64", "float32"):
+        cfg = PageRankConfig(iterations=PPR_ITERS, dangling="redistribute", init="uniform",
+                             dtype=dtype)
+        reset_counts()
+        t0 = time.perf_counter()
+        ppr[dtype] = ws.run_ppr_sharded(graph, cfg, queries,
+                                        mesh=card_mesh(SHARD_SLOTS, DATA_AXIS)).ranks
+        secs = time.perf_counter() - t0
+        launched = counts()
+        add_counts(total, launched)
+        check(launched["segment"] == PPR_BATCH * PPR_ITERS,
+              f"16e ppr {dtype}: launches {launched}")
+        print(f"16e ppr {dtype} at {SHARD_SLOTS} slots ({card_label}): B={PPR_BATCH} x "
+              f"{PPR_ITERS} iterations in {secs:.3f} s (graph placement included); launches "
+              f"{launched}")
+    single = run_ppr_batch(graph, PageRankConfig(iterations=PPR_ITERS, dangling="redistribute",
+                                                 init="uniform", dtype="float64"),
+                           queries, device="cuda").ranks
+    e64 = float(np.abs(ppr["float64"] - single).max())
+    l1 = float(np.abs(ppr["float32"].astype(np.float64) - ppr["float64"]).sum(axis=1).max())
+    check(e64 <= 1e-12 and l1 <= 1e-3, f"16e ppr: float64 {e64}, float32 L1 {l1}")
+
+    cfg = HitsConfig(iterations=HITS_ITERS, tol=HITS_TOL, dtype="float64")
+    reset_counts()
+    t0 = time.perf_counter()
+    hits = ws.run_hits_sharded(graph, cfg, mesh=card_mesh(SHARD_SLOTS))
+    secs = time.perf_counter() - t0
+    launched = counts()
+    add_counts(total, launched)
+    one = run_hits(graph, cfg, device="cuda")
+    eh = max(float(np.abs(hits.hubs - one.hubs).max()),
+             float(np.abs(hits.authorities - one.authorities).max()))
+    check(hits.iterations == one.iterations and eh <= 1e-12,
+          f"16e hits: {eh} from one device, {hits.iterations}/{one.iterations} iterations")
+    check(launched["segment"] == 2 * SHARD_SLOTS * hits.iterations,
+          f"16e hits: launches {launched}")
+
+    reset_counts()
+    cc = ws.run_components_sharded(graph, mesh=card_mesh(SHARD_SLOTS))
+    add_counts(total, counts())
+    base = run_components(graph, device="cuda")
+    check(np.array_equal(cc.labels, base.labels) and cc.converged, "16e components: labels differ")
+    print(f"16e ppr float64 max abs {e64:.3g} from one device, float32 worst row L1 {l1:.3g}; "
+          f"hits {hits.iterations} iterations in {secs:.3f} s, max abs {eh:.3g}, launches "
+          f"{launched}; components {cc.n_components} in {cc.iterations} rounds, labels equal")
+    return total
+
+
+def sharded_cli_phase(graph) -> None:
+    """16f: cli.pagerank --mesh N --shard-strategy auto equal to the API over
+    N visible cards (N = 1 on one card); --mesh beyond the visible cards
+    fails with the reference's message."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.cli import pagerank as cli
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import save_ranks
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel import run_pagerank_sharded
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel.mesh import make_mesh
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import PageRankConfig
+
+    n = torch.cuda.device_count()
+    cards = len(set(SLOT_DEVICES)) if len(set(SLOT_DEVICES)) > 1 else 1
+    with tempfile.TemporaryDirectory() as tmp:
+        out, want = os.path.join(tmp, "cli.tsv"), os.path.join(tmp, "api.tsv")
+        rc = cli.main([f"synthetic:{N_NODES},{N_EDGES},{SEED}", str(ITERS), "--dangling",
+                       "redistribute", "--init", "uniform", "--mesh", str(cards),
+                       "--shard-strategy", "auto", "--output", out, "--tuned-profile", "off"])
+        check(rc == 0, f"16f: the CLI exited {rc}")
+        res = run_pagerank_sharded(graph, PageRankConfig(
+            iterations=ITERS, dangling="redistribute", init="uniform"), mesh=make_mesh(cards),
+            strategy="auto")
+        save_ranks(want, graph, res.ranks)
+        with open(out) as f_cli, open(want) as f_api:
+            same = f_cli.read() == f_api.read()
+        check(same, f"16f: the CLI's --mesh {cards} output differs from the API's")
+        try:
+            cli.main([f"synthetic:{N_NODES},{N_EDGES},{SEED}", "2", "--mesh", str(n + 1),
+                      "--output", os.path.join(tmp, "x.tsv"), "--tuned-profile", "off"])
+            check(False, f"16f: --mesh {n + 1} ran on {n} card(s)")
+        except ValueError as exc:
+            check(f"requested {n + 1} devices but only {n} available" in str(exc),
+                  f"16f: --mesh {n + 1} raised {exc}")
+            msg = str(exc)
+    chosen = [r for r in res.metrics.records if r.get("event") == "auto_strategy"]
+    print(f"16f: cli.pagerank --mesh {cards} --shard-strategy auto (chose "
+          f"{chosen[0]['chosen']}) byte-equal to the API's ranks; --mesh {n + 1}: {msg}")
+
+
+def sharded_phase(graph, stream: dict, reset_counts, counts, card_label: str) -> dict:
+    """Phase 16 (see the module docstring).  Returns the launches of its
+    runs by sub-phase."""
+    launches = {}
+    t0 = time.perf_counter()
+    collectives_phase()
+    launches["sharded"] = sharded_pagerank_phase(graph, reset_counts, counts, card_label)
+    print(f"phase 16b: {time.perf_counter() - t0:.1f} s")
+    launches["shrink"] = sharded_shrink_phase(graph, reset_counts, counts)
+    sharded_tfidf_phase(stream, card_label)
+    launches["sharded_workloads"] = sharded_workloads_phase(graph, reset_counts, counts,
+                                                            card_label)
+    sharded_cli_phase(graph)
+    return launches
+
+
+def cards_main() -> int:
+    """``--cards``: phase 16 alone with one slot a visible card (at least 4):
+    the sharded paths across cards.  Prints the card, phase 16's lines and a
+    result line with the card count."""
+    global SLOT_DEVICES
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.io import text as tio
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import synthetic_powerlaw
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import gather_kernels as gk
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pallas_kernels as pk
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import segment_kernels as sk
+
+    n = torch.cuda.device_count()
+    check(n >= SHARD_SLOTS, f"--cards needs {SHARD_SLOTS} cards, {n} visible")
+    SLOT_DEVICES = [f"cuda:{i}" for i in range(SHARD_SLOTS)]
+
+    def reset_counts() -> None:
+        pk.reset_launches()
+        gk.reset_launches()
+        sk.reset_launches()
+
+    def counts() -> dict:
+        return {**pk.LAUNCHES, **gk.LAUNCHES, **sk.LAUNCHES}
+
+    smi = card()
+    print(f"{smi['device']}, {smi['power_limit']}")
+    t0 = time.perf_counter()
+    _build.build(force=True)
+    print(f"build: {time.perf_counter() - t0:.2f} s wall")
+    graph = synthetic_powerlaw(N_NODES, N_EDGES, seed=SEED)
+    stream = {"docs": tio.synthetic_corpus_lines(TFIDF_DOCS, TFIDF_TOKENS, TFIDF_SEED),
+              "knobs": dict(vocab_bits=TFIDF_BITS, chunk_tokens=STREAM_CHUNK_TOKENS,
+                            pack_target_tokens=STREAM_CHUNK_TOKENS),
+              "chunk_docs": STREAM_CHUNK_DOCS}
+    t0 = time.perf_counter()
+    launches = sharded_phase(graph, stream, reset_counts, counts,
+                             f"{smi['device']}, {smi['power_limit']}; one slot a card")
+    print(f"phase 16 (mesh of {SHARD_SLOTS} cards): {time.perf_counter() - t0:.1f} s; "
+          f"launches {launches}")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": n}}))
+    return 0
 
 
 def main() -> int:
@@ -4249,6 +4627,12 @@ def main() -> int:
                                              reset_counts, counts, card_label)
     print(f"phase 15 (tuned profiles): {time.perf_counter() - t0:.1f} s")
 
+    # 16. the mesh of slots: the collectives, every PageRank strategy, the
+    # shrink, sharded TF-IDF, the sharded workloads, --mesh
+    t0 = time.perf_counter()
+    workload_launches.update(sharded_phase(graph, stream, reset_counts, counts, card_label))
+    print(f"phase 16 (mesh of {SHARD_SLOTS} slots on one card): {time.perf_counter() - t0:.1f} s")
+
     # 7. the kernels line, then the result line; launches are those of the
     # kernel's own path: cumsum's from the hybrid run (its tail's prefix
     # sum), segment's from the segment run
@@ -4271,8 +4655,9 @@ def main() -> int:
     # workload_launches: each kernel's launches in phase 12's counted runs
     # (12a's resumed runs, 12b's API runs, 12c's first runs), phase 13's
     # (13a's and 13b's faulted runs, 13c's resumed run), phase 14's (the
-    # card's launches before each loss, and 14b's) and phase 15b's (one run
-    # of each layout and dtype), by workload
+    # card's launches before each loss, and 14b's), phase 15b's (one run
+    # of each layout and dtype) and phase 16's (16b's float32 runs, 16c's
+    # shrinking runs, 16e's runs), by workload
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": n, **main_rows[name],
@@ -4288,4 +4673,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--cards"]:
+        if not torch.cuda.is_available():
+            print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+            sys.exit(2)
+        sys.exit(cards_main())
     sys.exit(main())

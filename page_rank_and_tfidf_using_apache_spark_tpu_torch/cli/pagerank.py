@@ -14,9 +14,10 @@ The flags are the JAX CLI's.  Every tunable knob resolves as the flag,
 then the tuned profile of the device's backend (``--tuned-profile``, else
 ``$GRAFT_TUNED_PROFILE``, else the port's committed
 ``tuned_profile_<backend>.json``; ``off`` disables it), then
-``TUNABLE_DEFAULTS``.  The flags of paths the port does not run yet (the
-mesh and its strategies) are accepted and refused: the command exits
-non-zero naming the ROADMAP item that ports them.
+``TUNABLE_DEFAULTS``.  ``--mesh N`` runs the sharded path
+(``parallel.pagerank_sharded``) over a mesh of N slots, partitioned by
+``--shard-strategy``: the visible cards, or N CPU slots under ``--device
+cpu``; more slots than visible cards raises.
 """
 
 from __future__ import annotations
@@ -33,6 +34,10 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import (
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.obs import manifest
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel.pagerank_sharded import (
+    STRATEGIES,
+    run_pagerank_sharded,
+)
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
     SPMV_IMPLS,
     PageRankConfig,
@@ -44,15 +49,6 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import (
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder, Timer
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.profiling import trace
-
-# Flags of the JAX CLI whose paths are not ported yet: flag -> (what it
-# needs, ROADMAP Queue 1 item).  Each defaults to None, so a given flag is
-# one that is not None.
-LATER_FLAGS = {
-    "--mesh": ("multi-GPU PageRank", 11),
-    "--shard-strategy": ("multi-GPU PageRank", 11),
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -104,20 +100,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-dir", default=None,
                    help="obs run-telemetry dir: write <name>.<pid>.trace.jsonl"
                         " + manifest here (default: $GRAFT_TRACE_DIR)")
-    later = p.add_argument_group("not ported yet (each exits non-zero naming its ROADMAP item)")
-    for flag, (what, item) in LATER_FLAGS.items():
-        later.add_argument(flag, default=None, metavar="VALUE",
-                           help=f"{what}: ROADMAP Queue 1 item {item}")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="shard over a mesh of this many slots (the visible "
+                        "cards; CPU slots under --device cpu); 0 = single "
+                        "device")
+    p.add_argument("--shard-strategy",
+                   choices=["auto", *STRATEGIES],
+                   default="auto",
+                   help="graph partition under --mesh: auto (by the per-slot "
+                        "memory budget and degree shape) / balanced edge "
+                        "slices / node blocks / edge-balanced node blocks "
+                        "(power-law) / source-block push with reduce-scatter "
+                        "(or explicit ppermute-ring) exchange / degree-aware "
+                        "hybrid (dense head rows + tail edge slices) / owned "
+                        "slices with a boundary exchange")
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    given = [f for f in LATER_FLAGS if getattr(args, f[2:].replace("-", "_")) is not None]
-    if given:
-        parser.error("; ".join(f"{f} ({LATER_FLAGS[f][0]}) is not ported yet: "
-                               f"ROADMAP Queue 1 item {LATER_FLAGS[f][1]}" for f in given))
+    args = build_parser().parse_args(argv)
     # The traced run covers the whole command: manifest at startup, every
     # span and metric event flushed per-event to the JSONL trace, run-end
     # summary at exit (no-op without --trace-dir/GRAFT_TRACE_DIR).
@@ -165,8 +166,14 @@ def _main(args, profile) -> int:
         checkpoint_dir=args.checkpoint_dir,
     )
     with trace(args.profile_dir):
-        result = run_pagerank(graph, cfg, metrics=metrics, resume=args.resume,
-                              device=device)
+        if args.mesh:
+            result = run_pagerank_sharded(
+                graph, cfg, n_devices=args.mesh, strategy=args.shard_strategy,
+                metrics=metrics, resume=args.resume, device=device,
+            )
+        else:
+            result = run_pagerank(graph, cfg, metrics=metrics, resume=args.resume,
+                                  device=device)
 
     if args.output:
         save_ranks(args.output, graph, result.ranks, top_k=args.top_k)

@@ -13,9 +13,9 @@ The flags and defaults are the JAX CLI's.  An unset knob resolves through
 the tuned profile of the device's backend (``--tuned-profile``, else
 ``$GRAFT_TUNED_PROFILE``, else the port's committed
 ``tuned_profile_<backend>.json``; ``off`` disables it), then
-``TUNABLE_DEFAULTS``.  Its flag for a path the port does not run yet (the
-mesh) is accepted and refused: the command exits non-zero naming the
-ROADMAP item that ports it.
+``TUNABLE_DEFAULTS``.  ``--streaming --mesh N`` ingests over a mesh of N
+slots (``parallel.tfidf_sharded``): the visible cards, or N CPU slots under
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import (
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.obs import manifest
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops.tfidf import TfidfResult, score_query
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel.tfidf_sharded import run_tfidf_sharded
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import save_index
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import checkpoint as ckpt
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
@@ -57,14 +58,6 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import (
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.profiling import trace
-
-# Flags of the JAX CLI whose paths are not ported yet: flag -> (what it
-# needs, ROADMAP Queue 1 item).  Each defaults to None, so a given flag is
-# one that is not None.
-LATER_FLAGS = {
-    "--mesh": ("multi-GPU ingest", 11),
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -125,6 +118,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--query", nargs="+", default=None, metavar="TERM",
                    help="score docs against these terms, print top-k")
     p.add_argument("--top-k", type=int, default=10)
+    p.add_argument("--mesh", type=int, default=0,
+                   help="with --streaming: data-parallel ingest over a mesh "
+                        "of this many slots (the visible cards; CPU slots "
+                        "under --device cpu); 0 = single device")
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: cuda)")
     p.add_argument("--metrics-json")
@@ -133,20 +130,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-dir", default=None,
                    help="obs run-telemetry dir: write <name>.<pid>.trace.jsonl"
                         " + manifest here (default: $GRAFT_TRACE_DIR)")
-    later = p.add_argument_group("not ported yet (each exits non-zero naming its ROADMAP item)")
-    for flag, (what, item) in LATER_FLAGS.items():
-        later.add_argument(flag, default=None, metavar="VALUE",
-                           help=f"{what}: ROADMAP Queue 1 item {item}")
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    given = [f for f in LATER_FLAGS if getattr(args, f[2:].replace("-", "_")) is not None]
-    if given:
-        parser.error("; ".join(f"{f} ({LATER_FLAGS[f][0]}) is not ported yet: "
-                               f"ROADMAP Queue 1 item {LATER_FLAGS[f][1]}" for f in given))
+    args = build_parser().parse_args(argv)
+    if args.mesh and not args.streaming:
+        raise SystemExit("--mesh requires --streaming (chunked ingest)")
     # The traced run covers the whole command (no-op without
     # --trace-dir/GRAFT_TRACE_DIR), as in the pagerank CLI.
     # knob resolution ladder: explicit flag > tuned profile of the
@@ -200,7 +190,14 @@ def _main(args, profile) -> int:
             meta = ckpt.peek_meta(ckpt.latest_checkpoint(cfg.checkpoint_dir))
             skip_docs = int(meta["extra"]["n_docs"])
     with trace(args.profile_dir):
-        if args.streaming:
+        if args.streaming and args.mesh:
+            out = run_tfidf_sharded(
+                iter_corpus_chunks(docs, args.chunk_docs, skip_chunks=skip,
+                                   expect_skipped_docs=skip_docs),
+                cfg, n_devices=args.mesh, metrics=metrics, resume=args.resume,
+                device=device,
+            )
+        elif args.streaming:
             out = run_tfidf_streaming(
                 iter_corpus_chunks(docs, args.chunk_docs, skip_chunks=skip,
                                    expect_skipped_docs=skip_docs),

@@ -68,7 +68,11 @@ def default_delta(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
 
 
 def _first_tensor(carry) -> torch.Tensor:
-    return carry if isinstance(carry, torch.Tensor) else carry[0]
+    """The first tensor of a carry: the carry itself, else the first tensor
+    of its first entry (a tuple, or a sharded runner's per-slot list)."""
+    while not isinstance(carry, torch.Tensor):
+        carry = carry[0]
+    return carry
 
 
 def iterate(

@@ -5,11 +5,11 @@ the single-device salvage (:mod:`.elastic`), and the structured
 from.
 
 Counterpart of the JAX package's ``resilience/`` with its names, less the
-mesh shrink (``ShrinkPlan``, ``plan_shrink``: ROADMAP Queue 1 item 11) and
-the process supervisor (item 13).  The port's failure model: retry a
-transient fault; on a lost device that names its index, hand the run to
-the CPU from its newest commit point (the salvage); else raise
-:class:`ResilienceExhausted` naming the newest checkpoint.
+process supervisor (ROADMAP Queue 1 item 13).  The port's failure model:
+retry a transient fault; on a lost device that names its index, shrink a
+sharded run's mesh over the surviving slots (:func:`plan_shrink`) or hand a
+single-device run to the CPU from its newest commit point (the salvage);
+else raise :class:`ResilienceExhausted` naming the newest checkpoint.
 """
 
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience.chaos import (
@@ -21,6 +21,8 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience.chaos import (
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience.elastic import (
     DeviceHealth,
+    ShrinkPlan,
+    plan_shrink,
     reset_health,
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience.executor import (
@@ -40,12 +42,14 @@ __all__ = [
     "PartitionError",
     "ResilienceExhausted",
     "RetryPolicy",
+    "ShrinkPlan",
     "SyncDeadlineExceeded",
     "block_until_ready",
     "device_get",
     "inject",
     "is_transient",
     "parse_plan",
+    "plan_shrink",
     "reset_health",
     "run_guarded",
 ]

@@ -3,9 +3,9 @@
 Counterpart of the JAX package's ``resilience/executor.py``, with its
 names, signatures, events and counters.  Escalation order: **retry** the
 failed dispatch or sync on the card, walk the caller's degradation rungs
-(``fallbacks``: the CPU salvage of ``dataflow/fixpoint.py``, which takes
-only a lost device that names its index; the mesh shrink is ROADMAP Queue
-1 item 11), and finally hand the terminal state to the caller as a
+(``fallbacks``: the CPU salvage of ``dataflow/fixpoint.py`` and the mesh
+shrink of the sharded runners, which take only a lost device that names
+its index), and finally hand the terminal state to the caller as a
 structured :class:`ResilienceExhausted` carrying the latest checkpoint
 path, to **resume** from (utils/checkpoint.py).  Rung names are declared
 in ``utils/config.DEGRADE_LADDER``.

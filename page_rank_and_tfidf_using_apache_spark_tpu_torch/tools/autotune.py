@@ -5,26 +5,25 @@ package's ``tools/autotune.py``, measured on the card.
    interact are swept together; independent groups multiply nothing).
 2. **Prune**: every grid point is evaluated against the static budgets of
    the entry points it shapes — ``stream_pad_plan``/``serve_pad_plan`` pad
-   fractions and the impacted path's padding vs the entry's
+   fractions, the impacted path's padding and the sharded planner's
+   (``parallel.pagerank_sharded.plan_partition`` at ``MESH_DEVICES``
+   slots, for the ``hybrid`` and ``owned`` groups) vs the entry's
    ``pad_frac_ceiling``, and a bucket-padding intensity model vs its
    ``intensity_floor``.  A point that violates a budget is discarded
-   **unmeasured**.  The ``hybrid`` and ``owned`` groups stay unpruned: the
-   reference costs them with the sharded planner at a four-device mesh
-   (ROADMAP item 11), and on :func:`build_probes` that prune discards none
-   of their points.
+   **unmeasured**.
 3. **Measure**: each group's ``TUNABLE_DEFAULTS`` point (pruned or not:
    it is what a run without a profile uses), then its survivors, run the
    port's own entry points (the streaming ingest, the ``hybrid``/
-   ``sort_shuffle`` PageRank runs, the warm serving batch path) on the
-   resolved device, under the ``GRAFT_TUNE_BUDGET_S`` wall-clock budget
+   ``sort_shuffle`` PageRank runs, the ``owned`` sharded PageRank on
+   ``MESH_DEVICES`` slots of the device, the warm serving batch path) on
+   the resolved device, under the ``GRAFT_TUNE_BUDGET_S`` wall-clock budget
    (the ingest stream in the TF-IDF CLI's default chunks of 1,024
    documents, ``INGEST_CHUNK_DOCS``).
    The fastest point is timed against the defaults again in turns
    (``CONFIRM_ORDER``) and replaces them only when every one of its runs
    beats every run of the defaults.  A group the budget leaves unmeasured
    keeps its defaults, flagged ``fallback`` in the profile's ``measured``
-   evidence.  ``owned`` is never measured (the sharded runner it shapes is
-   not ported): it keeps its defaults, flagged ``fallback``.
+   evidence.
 4. **Commit**: ``utils/config.write_tuned_profile`` publishes the port
    package's ``tuned_profile_<backend>.json`` — stamped with the backend of
    the device the sweep ran on (``"gpu"`` on the card, with the card's name and
@@ -72,10 +71,10 @@ GROUPS: tuple = (
     ("owned", ("owned_max_head",)),
 )
 
-# Groups the static model does not prune: the reference's prune of these
-# runs the sharded planner (parallel/pagerank_sharded.plan_partition),
-# which the port has not yet (ROADMAP item 11).
-UNPRUNED_GROUPS = ("hybrid", "owned")
+# Sharded-plan probes (the owned/hybrid groups) cost pad fractions at this
+# many slots, the reference's MESH_DEVICES; the owned group's measured run
+# takes this many slots of the sweep's device.
+MESH_DEVICES = 4
 
 # Calibration anchor for the sort_shuffle intensity model: the JAX
 # package's static model measures 0.072 FLOP/byte at the default bucket
@@ -116,9 +115,12 @@ TUNED_KNOBS: tuple = (
 
 # The budgets of the entry points the prune reads: copies of the JAX
 # package's analysis/registry.py ENTRY_POINTS rows (pagerank_step_sort_shuffle
-# :1517, tfidf_chunk_ingest_carry :1720, tfidf_score_query_batch :1800,
+# :1517, pagerank_sharded_hybrid :1586, pagerank_sharded_owned :1611,
+# tfidf_chunk_ingest_carry :1720, tfidf_score_query_batch :1800,
 # tfidf_score_impacted_batch :1826).
 ENTRY_BUDGETS: dict = {
+    "pagerank_sharded_hybrid": {"pad_frac_ceiling": 0.25, "intensity_floor": 0.04},
+    "pagerank_sharded_owned": {"pad_frac_ceiling": 0.30, "intensity_floor": 0.03},
     "pagerank_step_sort_shuffle": {"pad_frac_ceiling": None, "intensity_floor": 0.05},
     "tfidf_chunk_ingest_carry": {"pad_frac_ceiling": 0.20, "intensity_floor": 0.25},
     "tfidf_score_query_batch": {"pad_frac_ceiling": 0.30, "intensity_floor": 0.04},
@@ -254,13 +256,33 @@ def static_violations(group: str, point: dict, probes: dict,
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import (
         stream_pad_plan,
     )
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel.pagerank_sharded import (
+        plan_partition,
+    )
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving.server import (
         serve_pad_plan,
     )
 
     out = []
-    if group in UNPRUNED_GROUPS:
-        pass
+    if group == "hybrid":
+        entry = "pagerank_sharded_hybrid"
+        ceiling = budgets[entry]["pad_frac_ceiling"]
+        plan = plan_partition(
+            probes["graph"], MESH_DEVICES, strategy="hybrid",
+            head_coverage=point["head_coverage"],
+            head_row_width=point["head_row_width"],
+        )
+        if ceiling is not None and plan.pad_frac > ceiling:
+            out.append(_viol(entry, "pad_frac", plan.pad_frac, ceiling))
+    elif group == "owned":
+        entry = "pagerank_sharded_owned"
+        ceiling = budgets[entry]["pad_frac_ceiling"]
+        plan = plan_partition(
+            probes["graph"], MESH_DEVICES, strategy="owned",
+            owned_max_head=point["owned_max_head"],
+        )
+        if ceiling is not None and plan.pad_frac > ceiling:
+            out.append(_viol(entry, "pad_frac", plan.pad_frac, ceiling))
     elif group == "shuffle":
         entry = "pagerank_step_sort_shuffle"
         floor = budgets[entry]["intensity_floor"]
@@ -324,19 +346,28 @@ def prune(grid: dict, probes: dict, budgets: dict) -> dict:
 def _static_rank(group: str, point: dict, probes: dict) -> float:
     """Measuring order: the point's worst static pad fraction (lower =
     cheaper to dispatch).  Never used to *reject* — only to order the
-    survivors.  ``hybrid`` and ``owned`` have no static cost here
-    (UNPRUNED_GROUPS) and keep grid order."""
+    survivors."""
     import numpy as np
 
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import (
         stream_pad_plan,
     )
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel.pagerank_sharded import (
+        plan_partition,
+    )
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving.server import (
         serve_pad_plan,
     )
 
-    if group in UNPRUNED_GROUPS:
-        return 0.0
+    if group == "hybrid":
+        return plan_partition(probes["graph"], MESH_DEVICES,
+                              strategy="hybrid",
+                              head_coverage=point["head_coverage"],
+                              head_row_width=point["head_row_width"]).pad_frac
+    if group == "owned":
+        return plan_partition(probes["graph"], MESH_DEVICES,
+                              strategy="owned",
+                              owned_max_head=point["owned_max_head"]).pad_frac
     if group == "shuffle":
         indeg = np.diff(probes["graph"].csr_indptr())
         slots = shuffle_padded_slots(indeg, point["shuffle_bucket_width"])
@@ -390,6 +421,26 @@ def _measure_pagerank(point: dict, impl: str, graph, device) -> float:
     run_pagerank(graph, cfg, device=device)  # warm: builds outside the clock
     t0 = time.perf_counter()
     run_pagerank(graph, cfg, device=device)
+    return time.perf_counter() - t0
+
+
+def _measure_owned(point: dict, graph, device) -> float:
+    """Seconds of one 4-iteration ``run_pagerank_sharded`` under ``owned``
+    on ``MESH_DEVICES`` slots of ``device`` (its partition and placement
+    included), after a warm run; the result pull ends it."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel import (
+        pagerank_sharded,
+    )
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel.mesh import make_mesh
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
+        PageRankConfig, tuned_config,
+    )
+
+    cfg = tuned_config(PageRankConfig, None, iterations=4, **point)
+    mesh = make_mesh(MESH_DEVICES, devices=[device] * MESH_DEVICES)
+    pagerank_sharded.run_pagerank_sharded(graph, cfg, mesh=mesh, strategy="owned")
+    t0 = time.perf_counter()
+    pagerank_sharded.run_pagerank_sharded(graph, cfg, mesh=mesh, strategy="owned")
     return time.perf_counter() - t0
 
 
@@ -491,7 +542,7 @@ def measure_survivors(plan: dict, probes: dict, budget_s: float,
     its defaults.  Returns (knobs, evidence): every declared knob gets a
     value (a confirmed winner, else the default; the default, flagged
     ``fallback``, where the budget expired before the group produced a
-    number, and for ``owned``, never measured)."""
+    number)."""
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
         TUNABLE_DEFAULTS,
     )
@@ -514,6 +565,8 @@ def measure_survivors(plan: dict, probes: dict, budget_s: float,
             # winner picked at one scale need not hold at another
             impl = "hybrid" if group == "hybrid" else "sort_shuffle"
             return _measure_pagerank(point, impl, probes["graph"], device)
+        if group == "owned":
+            return _measure_owned(point, probes["graph"], device)
         if group == "ingest":
             if "docs" not in inputs:
                 inputs["docs"] = _bench_corpus(INGEST_DOCS)
@@ -530,36 +583,34 @@ def measure_survivors(plan: dict, probes: dict, budget_s: float,
             default = _default_point(group)
             gev = {"measured": [], "fallback": False}
             best = best_secs = None
-            # owned shapes only the sharded runner (ROADMAP item 11)
-            if group != "owned":
-                survivors = sorted(
-                    plan["groups"][group]["survivors"],
-                    key=lambda p: _static_rank(group, p, probes))
-                sig_cache: dict = {}
-                for point in [default, *(p for p in survivors if p != default)]:
-                    if expired():
-                        break
-                    tag = {"default": True} if point is default else {}
-                    sig = _measure_signature(group, point)
-                    if sig in sig_cache:
-                        gev["measured"].append({"point": point,
-                                                "secs": round(sig_cache[sig], 4),
-                                                "shared": True, **tag})
-                        continue
-                    try:
-                        secs = measure(group, point)
-                    except Exception as exc:  # noqa: BLE001 - one bad point
-                        # must not kill the sweep; record it and move on
-                        gev["measured"].append(
-                            {"point": point, **tag,
-                             "error": f"{type(exc).__name__}: {exc}"})
-                        continue
-                    sig_cache[sig] = secs
+            survivors = sorted(
+                plan["groups"][group]["survivors"],
+                key=lambda p: _static_rank(group, p, probes))
+            sig_cache: dict = {}
+            for point in [default, *(p for p in survivors if p != default)]:
+                if expired():
+                    break
+                tag = {"default": True} if point is default else {}
+                sig = _measure_signature(group, point)
+                if sig in sig_cache:
                     gev["measured"].append({"point": point,
-                                            "secs": round(secs, 4), **tag})
-                    if best_secs is None or secs < best_secs:
-                        best, best_secs = point, secs
-                    log(f"[autotune] {group} {point} -> {secs:.3f}s")
+                                            "secs": round(sig_cache[sig], 4),
+                                            "shared": True, **tag})
+                    continue
+                try:
+                    secs = measure(group, point)
+                except Exception as exc:  # noqa: BLE001 - one bad point
+                    # must not kill the sweep; record it and move on
+                    gev["measured"].append(
+                        {"point": point, **tag,
+                         "error": f"{type(exc).__name__}: {exc}"})
+                    continue
+                sig_cache[sig] = secs
+                gev["measured"].append({"point": point,
+                                        "secs": round(secs, 4), **tag})
+                if best_secs is None or secs < best_secs:
+                    best, best_secs = point, secs
+                log(f"[autotune] {group} {point} -> {secs:.3f}s")
             if best is not None:
                 # shape-identical variants shared the winning measurement:
                 # among them, prefer the point closest to the defaults
@@ -574,8 +625,8 @@ def measure_survivors(plan: dict, probes: dict, budget_s: float,
                     best = default
                     best_secs = sig_cache.get(_measure_signature(group, default))
             if best is None:
-                # budget expired (or every measurement failed, or the group
-                # is not measured) before this group produced a number:
+                # budget expired (or every measurement failed) before this
+                # group produced a number:
                 # keep the defaults, flagged so the evidence says "not
                 # measured"
                 best = default

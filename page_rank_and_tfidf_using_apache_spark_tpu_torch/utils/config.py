@@ -41,7 +41,7 @@ TUNABLE_DEFAULTS: dict = {
     "head_row_width": 128,
     # sort_shuffle bucket padding (ops/pagerank.py build_shuffle_layout)
     "shuffle_bucket_width": 8,
-    # strategy="owned" replicated hub-head cap (sharded path, not ported)
+    # strategy="owned" replicated hub-head cap (parallel/pagerank_sharded.py)
     "owned_max_head": 4096,
     # staged streaming-ingest depths and chunk re-packing target
     # (IngestConfig, TfidfConfig)
@@ -88,11 +88,12 @@ GRAFT_ENV_KNOBS: frozenset = frozenset({
 # The degradation rungs of the resilience executor (resilience/executor.py
 # run_guarded's ``fallbacks``), declared in one place: a ``degraded`` event
 # names one of these.  The JAX package's ladder, copied.  The port runs
-# ``cpu`` as the salvage only (the single-device paths hand the run of a
-# lost device that names its index to the CPU, from the newest commit
-# point; the reference's per-segment rung is not ported); mesh_shrink and
-# single_device wait for the mesh (ROADMAP Queue 1 item 11), respawn for
-# the fleet's process supervisor (item 13).
+# ``cpu`` as the salvage (the single-device paths hand the run of a lost
+# device that names its index to the CPU, from the newest commit point;
+# the reference's per-segment rung is not ported) and as the end of the
+# mesh shrink; mesh_shrink and single_device are the sharded runners'
+# (parallel/); respawn waits for the fleet's process supervisor (ROADMAP
+# Queue 1 item 13).
 DEGRADE_LADDER: tuple = (
     "mesh_shrink",  # rebuild the mesh over surviving devices (pow2 shrink)
     "single_device",  # the 1-device end of the shrink chain

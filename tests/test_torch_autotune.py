@@ -4,11 +4,10 @@ package's ``tools/autotune.py``, on the CPU.
 The knob space and the entries' budgets are copies of the reference's
 registry rows and must stay equal to them; the grid, the pad helpers, the
 static prune and the survivors' order are the reference's on the same
-probes.  The ``hybrid`` and ``owned`` groups, which the reference costs with
-its sharded planner, stay unpruned in the port: the reference's own plan
-prunes none of their points on these probes, so the plans are equal group
-for group.  The measured sweep runs here with a budget of zero (every group
-a fallback) and on one survivor a group.
+probes, the ``hybrid`` and ``owned`` groups costed by each package's sharded
+planner (``plan_partition`` at ``MESH_DEVICES`` slots).  The measured sweep
+runs here with a budget of zero (every group a fallback) and on one
+survivor a group, ``owned`` on four CPU slots.
 """
 
 from __future__ import annotations
@@ -73,12 +72,14 @@ def test_budgets_are_the_references():
     assert autotune._entry_budgets() == {name: ref[name] for name in autotune.ENTRY_BUDGETS}
     # the entries static_violations reads
     assert set(autotune.ENTRY_BUDGETS) == {
+        "pagerank_sharded_hybrid", "pagerank_sharded_owned",
         "pagerank_step_sort_shuffle", "tfidf_chunk_ingest_carry",
         "tfidf_score_query_batch", "tfidf_score_impacted_batch"}
 
 
 def test_groups_and_anchors_are_the_references(ref):
     assert autotune.GROUPS == ref.GROUPS
+    assert autotune.MESH_DEVICES == ref.MESH_DEVICES
     assert (autotune.SHUFFLE_BASE_INTENSITY, autotune.SHUFFLE_BASE_WIDTH) == \
         (ref.SHUFFLE_BASE_INTENSITY, ref.SHUFFLE_BASE_WIDTH)
 
@@ -147,17 +148,25 @@ def test_probes_are_the_references(ref, probes):
 
 # ---------------------------------------------------------------- the prune
 
-def test_prune_equals_the_references(plan, ref_plan):
+def test_prune_equals_the_references(plan, ref_plan, ref, probes):
     """87 raw points, 45 pruned; per group the reference's survivors and
-    pruned points with their violations.  hybrid and owned: the reference's
-    sharded-plan prune discards none of their points on these probes."""
+    pruned points with their violations.  hybrid and owned are costed by
+    the sharded planner in both packages, point for point, and at budgets
+    tight enough to prune them the two prunes still agree."""
     assert (plan["raw_points"], plan["pruned_points"], plan["survivor_points"]) == (87, 45, 42)
     counts = {g: (len(v["survivors"]), len(v["pruned"])) for g, v in plan["groups"].items()}
     assert counts == {"hybrid": (9, 0), "owned": (3, 0), "shuffle": (3, 0),
                       "ingest": (9, 36), "serve": (18, 9)}
-    for group in autotune.UNPRUNED_GROUPS:
-        assert ref_plan["groups"][group]["pruned"] == []
     assert plan == ref_plan
+    ref_probes = ref.build_probes()
+    for ceiling in (0.0, 0.05, 0.2):
+        budgets = autotune._entry_budgets()
+        for entry in ("pagerank_sharded_hybrid", "pagerank_sharded_owned"):
+            budgets[entry]["pad_frac_ceiling"] = ceiling
+        grid = {g: autotune.enumerate_grid(autotune._knob_domains())[g]
+                for g in ("hybrid", "owned")}
+        got = autotune.prune(grid, probes, budgets)
+        assert got == ref.prune(grid, ref_probes, budgets), ceiling
 
 
 def test_pruned_points_actually_violate(plan, probes):
@@ -180,7 +189,7 @@ def test_pruned_points_actually_violate(plan, probes):
 
 def test_prune_synthetic_budgets_both_extremes(probes):
     """No budgets prune nothing; impossible budgets prune every point of
-    every pruned group, and hybrid and owned stay whole."""
+    every group."""
     grid = autotune.enumerate_grid(autotune._knob_domains())
     none = {n: {"pad_frac_ceiling": None, "intensity_floor": None}
             for n in autotune.ENTRY_BUDGETS}
@@ -190,25 +199,18 @@ def test_prune_synthetic_budgets_both_extremes(probes):
                   for n in autotune.ENTRY_BUDGETS}
     p = autotune.prune(grid, probes, impossible)
     for group, gp in p["groups"].items():
-        if group in autotune.UNPRUNED_GROUPS:
-            assert gp["pruned"] == [] and gp["survivors"] == grid[group]
-        else:
-            assert gp["survivors"] == [] and len(gp["pruned"]) == len(grid[group])
-            assert all(v["entry"] for e in gp["pruned"] for v in e["violations"])
+        assert gp["survivors"] == [] and len(gp["pruned"]) == len(grid[group])
+        assert all(v["entry"] for e in gp["pruned"] for v in e["violations"])
 
 
 def test_survivor_order_is_the_references(ref, plan, probes):
-    """The measured order: the reference's static rank for shuffle, ingest
-    and serve; grid order for hybrid and owned."""
+    """The measured order: the reference's static rank for every group, the
+    sharded planner's pad fraction for hybrid and owned."""
     ref_probes = ref.build_probes()
     for group, gp in plan["groups"].items():
-        got = sorted(gp["survivors"], key=lambda p: autotune._static_rank(group, p, probes))
-        if group in autotune.UNPRUNED_GROUPS:
-            assert got == gp["survivors"]
-        else:
-            for point in gp["survivors"]:
-                assert autotune._static_rank(group, point, probes) == \
-                    ref._static_rank(group, point, ref_probes)
+        for point in gp["survivors"]:
+            assert autotune._static_rank(group, point, probes) == \
+                ref._static_rank(group, point, ref_probes)
 
 
 def test_measure_signature_is_the_references(ref, plan):
@@ -231,10 +233,10 @@ def test_zero_budget_sweep_falls_back_everywhere(plan, probes):
 
 
 def test_sweep_measures_every_group_but_owned(plan, probes):
-    """One survivor a group, on the CPU: every group but owned measures its
-    defaults and the survivor (seconds above zero, not a fallback); a
-    survivor that won is timed against the defaults in turns and kept only
-    if each of its runs beat each of theirs; owned at its default."""
+    """One survivor a group, on the CPU: every group, owned too (on four CPU
+    slots), measures its defaults and the survivor (seconds above zero, not
+    a fallback); a survivor that won is timed against the defaults in turns
+    and kept only if each of its runs beat each of theirs."""
     small = {**plan, "groups": {g: {"survivors": v["survivors"][:1], "pruned": []}
                                 for g, v in plan["groups"].items()}}
     logged = []
@@ -242,9 +244,6 @@ def test_sweep_measures_every_group_but_owned(plan, probes):
                                                  device="cpu")
     for group, gev in evidence["groups"].items():
         default = {k: tcfg.TUNABLE_DEFAULTS[k] for k in dict(autotune.GROUPS)[group]}
-        if group == "owned":
-            assert gev["fallback"] and gev["measured"] == [] and gev["winner"] == default
-            continue
         survivor = small["groups"][group]["survivors"][0]
         assert not gev["fallback"] and gev["winner_secs"] > 0, (group, gev)
         assert [m["point"] for m in gev["measured"]] == [default, survivor]
@@ -372,14 +371,15 @@ def test_backend_must_be_the_devices(tmp_path):
 def test_committed_gpu_profile_obeys_the_rule():
     """The committed card profile came from this tuner: every measured group
     timed its defaults first and left them only for a winner each of whose
-    CONFIRM_ORDER runs beat each of theirs; owned kept its default."""
+    CONFIRM_ORDER runs beat each of theirs; a group left unmeasured kept its
+    default."""
     prof = tcfg.load_tuned_profile(backend="gpu")
     assert prof is not None and prof.source == "committed"
     for group, gev in prof.measured["groups"].items():
         default = {k: tcfg.TUNABLE_DEFAULTS[k] for k in dict(autotune.GROUPS)[group]}
         assert {k: prof.knobs[k] for k in default} == gev["winner"], group
-        if group == "owned":
-            assert gev["fallback"] and gev["winner"] == default
+        if gev["fallback"]:
+            assert gev["winner"] == default
             continue
         assert gev["measured"][0]["point"] == default and gev["measured"][0]["default"]
         if gev["winner"] != default:

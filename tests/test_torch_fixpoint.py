@@ -280,8 +280,17 @@ def test_cli_checkpoint_flags_match_jax_cli(tmp_path):
     (["--mesh", "2"], 11),
     (["--shard-strategy", "nodes"], 11),
 ])
-def test_later_flags_exit_naming_their_item(flags, item, capsys):
-    with pytest.raises(SystemExit) as exc:
-        tcli.main([TINY, "5", "--device", "cpu", *flags])
-    assert exc.value.code == 2
-    assert f"ROADMAP Queue 1 item {item}" in capsys.readouterr().err
+def test_later_flags_exit_naming_their_item(flags, item, capsys, tmp_path):
+    """The flags of ROADMAP Queue 1 item 11 are ported: no flag is left to
+    refuse, and each runs as the JAX CLI's does (``--shard-strategy``
+    alone is read only under ``--mesh``), its ranks equal to the same
+    command's without it on one slot."""
+    assert item == 11 and tcli.build_parser().parse_args([TINY, *flags])
+    common = [TINY, "5", "--device", "cpu", "--dtype", "float64"]
+    assert tcli.main([*common, *flags, "--output", str(tmp_path / "a.txt")]) == 0
+    assert tcli.main([*common, "--output", str(tmp_path / "b.txt")]) == 0
+    a = [ln.split("\t") for ln in (tmp_path / "a.txt").read_text().splitlines()]
+    b = [ln.split("\t") for ln in (tmp_path / "b.txt").read_text().splitlines()]
+    assert [r[0] for r in a] == [r[0] for r in b] and a
+    assert max(abs(float(x[1]) - float(y[1])) for x, y in zip(a, b)) <= 1e-12
+    assert "ROADMAP" not in capsys.readouterr().err

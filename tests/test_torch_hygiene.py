@@ -26,6 +26,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.hits import run_h
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.ppr import run_ppr_batch
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import synthetic_powerlaw
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank
+from page_rank_and_tfidf_using_apache_spark_tpu_torch import parallel
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import (
     run_tfidf,
     run_tfidf_streaming,
@@ -127,6 +128,17 @@ def test_scan_covers_the_tuned_profile_slice():
             "cli/tfidf.py", "cli/serve.py"} <= scanned
 
 
+def test_scan_covers_the_parallel_slice():
+    """The mesh, the collectives, the three sharded runners, the boundary
+    planner and the partitioned-collection types are among the files the
+    scan reads."""
+    scanned = {p.relative_to(PORT).as_posix() for p in FILES if p.is_relative_to(PORT)}
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
+            "parallel/pagerank_sharded.py", "parallel/tfidf_sharded.py",
+            "parallel/workloads_sharded.py", "ops/boundary.py",
+            "dataflow/partition.py"} <= scanned
+
+
 @pytest.mark.parametrize("source, flagged", [
     ("import page_rank_and_tfidf_using_apache_spark_tpu_torch.ops", set()),
     ("from page_rank_and_tfidf_using_apache_spark_tpu_torch import api", set()),
@@ -179,7 +191,9 @@ TOOLS = {"gather_micro": gather_micro, "spmv_breakdown": spmv_breakdown,
                                    "run_tfidf_streaming", "cli_tfidf_streaming",
                                    "run_ppr_batch", "run_hits", "run_components",
                                    "cli_workloads_ppr", "cli_workloads_hits",
-                                   "cli_workloads_cc", "autotune"])
+                                   "cli_workloads_cc", "autotune", "run_pagerank_sharded",
+                                   "run_tfidf_sharded", "run_ppr_sharded", "run_hits_sharded",
+                                   "run_components_sharded", "cli_mesh", "cli_tfidf_mesh"])
 def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
     """With no CUDA and no ``device=``, every entry point raises rather than
     running on the CPU."""
@@ -217,6 +231,21 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
             extra = ["--queries", "1"] if workload == "ppr" else []
             workloads_cli.main([workload, TINY, *extra, "--metrics-json",
                                 str(tmp_path / "r.json")])
+        elif entry == "run_pagerank_sharded":
+            parallel.run_pagerank_sharded(g, PageRankConfig(), n_devices=1)
+        elif entry == "run_tfidf_sharded":
+            parallel.run_tfidf_sharded([docs], TfidfConfig(), n_devices=1)
+        elif entry == "run_ppr_sharded":
+            parallel.run_ppr_sharded(g, PageRankConfig(), [[int(g.node_ids[0])]])
+        elif entry == "run_hits_sharded":
+            parallel.run_hits_sharded(g, HitsConfig())
+        elif entry == "run_components_sharded":
+            parallel.run_components_sharded(g)
+        elif entry == "cli_mesh":
+            cli.main([TINY, "5", "--mesh", "1", "--output", str(tmp_path / "r.json")])
+        elif entry == "cli_tfidf_mesh":
+            tfidf_cli.main([TINY, "--lines", "--streaming", "--mesh", "1",
+                            "--output", str(tmp_path / "r.json")])
         elif entry == "autotune":
             autotune.main(["--budget-s", "0", "--out", str(tmp_path / "r.json")])
         else:

@@ -341,6 +341,5 @@ def test_profiling_trace_is_a_noop_without_a_dir(tmp_path, monkeypatch):
 
 
 def test_tfidf_cli_takes_the_trace_flags():
-    assert "--trace-dir" not in ttcli.LATER_FLAGS and "--profile-dir" not in ttcli.LATER_FLAGS
     args = ttcli.build_parser().parse_args([TINY, "--trace-dir", "a", "--profile-dir", "b"])
     assert (args.trace_dir, args.profile_dir) == ("a", "b")

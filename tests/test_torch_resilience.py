@@ -87,8 +87,7 @@ def test_device_lost_fires_until_acknowledged():
 
 
 def test_surface_matches_reference():
-    mesh = {"ShrinkPlan", "plan_shrink"}
-    assert set(resilience.__all__) == set(jresilience.__all__) - mesh
+    assert set(resilience.__all__) == set(jresilience.__all__)
     for name in resilience.__all__:
         assert hasattr(resilience, name), name
     assert port.ResilienceExhausted is rx.ResilienceExhausted

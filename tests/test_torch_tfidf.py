@@ -419,14 +419,17 @@ def test_cli_matches_reference_cli(flags, tmp_path, capsys):
     assert [r["event"] for r in records] == ["tokenize", "pipeline"]
 
 
-@pytest.mark.parametrize("flag", list(tcli.LATER_FLAGS))
+@pytest.mark.parametrize("flag", ["--mesh"])
 def test_cli_refuses_flags_of_later_slices(flag, tmp_path, capsys):
+    """``--mesh`` (ROADMAP Queue 1 item 11) is ported and no flag is left
+    to refuse as unported; the CLI refuses ``--mesh`` without
+    ``--streaming``, as the JAX CLI does, and writes nothing."""
+    assert tcli.build_parser().parse_args([str(TINY), flag, "2"]).mesh == 2
     out = tmp_path / "w.tsv"
     with pytest.raises(SystemExit) as e:
         tcli.main([str(TINY), "--lines", "--device", "cpu", "--output", str(out), flag, "2"])
     assert e.value.code != 0
-    item = tcli.LATER_FLAGS[flag][1]
-    assert f"ROADMAP Queue 1 item {item}" in capsys.readouterr().err
+    assert "--mesh requires --streaming" in str(e.value.code)
     assert not out.exists()
 
 
@@ -462,7 +465,7 @@ def test_cli_flags_of_this_slice_match_reference_cli(flag, tmp_path, capsys):
     from page_rank_and_tfidf_using_apache_spark_tpu.serving import load_index
     from page_rank_and_tfidf_using_apache_spark_tpu.utils import checkpoint as jckpt
 
-    assert flag in SLICE_FLAGS[flag] and flag not in tcli.LATER_FLAGS
+    assert flag in SLICE_FLAGS[flag]
     ranks = tmp_path / "ranks.npy"
     np.save(ranks, np.linspace(0, 1, 12).astype(np.float32))
     head = tmp_path / "head.txt"

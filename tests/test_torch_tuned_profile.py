@@ -145,8 +145,8 @@ def test_port_never_loads_the_reference_file():
 
 def test_committed_gpu_profile(tmp_path):
     """The port's committed ``tuned_profile_gpu.json``: stamped ``gpu`` with
-    the card's name and power limit, every tuned knob in its domain,
-    ``owned`` a fallback at its default; refused for the CPU."""
+    the card's name and power limit, every tuned knob in its domain, a
+    group the sweep left unmeasured at its default; refused for the CPU."""
     path = tcfg.profile_path("gpu")
     prof = tcfg.load_tuned_profile(backend="gpu")
     assert prof is not None and prof.source == "committed" and prof.path == path
@@ -155,8 +155,9 @@ def test_committed_gpu_profile(tmp_path):
     assert all(prof.knobs[k] in domains[k] for k in domains)
     assert prof.measured["device"].startswith("NVIDIA") and prof.measured["power_limit"]
     owned = prof.measured["groups"]["owned"]
-    assert owned["fallback"] and prof.knobs["owned_max_head"] == \
-        tcfg.TUNABLE_DEFAULTS["owned_max_head"]
+    assert prof.knobs["owned_max_head"] == owned["winner"]["owned_max_head"]
+    if owned["fallback"]:
+        assert owned["winner"]["owned_max_head"] == tcfg.TUNABLE_DEFAULTS["owned_max_head"]
     with pytest.raises(tart.ProvenanceError, match="cross-backend"):
         tcfg.load_tuned_profile(backend="cpu", path=path)
     # the CPU's default resolution never reaches it
