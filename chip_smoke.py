@@ -242,13 +242,48 @@ Phases, each of which exits non-zero on failure:
    4 slots against the single-device runs at phase 12's bars; (16f)
    ``cli.pagerank --mesh 1 --shard-strategy auto`` byte-equal to the API,
    ``--mesh`` past the visible cards failing with the reference's message;
+17. the serving fleet (``serving/fabric.py``, ``serving/soak.py``): (17a)
+   11c's config-5 stand-in sealed as four segments and two replica
+   processes on the card behind ``ServingFabric``: each handshake's
+   seconds, each replica pid holding the card's device file and its used
+   memory before and after (``nvidia-smi`` cannot map the card's processes
+   to pids inside a PID namespace; its compute-apps line is printed as it
+   is); (17b) phase 11's query generator's 4,096 queries over that corpus
+   through the router from four closed-loop clients, every answer within
+   11c's bar of an in-process ``TfidfServer`` over the same segments
+   (bit-equal answers counted), queries/s, p50/p99, each replica's share
+   and own latency, and a repeated request id replayed, not executed;
+   (17h) the fabric's CLI (``python -m ...serving.fabric --replica
+   --device cuda``): its handshake, its answers to the first 256 queries
+   equal to 17b's bit for bit, SIGTERM rc 0; (17c) ``scale_up`` of a
+   replica whose environment carries ``replica_query:proc_kill@3``: it dies
+   at its third query, every query is answered equal to 17b's, one
+   ``degraded`` on the ``respawn`` rung, the respawn's seconds to ready,
+   dropped 0, served twice 0, then ``scale_down``; (17e) a non-owner's miss
+   served from the owner's cache byte for byte, then two in-process
+   replicas on the card: ``cache_peek``/``cache_fill`` partitioned trip the
+   breaker, which half-opens and closes once healed; under a 2 s
+   ``cache_peek`` hang the p99 stays within the peek deadline of the clean
+   p99; (17d) ``rolling_restart`` with handoff under four clients: no query
+   fails, roll retries 0, the floor at the fleet's generation, the ports
+   kept, at most three replica processes on the card; a floor committed
+   above the generation: a replica restarted then and the fleet answer
+   ``/healthz`` 503 until the new generation lands; (17f) ``run_soak`` on
+   the card at ``tests/test_soak.py``'s settings: the reference's record
+   keys, dropped 0, served twice 0, one recovery, ``segment`` launched by
+   the prior (counted), one prior refresh within phase 4's float32 bar of
+   ``device="cpu"``; (17g) ``run_fleet_soak`` with two replicas on the card
+   at ``tests/test_fabric.py``'s settings (respawns, rolled 2, the roll ok,
+   the floor) with the root ``tools/slo_watch.py --once --fleet`` against
+   its router meanwhile;
 7. one JSON line describing every kernel (with ``workload_launches``, each
-   kernel's launches in 12a-12c, 13a-13c, 14, 15b and 16 by workload), then
-   the result line.
+   kernel's launches in 12a-12c, 13a-13c, 14, 15b, 16 and 17f-17g by
+   workload), then the result line.
 
 Without a CUDA device, or without the port's package beside it, it exits
 non-zero and prints no result.  ``python3 chip_smoke.py --cards`` on a
-machine with four or more cards runs phase 16 alone with one slot a card.
+machine with four or more cards runs phase 16 alone with one slot a card;
+``python3 chip_smoke.py --fleet`` runs phase 17 alone.
 """
 
 from __future__ import annotations
@@ -4183,6 +4218,745 @@ def sharded_phase(graph, stream: dict, reset_counts, counts, card_label: str) ->
     return launches
 
 
+# ---------------------------------------------------------------- phase 17
+
+# The fleet (serving/fabric.py) serves 11c's config-5 stand-in sealed as
+# SEGMENTS segments with FLEET_REPLICAS replica processes on the card behind
+# the router; FLEET_CLIENTS closed-loop clients send phase 11's query
+# generator's SERVE_QUERIES queries over that corpus.  17c scales up one
+# replica whose environment carries replica_query:proc_kill@FLEET_KILL_AT;
+# 17h's CLI replica answers the first FLEET_CLI_QUERIES queries; 17e's
+# in-process pair peeks FLEET_PEER_KEYS keys per check.  17f and 17g run the
+# soaks at tests/test_soak.py:41-46's and tests/test_fabric.py:548-551's
+# settings.
+FLEET_REPLICAS, FLEET_CLIENTS, FLEET_KILL_AT = 2, 4, 3
+FLEET_CLI_QUERIES, FLEET_PEER_KEYS = 256, 24
+FLEET_MODULE = "page_rank_and_tfidf_using_apache_spark_tpu_torch.serving.fabric"
+FLEET_DEVICE, FLEET_BACKEND = "cuda", "gpu"
+SOAK_SETTINGS = dict(duration_s=6.0, qps=20.0, clients=2, rebuild_every_s=2.5,
+                     chunk_interval_s=0.3, prior_refresh_every_s=2.0, losses=1,
+                     loss_at_s=2.0, grace_s=20.0)
+FLEET_SOAK_SETTINGS = dict(duration_s=18.0, qps=6.0, clients=2, replicas=2,
+                           rebuild_every_s=6.0, kill_at_s=5.0, roll_at_s=11.0)
+# the reference's record keys (serving/soak.py's two _score methods);
+# tests/test_torch_soak.py holds the port's records to the reference's
+SOAK_RECORD_KEYS = {
+    "duration_s", "requests", "attempts", "qps", "served_p50_ms", "served_p95_ms",
+    "served_p99_ms", "served_p99_cumulative_ms", "client_e2e_p99_ms", "error_budget",
+    "errors", "recovery", "dropped", "double_served", "ingest", "contention",
+    "chaos_injections", "chaos_losses", "mixed_traffic", "slo_targets", "endpoint",
+    "backend"}
+FLEET_RECORD_KEYS = {
+    "duration_s", "requests", "attempts", "qps", "served_p50_ms", "served_p95_ms",
+    "served_p99_ms", "client_e2e_p99_ms", "error_budget", "errors", "recovery", "dropped",
+    "double_served", "ingest", "fleet", "cache", "autoscale", "mixed_traffic",
+    "slo_targets", "backend"}
+# the soak's prior against a device="cpu" run: phase 4's float32 bar, L1 of
+# the ranks on the sum-1 scale (the prior is normalized to mean 1)
+PRIOR_DOCS, PRIOR_L1 = 2_000, 1e-3
+
+
+def compute_apps() -> str:
+    """``nvidia-smi --query-compute-apps=pid,used_memory`` as it prints them.
+    In a container's PID namespace it cannot map the card's processes to
+    the container's pids (it may list one pid, 1, holding the card's whole
+    use), so the fleet's checks read :func:`card_holders` and
+    :func:`card_used_mib` instead."""
+    return subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().replace("\n", "; ")
+
+
+def card_used_mib() -> int:
+    """The card's used memory, MiB, as ``nvidia-smi --query-gpu=memory.used``
+    reports it."""
+    return int(subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                               "--format=csv,noheader,nounits"], capture_output=True,
+                              text=True, check=True, timeout=60).stdout.split()[0])
+
+
+def dev_files(pid: int) -> list:
+    """The ``/dev`` files process ``pid`` holds open."""
+    out = set()
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            link = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if link.startswith("/dev/"):
+            out.add(link)
+    return sorted(out)
+
+
+def card_holders(module: str = FLEET_MODULE) -> set:
+    """Pids of processes running ``module`` that hold a card's device file
+    open (``/proc/<pid>/fd`` -> ``/dev/nvidiaN``; the machine decides which
+    N the card is): a replica with a CUDA context."""
+    import re
+
+    card_file = re.compile(r"/dev/nvidia\d+$")
+    pids = set()
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                if module.encode() not in f.read():
+                    continue
+            fds = os.listdir(f"/proc/{d}/fd")
+            if any(card_file.match(os.readlink(f"/proc/{d}/fd/{fd}")) for fd in fds):
+                pids.add(int(d))
+        except OSError:
+            continue  # exited meanwhile
+    return pids
+
+
+def fleet_post(port: int, path: str, doc: dict, timeout: float = 60.0) -> tuple:
+    """One JSON POST to a replica: (status, parsed body, raw body)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(doc).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw = r.read()
+            return r.status, json.loads(raw), raw
+    except urllib.error.HTTPError as exc:
+        raw = exc.read()
+        return exc.code, json.loads(raw), raw
+
+
+def healthz(port: int) -> int:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as r:
+            return r.status
+    except urllib.error.HTTPError as exc:
+        return exc.code
+
+
+def fleet_loop(fn, items: list, clients: int) -> tuple[list, list, float]:
+    """``clients`` closed-loop threads sharing ``items``: the results in
+    ``items``' order, each call's seconds, and the wall seconds."""
+    import threading
+
+    out, lat, errors = [None] * len(items), [], []
+    lock = threading.Lock()
+
+    def client(c: int) -> None:
+        try:
+            for i in range(c, len(items), clients):
+                t0 = time.perf_counter()
+                out[i] = fn(items[i])
+                with lock:
+                    lat.append(time.perf_counter() - t0)
+        except Exception as exc:  # noqa: BLE001 — reported by the caller
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600.0)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"fleet clients failed: {errors[:3]}")
+    return out, sorted(lat), wall
+
+
+def pct_ms(xs: list, p: float) -> float:
+    return float(np.percentile(np.asarray(xs), p)) * 1e3 if xs else float("nan")
+
+
+def check_fleet_answers(got: list, want: list, label: str) -> int:
+    """11c's bar: scores within SEGMENT_ATOL of the in-process server's, ids
+    equal wherever its scores stand apart; returns the answers equal bit for
+    bit."""
+    same = 0
+    for (s, i), (ws, wi) in zip(got, want):
+        check(s.shape == ws.shape and np.allclose(s, ws, atol=SEGMENT_ATOL, rtol=0.0),
+              f"{label}: scores {s[:4]} vs the in-process server's {ws[:4]}")
+        gap = 2 * SEGMENT_ATOL
+        for j in range(len(ws)):
+            apart = ((j == 0 or ws[j - 1] - ws[j] > gap)
+                     and (j == len(ws) - 1 or ws[j] - ws[j + 1] > gap))
+            if apart:
+                check(i[j] == wi[j], f"{label}: id {i[j]} at {j} vs {wi[j]}")
+        same += int(s.tobytes() == ws.tobytes() and np.asarray(i, np.int32).tobytes()
+                    == np.asarray(wi, np.int32).tobytes())
+    return same
+
+
+def fleet_spawn_times(events: list) -> list:
+    """Each replica's handshake seconds in start order, from the
+    ``fabric_start`` and ``fabric_spawn`` events (ServingFabric.start spawns
+    one replica after the other)."""
+    t = [e["t"] for e in events if e["kind"] in ("fabric_start", "fabric_spawn")]
+    return [b - a for a, b in zip(t, t[1:])]
+
+
+def seal_fleet_index(seg_dir: str, wiki, cfg, device, segments: int) -> float:
+    """11c's sealing: ``segments`` equal parts of the corpus, each sealed and
+    committed with ``commit_append``; returns the seconds."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import run_tfidf
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import segments as sgm
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
+
+    t0 = time.perf_counter()
+    per = len(wiki) // segments
+    base = 0
+    for s in range(segments):
+        part = wiki[s * per:(s + 1) * per if s < segments - 1 else len(wiki)]
+        out = run_tfidf(part, cfg, device=device)
+        ref = sgm.seal_segment(seg_dir, out, cfg, doc_base=base, bm25=tcfg.Bm25Config())
+        sgm.commit_append(seg_dir, ref, cfg.config_hash())
+        base += out.n_docs
+    return time.perf_counter() - t0
+
+
+def cli_replica(seg_dir: str, extra: tuple = ()):
+    """The fabric's CLI (``python -m ...serving.fabric --replica``) on the
+    card, through the supervisor's handshake; returns (handle, seconds)."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import process as procs
+
+    t0 = time.perf_counter()
+    handle = procs.ProcessHandle(
+        [sys.executable, "-m", FLEET_MODULE, "--replica", seg_dir, "--replica-id", "9",
+         "--port", "0", "--top-k", str(QUERY_K), "--device", FLEET_DEVICE, *extra],
+        env=procs.fabric_pgid_env(), ready_timeout_s=300.0).spawn()
+    return handle, time.perf_counter() - t0
+
+
+def peer_pair_phase(seg_dir: str, queries: list, card_label: str) -> None:
+    """17e's faults, on two in-process replicas on the card wired as each
+    other's peers (the peer hops' faults live in the replica's process, so
+    they are injected here, in this one): a partitioned peek trips the
+    owner's breaker, which half-opens and closes once the partition heals;
+    under a hung peek the non-owner's p99 stays within the peek deadline of
+    its p99 with no fault."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.obs.export import MetricsExporter
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.obs.metrics import MetricsHub
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import fabric
+
+    os.environ["GRAFT_CACHE_BREAKER_PROBE_S"] = "0.5"
+    sink = obs.MemorySink()
+    obs.bus().attach(sink)
+    deadline_s = fabric._peer_knobs()[0]
+    reps = [fabric._Replica(seg_dir, replica_id=i, top_k=QUERY_K, max_batch=None,
+                            scoring="coo", poll_s=5.0, device=FLEET_DEVICE).start()
+            for i in (0, 1)]
+    exporters = [MetricsExporter(MetricsHub(), port=0, routes={
+        ("POST", "/query"): r.handle_query, ("GET", "/status"): r.handle_status,
+        ("POST", "/cache/peek"): r.handle_cache_peek,
+        ("POST", "/cache/fill"): r.handle_cache_fill,
+        ("POST", "/peers"): r.handle_peers}, ready=r.ready).start() for r in reps]
+    try:
+        check(all(r.ready() for r in reps), "in-process replicas not ready")
+        for r in reps:
+            r.configure_peers({i: e.port for i, e in enumerate(exporters)})
+        a, b = reps
+        ring = fabric._Ring([0, 1], 64)
+        by_key = {fabric.affinity_key(q, "tfidf"): tuple(q) for q in queries}
+        owned = [q for k, q in by_key.items() if ring.route(k)[0] == 0]
+        groups = [owned[g * FLEET_PEER_KEYS:(g + 1) * FLEET_PEER_KEYS] for g in range(3)]
+        check(len(groups[2]) == FLEET_PEER_KEYS, f"only {len(owned)} keys owned by 0")
+        rid = iter(range(10**6))
+
+        def ask(rep, q) -> tuple:
+            t0 = time.perf_counter()
+            code, _, body = rep.handle_query(json.dumps(
+                {"rid": f"pp-{next(rid)}", "terms": list(q), "ranker": "tfidf"}).encode())
+            check(code == 200, f"in-process replica answered {code}: {body[:200]}")
+            doc = json.loads(body)
+            return (json.dumps(doc["scores"]), json.dumps(doc["docs"])), \
+                time.perf_counter() - t0
+
+        # the owner computes every key first; B's answers must equal its bytes
+        want = {q: ask(a, q)[0] for g in groups for q in g}
+        # a clean pass: B's own compute cost with peer hits (latency baseline)
+        clean = [ask(b, q) for q in groups[0]]
+        check(all(x[0] == want[q] for x, q in zip(clean, groups[0])),
+              "peer hits differ from the owner's bytes")
+        base_p99 = pct_ms([x[1] for x in clean], 99)
+        hits0 = b._peer_stats["peer_hits"] + b._peer_stats["nonowner_local_hits"]
+        check(hits0 == len(groups[0]), f"{hits0} peer hits of {len(groups[0])} peeks")
+        # partition: trips after GRAFT_CACHE_BREAKER_TRIP failures, then the
+        # peeks are skipped; healed, the half-open probe closes it
+        # the owner partitioned on both peer hops (a fill that got through
+        # would count as a success and reset the breaker)
+        with chaos.inject("cache_peek:net_partition@1+;cache_fill:net_partition@1+"):
+            part = [ask(b, q) for q in groups[1][:8]]
+            drain = time.monotonic() + 10.0
+            while not b._fill_q.empty() and time.monotonic() < drain:
+                time.sleep(0.02)
+        check(all(x[0] == want[q] for x, q in zip(part, groups[1][:8])),
+              "answers under a partitioned peek differ from the owner's")
+        tripped = (b._breakers[0].state, b._peer_stats["breaker_trips"],
+                   b._peer_stats["peeks_skipped_open"])
+        check(tripped[0] == "open" and tripped[1] == 1 and tripped[2] >= 1,
+              f"partition: breaker {tripped}")
+        time.sleep(0.6)
+        healed = ask(b, groups[1][8])
+        check(healed[0] == want[groups[1][8]] and b._breakers[0].state == "closed",
+              f"healed: breaker {b._breakers[0].state}")
+        moves = [(e["old"], e["new"]) for e in sink.of_kind("cache_breaker")
+                 if e["replica"] == 1 and e["peer"] == 0]
+        transitions = len(moves)
+        check(moves[:1] == [("closed", "open")]
+              and moves[-2:] == [("open", "half_open"), ("half_open", "closed")],
+              f"breaker transitions {moves}")
+        # a hung owner: each request pays at most the deadline over its own cost
+        with chaos.inject("cache_peek:net_hang@%1:2000"):
+            hung = [ask(b, q) for q in groups[2]]
+        check(all(x[0] == want[q] for x, q in zip(hung, groups[2])),
+              "answers under a hung peek differ from the owner's")
+        hang_p99 = pct_ms([x[1] for x in hung], 99)
+        check(hang_p99 <= base_p99 + deadline_s * 1e3 + 100.0,
+              f"hung peek: p99 {hang_p99:.1f} ms over {base_p99:.1f} + deadline "
+              f"{deadline_s * 1e3:.0f} ms")
+        print(f"fleet 17e peer pair (in-process, {card_label}): {len(groups[0])} peer hits "
+              f"byte-equal to the owner, p99 {base_p99:.2f} ms; cache_peek:net_partition "
+              f"(and cache_fill) tripped the breaker (trips {tripped[1]}, peeks skipped "
+              f"{tripped[2]}), "
+              f"half-open probe closed it ({transitions} transitions); under "
+              f"cache_peek:net_hang (2 s) p99 {hang_p99:.2f} ms, max "
+              f"{max(x[1] for x in hung) * 1e3:.2f} ms, deadline {deadline_s * 1e3:.0f} ms, "
+              f"peek timeouts {b._peer_stats['peek_timeouts']}")
+    finally:
+        obs.bus().detach(sink)
+        for e in exporters:
+            e.stop()
+        for r in reps:
+            r.stop()
+        os.environ.pop("GRAFT_CACHE_BREAKER_PROBE_S", None)
+
+
+def soak_phase(reset_counts, counts, card_label: str) -> dict:
+    """17f: ``run_soak`` on the card at the reference test's settings; the
+    prior's launches; one prior refresh against ``device="cpu"``."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import soak
+
+    sink = obs.MemorySink()
+    obs.bus().attach(sink)
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        rec = soak.run_soak(soak.SoakConfig(**SOAK_SETTINGS, device=FLEET_DEVICE))
+        wall = time.perf_counter() - t0
+    finally:
+        obs.bus().detach(sink)
+    launched = counts()
+    check(set(rec) == SOAK_RECORD_KEYS, f"soak record keys {sorted(set(rec) ^ SOAK_RECORD_KEYS)}")
+    rcv = rec["recovery"]
+    check(rec["dropped"] == 0 and rec["double_served"] == 0,
+          f"soak: dropped {rec['dropped']}, served twice {rec['double_served']}")
+    check(rcv["losses_injected"] == 1 and len(rcv["recoveries"]) == 1,
+          f"soak recoveries {rcv}")
+    check(rec["backend"] == FLEET_BACKEND, f"soak backend {rec['backend']}")
+    check(launched.get("segment", 0) > 0, f"soak prior launched {launched}")
+    check(not sink.of_kind("degraded"), "the soak published a degraded event")
+    order = [e["kind"] for e in sink.events
+             if e["kind"] in ("soak_loss_injected", "soak_recovered")]
+    check(order == ["soak_loss_injected", "soak_recovered"], f"soak events {order}")
+    ing = rec["ingest"]
+    print(f"fleet 17f soak ({card_label}): {wall:.1f} s wall, {rec['requests']} requests at "
+          f"{rec['qps']} queries/s, served p50 {rec['served_p50_ms']} ms p99 "
+          f"{rec['served_p99_ms']} ms, availability burn "
+          f"{rec['error_budget']['availability']['burn_rate']}, time to recover "
+          f"{rcv['time_to_recover_s']} s, dropped 0, served twice 0; ingest {ing['chunks']} "
+          f"chunks, {ing['rebuilds']} seals, {ing['prior_refreshes']} prior refreshes, "
+          f"commit to servable max {ing['commit_to_servable_s']['max']} s; launches {launched}")
+    t0 = time.perf_counter()
+    gpu = soak._prior_ranks(PRIOR_DOCS, 7, 5, FLEET_DEVICE)
+    gpu_s = time.perf_counter() - t0
+    cpu = soak._prior_ranks(PRIOR_DOCS, 7, 5, "cpu")
+    l1 = float(np.abs(gpu.astype(np.float64) - cpu).sum()) / PRIOR_DOCS
+    check(l1 <= PRIOR_L1, f"prior refresh: L1 {l1} vs device='cpu' > {PRIOR_L1}")
+    print(f"fleet 17f prior refresh ({PRIOR_DOCS} docs, 5 iterations, segment): L1 "
+          f"{l1:.3g} on the sum-1 scale vs device='cpu' (bar {PRIOR_L1:g}), max abs "
+          f"{float(np.abs(gpu - cpu).max()):.3g}, bits equal {bits_differ(gpu, cpu) == 0}; "
+          f"{gpu_s:.2f} s on the card")
+    return launched
+
+
+def fleet_soak_phase(card_label: str) -> None:
+    """17g: ``run_fleet_soak`` with 2 replicas on the card; the root
+    ``tools/slo_watch.py --once --fleet`` against its router meanwhile."""
+    import threading
+
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import soak
+
+    sink = obs.MemorySink()
+    obs.bus().attach(sink)
+    box: dict = {}
+
+    def run() -> None:
+        try:
+            box["rec"] = soak.run_fleet_soak(soak.FleetSoakConfig(**FLEET_SOAK_SETTINGS,
+                                                                  device=FLEET_DEVICE))
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            box["error"] = exc
+
+    t0 = time.perf_counter()
+    worker = threading.Thread(target=run)
+    worker.start()
+    try:
+        url = None
+        while url is None and worker.is_alive():
+            url = next((e["url"] for e in sink.events if e["kind"] == "fabric_fleet_export"),
+                       None)
+            time.sleep(0.1)
+        check(url is not None, f"the fleet soak exported no fleet endpoint: {box}")
+        time.sleep(3.0)  # a few scrapes of both replicas
+        watch = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "slo_watch.py"),
+                                "--url", url, "--once", "--fleet"],
+                               capture_output=True, text=True, timeout=60)
+    finally:
+        worker.join(600.0)
+        obs.bus().detach(sink)
+    wall = time.perf_counter() - t0
+    check("error" not in box, f"fleet soak raised {box.get('error')!r}")
+    rec = box["rec"]
+    check(watch.returncode == 0 and "fleet: 2 replica(s)" in watch.stdout,
+          f"slo_watch --fleet: rc {watch.returncode}: {watch.stdout[-500:]} "
+          f"{watch.stderr[-500:]}")
+    fl = rec["fleet"]
+    respawns = [e["recovery_s"] for e in sink.events if e["kind"] == "fabric_respawn"]
+    check(set(rec) == FLEET_RECORD_KEYS, f"fleet record keys {sorted(set(rec) ^ FLEET_RECORD_KEYS)}")
+    check(rec["recovery"]["losses_injected"] == 1 and respawns,
+          f"fleet soak recovery {rec['recovery']}, respawns {respawns}")
+    check(fl["respawns"] >= 1 and fl["rolled"] == 2 and fl["roll"]["ok"] and fl["floor"] >= 1,
+          f"fleet soak record {fl}")
+    check(rec["dropped"] == 0 and rec["double_served"] == 0 and rec["backend"] == FLEET_BACKEND,
+          f"fleet soak dropped {rec['dropped']}, served twice {rec['double_served']}, "
+          f"backend {rec['backend']}")
+    print(f"fleet 17g fleet soak ({card_label}): {wall:.1f} s wall, {rec['requests']} "
+          f"requests at {rec['qps']} queries/s, served p50 {rec['served_p50_ms']} ms p99 "
+          f"{rec['served_p99_ms']} ms, time to recover {rec['recovery']['time_to_recover_s']} "
+          f"s (the soak's, read between its ticks; the supervisor's respawns took "
+          f"{respawns} s from detection to ready), respawns {fl['respawns']}, rolled "
+          f"{fl['rolled']} in {fl['roll']['roll_s']} s, "
+          f"floor {fl['floor']}, retries {fl['retries']}, roll retries {fl['roll_retries']}, "
+          f"cache {rec['cache']}")
+    print("fleet 17g slo_watch --once --fleet: " + " | ".join(
+        line.strip() for line in watch.stdout.strip().splitlines()[:4]))
+
+
+def fleet_phase(wiki, reset_counts, counts, card_label: str) -> dict:
+    """Phase 17 (see the module docstring); every check raises on failure.
+    Returns the kernels' launches in 17f and 17g (the soak's prior)."""
+    import threading
+
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs, serving
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import run_tfidf
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import fabric
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import segments as sgm
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
+
+    # the replicas' contexts share the card with this process: hand its
+    # cached blocks back first
+    torch.cuda.empty_cache()
+    # replicas run `python -m` from wherever this script was started
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)
+    cfg = tcfg.TfidfConfig(vocab_bits=TFIDF_BITS, ngram=2, idf_mode="smooth",
+                           l2_normalize=True)
+    queries = serving_queries(wiki, SERVE_QUERIES, SERVE_SEED)
+    sink = obs.MemorySink()
+    obs.bus().attach(sink)
+    with tempfile.TemporaryDirectory() as tmp:
+        seg_dir = os.path.join(tmp, "fleet")
+        seal = seal_fleet_index(seg_dir, wiki, cfg, FLEET_DEVICE, SEGMENTS)
+        gen = sgm.manifest_version(seg_dir)
+        # 17a: two replica processes on the card
+        used0 = card_used_mib()
+        t0 = time.perf_counter()
+        fab = fabric.ServingFabric(seg_dir, fabric.FabricConfig(
+            replicas=FLEET_REPLICAS, device=FLEET_DEVICE, top_k=QUERY_K, poll_s=0.2,
+            health_period_s=0.25, retry_pause_s=0.05, request_timeout_s=60.0,
+            grace_s=30.0, ready_timeout_s=300.0,
+            replica_chaos=((FLEET_REPLICAS, f"replica_query:proc_kill@{FLEET_KILL_AT}"),)))
+        cli = None
+        try:
+            fab.start()
+            start = time.perf_counter() - t0
+            shakes = fleet_spawn_times(sink.events)
+            pids = {i: h.pid for i, h in fab._handles.items()}
+            used = card_used_mib()
+            holders = card_holders()
+            check(set(pids.values()) <= holders,
+                  f"replica pids {pids} do not hold the card (holders {holders}; their "
+                  f"device files {[dev_files(p) for p in pids.values()]})")
+            print(f"fleet 17a ({card_label}): {SEGMENTS} config-5 segments sealed in "
+                  f"{seal:.1f} s (generation {gen}); {FLEET_REPLICAS} replicas up in "
+                  f"{start:.1f} s, handshakes " + ", ".join(f"{s:.2f} s" for s in shakes)
+                  + f"; replica pids {sorted(pids.values())} hold the card's device file; the "
+                  f"card's "
+                  f"used memory {used0} -> {used} MiB, {(used - used0) / FLEET_REPLICAS:.0f} "
+                  f"MiB a replica; nvidia-smi compute apps: {compute_apps()}")
+
+            # 17b: the queries through the router, against the in-process server
+            t0 = time.perf_counter()
+            with serving.TfidfServer(sgm.load_segment_set(seg_dir),
+                                     serving.ServeConfig(top_k=QUERY_K),
+                                     device=FLEET_DEVICE) as ref_srv:
+                want = serve_all(ref_srv, queries, "tfidf")
+            ref_s = time.perf_counter() - t0
+            got, lat, wall = fleet_loop(lambda q: fab.query(q), queries, FLEET_CLIENTS)
+            same = check_fleet_answers(got, want, "fleet 17b")
+            audit = fab.audit()
+            check(audit["delivered"] == len(queries) and audit["dropped"] == 0
+                  and audit["double_served"] == 0, f"fleet 17b audit {audit}")
+            # each replica's own serve time (its /status window), the rest of
+            # a query's latency is the router's HTTP hop
+            split = {s["replica"]: (s["executions"], s["p50_ms"], s["p99_ms"])
+                     for s in fab.statuses()}
+            port0 = fab._ports[0]
+            before = fab.statuses()[0]
+            dup = [fleet_post(port0, "/query", {"rid": "smoke-dup", "terms": queries[0],
+                                                 "ranker": "tfidf"}) for _ in range(2)]
+            after = fab.statuses()[0]
+            check(dup[0][0] == 200 and dup[0][2] == dup[1][2]
+                  and after["executions"] - before["executions"] == 1
+                  and after["replays"] - before["replays"] == 1,
+                  f"a repeated rid was not replayed: {before} -> {after}")
+            print(f"fleet 17b ({card_label}): {len(queries)} queries, {FLEET_CLIENTS} "
+                  f"closed-loop clients through the router: {len(queries) / wall:.1f} "
+                  f"queries/s, p50 {pct_ms(lat, 50):.2f} ms, p99 {pct_ms(lat, 99):.2f} ms; "
+                  f"by replica (executions, own p50 / p99 ms of the last 512) {split}; "
+                  f"within 11c's bar of the in-process "
+                  f"server ({ref_s:.1f} s for the reference pass), {same} of {len(queries)} "
+                  f"equal bit for bit; a repeated rid replayed byte-equal, not executed; "
+                  f"audit {audit}")
+
+            # 17h: the fabric's CLI on the card, its answers against 17b's
+            used_before = card_used_mib()
+            cli, cli_s = cli_replica(seg_dir)
+            cli_mib = card_used_mib() - used_before
+            check(cli.pid in card_holders(), "the CLI replica does not hold the card")
+            cport = int(cli.ready["port"])
+            cli_got = []
+            for k, q in enumerate(queries[:FLEET_CLI_QUERIES]):
+                code, doc, _ = fleet_post(cport, "/query", {"rid": f"cli-{k}", "terms": q})
+                check(code == 200, f"CLI replica answered {code}: {doc}")
+                cli_got.append((np.asarray(doc["scores"], np.float32),
+                                np.asarray(doc["docs"], np.int32)))
+            check(all(a[0].tobytes() == b[0].tobytes() and a[1].tobytes() == b[1].tobytes()
+                      for a, b in zip(cli_got, got)), "the CLI replica's answers differ from 17b's")
+            rc = cli.terminate(60.0)
+            check(rc == 0, f"CLI replica exited {rc} on SIGTERM")
+            cli = None
+            print(f"fleet 17h: python -m {FLEET_MODULE} --replica --device {FLEET_DEVICE}, handshake "
+                  f"{cli_s:.2f} s (generation {gen}), {cli_mib} MiB of the card, "
+                  f"{FLEET_CLI_QUERIES} answers equal to 17b's bit for bit, SIGTERM rc 0")
+
+            # 17c: a replica whose environment kills it at its third query
+            deg0 = len(sink.of_kind("degraded"))
+            used_before = card_used_mib()
+            t0 = time.perf_counter()
+            added = fab.scale_up(1)
+            up_s = time.perf_counter() - t0
+            up_mib = card_used_mib() - used_before
+            check(added == [FLEET_REPLICAS], f"scale_up added {added}")
+            victim = added[0]
+            owned = [k for k, q in enumerate(queries)
+                     if fab._ring.route(fabric.affinity_key(q, "tfidf"))[0] == victim]
+            pick = sorted(set(owned[:24]) | set(range(24)))
+            victim_pid = fab._handles[victim].pid
+            t_kill = time.perf_counter()
+            res, lat_c, _ = fleet_loop(lambda k: fab.query(queries[k]), pick, FLEET_CLIENTS)
+            check(all(a[0].tobytes() == got[k][0].tobytes() and a[1].tobytes()
+                      == got[k][1].tobytes() for a, k in zip(res, pick)),
+                  "answers across the kill differ from 17b's")
+            deadline = time.monotonic() + 300.0
+            while time.monotonic() < deadline:
+                sts = fab.statuses()
+                if (fab.audit()["respawns"] >= 1 and all(s is not None and s.get("ready")
+                                                         for s in sts)):
+                    break
+                time.sleep(0.2)
+            respawn_ev = sink.of_kind("fabric_respawn")
+            deg = sink.of_kind("degraded")[deg0:]
+            audit = fab.audit()
+            check(len(deg) == 1 and deg[0]["ladder"] == "respawn"
+                  and deg[0]["replica"] == victim and deg[0]["pid"] == victim_pid,
+                  f"17c degraded events {deg}")
+            check(audit["respawns"] == 1 and len(respawn_ev) == 1
+                  and audit["dropped"] == 0 and audit["double_served"] == 0,
+                  f"17c audit {audit}, respawns {respawn_ev}")
+            new_pid = fab._handles[victim].pid
+            check(new_pid != victim_pid and new_pid in card_holders()
+                  and victim_pid not in card_holders(),
+                  f"respawned replica {new_pid} not on the card, or {victim_pid} still is")
+            recovery_s = respawn_ev[0]["recovery_s"]
+            removed = fab.scale_down(1)
+            check(removed == [victim], f"scale_down removed {removed}")
+            print(f"fleet 17c ({card_label}): scale_up to 3 in {up_s:.2f} s ({up_mib} MiB of "
+                  f"the card); "
+                  f"replica_query:proc_kill@{FLEET_KILL_AT} killed replica {victim} (pid "
+                  f"{victim_pid}) mid-query; {len(pick)} queries answered equal to 17b's "
+                  f"(p99 {pct_ms(lat_c, 99):.1f} ms), one degraded on the respawn rung, "
+                  f"respawned (pid {new_pid}) ready in {recovery_s} s from the kill's "
+                  f"detection ({time.perf_counter() - t_kill:.1f} s wall); retries "
+                  f"{audit['retries']}, dropped 0, served twice 0; scale_down back to 2")
+
+            # 17e: the peer cache on the processes, then its faults in-process
+            ring = fab._ring
+            q_peer = next(q for q in queries[FLEET_CLI_QUERIES:]
+                          if ring.route(fabric.affinity_key(q, "tfidf"))[0] == 0)
+            code_o, owner_doc, _ = fleet_post(fab._ports[0], "/query",
+                                              {"rid": "peer-owner", "terms": q_peer})
+            hits = fab.statuses()[1]["peer_hits"]
+            code_n, peer_doc, _ = fleet_post(fab._ports[1], "/query",
+                                             {"rid": "peer-nonowner", "terms": q_peer})
+            hits2 = fab.statuses()[1]["peer_hits"]
+            check(code_o == code_n == 200 and hits2 == hits + 1
+                  and json.dumps(peer_doc["scores"]) == json.dumps(owner_doc["scores"])
+                  and json.dumps(peer_doc["docs"]) == json.dumps(owner_doc["docs"]),
+                  f"17e: non-owner's answer {peer_doc} vs owner's {owner_doc}, peer hits "
+                  f"{hits} -> {hits2}")
+            print("fleet 17e: a non-owner's miss served by the owner's cache, byte for byte "
+                  "equal to the owner's answer (peer hits +1)")
+            peer_pair_phase(seg_dir, queries, card_label)
+
+            # 17d: a rolling restart with handoff under load, then the floor
+            stop = threading.Event()
+            failures, served = [], [0]
+            samples: list = []
+
+            def hammer(c: int) -> None:
+                k = c
+                while not stop.is_set():
+                    try:
+                        fab.query(queries[k % len(queries)])
+                        served[0] += 1
+                    except Exception as exc:  # noqa: BLE001 — checked below
+                        failures.append(exc)
+                    k += FLEET_CLIENTS
+
+            def sample() -> None:
+                while not stop.is_set():
+                    samples.append((len(card_holders()), card_used_mib()))
+                    stop.wait(0.25)
+
+            ports_before = dict(fab._ports)
+            pids_before = {i: h.pid for i, h in fab._handles.items()}
+            threads = [threading.Thread(target=hammer, args=(c,))
+                       for c in range(FLEET_CLIENTS)] + [threading.Thread(target=sample)]
+            for t in threads:
+                t.start()
+            try:
+                t0 = time.perf_counter()
+                fab.rolling_restart(timeout=300.0)
+                roll_s = time.perf_counter() - t0
+            finally:
+                stop.set()
+                for t in threads:
+                    t.join(120.0)
+            audit = fab.audit()
+            check(not failures, f"17d: queries failed during the roll: {failures[:3]}")
+            check(audit["roll_retries"] == 0 and audit["rolled"] == 2
+                  and audit["dropped"] == 0 and audit["double_served"] == 0,
+                  f"17d audit {audit}; suspects "
+                  f"{[(e['replica'], e['error']) for e in sink.of_kind('fabric_suspect')]}")
+            check(fabric.read_floor(seg_dir) == gen, f"floor {fabric.read_floor(seg_dir)}")
+            check(dict(fab._ports) == ports_before
+                  and all(fab._handles[i].pid != p for i, p in pids_before.items()),
+                  "the roll did not keep the ports or replace the processes")
+            print(f"fleet 17d ({card_label}): rolling restart with handoff under "
+                  f"{FLEET_CLIENTS} clients in {roll_s:.1f} s, {served[0]} queries served "
+                  f"meanwhile, roll retries 0, rolled 2, floor {gen}; at most "
+                  f"{max(n for n, _ in samples)} replica processes on the card at once, the "
+                  f"card's used memory {min(m for _, m in samples)}-"
+                  f"{max(m for _, m in samples)} MiB over {len(samples)} samples")
+            fabric.commit_floor(seg_dir, gen + 1)
+            cli, cli_s = cli_replica(seg_dir)
+            cport = int(cli.ready["port"])
+            check(cli.ready["generation"] is None and healthz(cport) == 503,
+                  f"a replica restarted under floor {gen + 1}: {cli.ready}, healthz "
+                  f"{healthz(cport)}")
+            deadline = time.monotonic() + 60.0
+            while time.monotonic() < deadline and any(healthz(p) != 503
+                                                      for p in fab._ports.values()):
+                time.sleep(0.1)
+            check(all(healthz(p) == 503 for p in fab._ports.values()),
+                  "fleet replicas still healthy under a floor above their generation")
+            t0 = time.perf_counter()
+            extra = run_tfidf(wiki[:2_000], cfg, device=FLEET_DEVICE)
+            end = max(r.doc_base + r.n_docs for r in sgm.latest_manifest(seg_dir).segments)
+            sgm.commit_append(seg_dir, sgm.seal_segment(
+                seg_dir, extra, cfg, doc_base=end, bm25=tcfg.Bm25Config()),
+                cfg.config_hash())
+            deadline = time.monotonic() + 120.0
+            while time.monotonic() < deadline and healthz(cport) != 200:
+                time.sleep(0.1)
+            catch = time.perf_counter() - t0
+            check(healthz(cport) == 200, "the restarted replica never caught up")
+            check(fab.await_fleet_generation(gen + 1, timeout=120.0),
+                  "the fleet never reached the new generation")
+            code, doc, _ = fleet_post(cport, "/query", {"rid": "floor-1", "terms": queries[1]})
+            check(code == 200 and doc["generation"] == gen + 1, f"after the floor: {doc}")
+            check(cli.terminate(60.0) == 0, "CLI replica did not exit 0")
+            cli = None
+            print(f"fleet 17d floor: committed {gen + 1} above the fleet's {gen}: a replica "
+                  f"restarted then (handshake {cli_s:.2f} s, generation None) and the "
+                  f"fleet's replicas answered /healthz 503; generation {gen + 1} committed, "
+                  f"served after {catch:.2f} s")
+        finally:
+            if cli is not None:
+                cli.kill()
+            fab.stop()
+            obs.bus().detach(sink)
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline and card_holders():
+            time.sleep(0.5)
+        check(not card_holders(),
+              f"replica processes left on the card after the fleet stopped: {card_holders()}")
+    launched = soak_phase(reset_counts, counts, card_label)
+    fleet_soak_phase(card_label)
+    return launched
+
+
+def fleet_main() -> int:
+    """``--fleet``: phase 17 alone (the kernels built first, the config-5
+    stand-in generated), a result line at the end."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.io import text as tio
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import gather_kernels as gk
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pallas_kernels as pk
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import segment_kernels as sk
+
+    def reset_counts() -> None:
+        pk.reset_launches()
+        gk.reset_launches()
+        sk.reset_launches()
+
+    def counts() -> dict:
+        return {**pk.LAUNCHES, **gk.LAUNCHES, **sk.LAUNCHES}
+
+    smi = card()
+    print(f"{smi['device']}, {smi['power_limit']}")
+    t0 = time.perf_counter()
+    _build.build(force=True)
+    print(f"build: {time.perf_counter() - t0:.2f} s wall")
+    wiki = tio.synthetic_corpus_lines(WIKI_DOCS, WIKI_TOKENS, WIKI_SEED)
+    t0 = time.perf_counter()
+    launched = fleet_phase(wiki, reset_counts, counts, f"{smi['device']}, {smi['power_limit']}")
+    print(f"phase 17 (fleet): {time.perf_counter() - t0:.1f} s; launches {launched}")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def cards_main() -> int:
     """``--cards``: phase 16 alone with one slot a visible card (at least 4):
     the sharded paths across cards.  Prints the card, phase 16's lines and a
@@ -4633,6 +5407,12 @@ def main() -> int:
     workload_launches.update(sharded_phase(graph, stream, reset_counts, counts, card_label))
     print(f"phase 16 (mesh of {SHARD_SLOTS} slots on one card): {time.perf_counter() - t0:.1f} s")
 
+    # 17. the fleet: replica processes on the card behind the router, the
+    # respawn rung, drain by handoff, the floor, the peer cache, both soaks
+    t0 = time.perf_counter()
+    workload_launches["fleet"] = fleet_phase(stream["wiki"], reset_counts, counts, card_label)
+    print(f"phase 17 (fleet): {time.perf_counter() - t0:.1f} s")
+
     # 7. the kernels line, then the result line; launches are those of the
     # kernel's own path: cumsum's from the hybrid run (its tail's prefix
     # sum), segment's from the segment run
@@ -4673,9 +5453,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--cards"]:
+    if sys.argv[1:] in (["--cards"], ["--fleet"]):
         if not torch.cuda.is_available():
             print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
             sys.exit(2)
-        sys.exit(cards_main())
+        sys.exit(cards_main() if sys.argv[1:] == ["--cards"] else fleet_main())
     sys.exit(main())

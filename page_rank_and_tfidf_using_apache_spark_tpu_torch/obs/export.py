@@ -2,7 +2,8 @@
 :class:`obs.metrics.MetricsHub`.
 
 A copy of the JAX package's ``obs/export.py`` (stdlib), so the port never
-imports that package.
+imports that package, with one statement added: a draining listener
+closes right after its backlog sweep (``_ReusePortHTTPServer``).
 
 Reference counterpart: the Spark UI's REST endpoint — you point a browser
 (or ``tools/slo_watch.py``, or a Prometheus scraper) at a *running*
@@ -14,9 +15,9 @@ Here:
 - ``GET /metrics`` — the same state as Prometheus text exposition;
 - ``GET /healthz`` — liveness (``ok``).
 
-The port comes from the ``GRAFT_METRICS_PORT`` env knob (not yet in
-``utils/config.GRAFT_ENV_KNOBS``: no entry point of the port calls
-:func:`serve_metrics_from_env`): unset/empty means "no exporter" for
+The port comes from the ``GRAFT_METRICS_PORT`` env knob (declared in
+``utils/config.GRAFT_ENV_KNOBS``; ``cli.serve`` and ``serving/soak.py``
+read it): unset/empty means "no exporter" for
 the from-env helpers; ``0`` binds an ephemeral port (the soak harness
 uses this so parallel runs never collide — the bound port is published in
 the ``metrics_export`` event and the SLO record).  The server binds
@@ -147,7 +148,14 @@ class _ReusePortHTTPServer(ThreadingHTTPServer):
         per drain, i.e. one roll-attributed retry.  Reorder to
         accept-then-check and sweep the backlog dry with a zero-timeout
         select before exiting, so the socket closes empty and the drain
-        truly hands every steered connection off."""
+        truly hands every steered connection off.
+
+        The port closes the listening socket on this thread right after
+        the sweep (the reference leaves it to ``server_close()`` after
+        ``shutdown()`` returns), where the kernel can still queue a
+        connection that the later close resets: a roll-attributed retry
+        under load (ROADMAP Queue 3;
+        ``tests/test_torch_drain_cache.py``, the 16-client rolls)."""
         self._BaseServer__is_shut_down.clear()  # graftlint: disable=unsynced-thread-state (threading.Event is internally locked; stdlib serve_forever mutates the same pair lock-free)
         try:
             with selectors.SelectSelector() as selector:
@@ -158,6 +166,7 @@ class _ReusePortHTTPServer(ThreadingHTTPServer):
                     self.service_actions()
                 while selector.select(0):
                     self._handle_request_noblock()
+                self.socket.close()  # leave the group now (docstring)
         finally:
             self._BaseServer__shutdown_request = False  # graftlint: disable=unsynced-thread-state (single-writer handshake flag; shutdown() only ever sets it True and blocks on the event below)
             self._BaseServer__is_shut_down.set()  # graftlint: disable=unsynced-thread-state (threading.Event is internally locked)

@@ -4,8 +4,10 @@ the single-device salvage (:mod:`.elastic`), and the structured
 :class:`ResilienceExhausted` that hands callers the checkpoint to resume
 from.
 
-Counterpart of the JAX package's ``resilience/`` with its names, less the
-process supervisor (ROADMAP Queue 1 item 13).  The port's failure model:
+Counterpart of the JAX package's ``resilience/`` with its names.  The
+process supervisor of the serving fleet, :mod:`.process` (the ``respawn``
+rung), is imported as a module, as in the reference, and not re-exported
+here.  The port's failure model:
 retry a transient fault; on a lost device that names its index, shrink a
 sharded run's mesh over the surviving slots (:func:`plan_shrink`) or hand a
 single-device run to the CPU from its newest commit point (the salvage);

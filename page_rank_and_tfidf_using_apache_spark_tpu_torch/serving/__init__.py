@@ -13,7 +13,17 @@ Counterpart of the JAX package's ``serving/``, in PyTorch on one device:
   the device once, drains a bounded request queue into padded
   micro-batches, scores them over every posting (``coo``) or over the
   query terms' posting runs alone (``impacted``), merges the segments'
-  top-k on the device, and fronts it all with a hot-query LRU cache.
+  top-k on the device, and fronts it all with a hot-query LRU cache;
+- :mod:`serving.fabric` — the fleet: replica processes behind a
+  consistent-hash router, the respawn rung, the generation floor, drain
+  by socket handoff and the peer cache (``FabricConfig``,
+  ``ServingFabric``, ``commit_floor``, ``read_floor``);
+- :mod:`serving.soak` — the soaks: ingest, serving, the PageRank prior and
+  a device loss at once, scored on SLOs (``SoakConfig``, ``run_soak``;
+  ``run_fleet_soak`` over the fleet).
+
+``fabric`` and ``soak`` load on first use of their names, as in the JAX
+package, so plain serving users do not pay for their imports.
 
 Both scorers add each document's products in one fixed order
 (``ops/tfidf.py``), so a served result equals the one-shot
@@ -47,19 +57,39 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving.server import (
 __all__ = [
     "INDEX_FORMAT",
     "RANKERS",
+    "FabricConfig",
     "SegmentMerger",
     "SegmentSet",
     "ServableIndex",
     "ServeConfig",
     "ServerShutdown",
+    "ServingFabric",
+    "SoakConfig",
     "TfidfServer",
     "batch_cap",
     "build_term_offsets",
     "commit_append",
+    "commit_floor",
     "impacted_pad_plan",
     "load_index",
     "load_segment_set",
+    "read_floor",
+    "run_soak",
     "save_index",
     "seal_segment",
     "serve_pad_plan",
 ]
+
+
+def __getattr__(name: str):
+    # serving.soak pulls in the ingest and PageRank side, serving.fabric
+    # the subprocess and HTTP plumbing: both load on first use
+    if name in ("SoakConfig", "run_soak"):
+        from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import soak
+
+        return getattr(soak, name)
+    if name in ("FabricConfig", "ServingFabric", "commit_floor", "read_floor"):
+        from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import fabric
+
+        return getattr(fabric, name)
+    raise AttributeError(name)

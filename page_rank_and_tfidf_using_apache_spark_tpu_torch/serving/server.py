@@ -68,6 +68,9 @@ Design points:
   vector (term-id-sorted, duplicate terms combined), so "foo bar" and
   "bar foo" hit the same entry; hits resolve on the drain thread without
   touching the device and publish ``serve.cache_hits`` counters.
+  :meth:`TfidfServer.cache_lookup` and :meth:`TfidfServer.cache_insert`
+  read and fill it under the same key for the fleet's peer cache
+  (``serving/fabric.py``).
 """
 
 from __future__ import annotations
@@ -886,9 +889,48 @@ class TfidfServer:
             out["segments"] = len(self._segs)
         out.setdefault("requests", 0)
         for key in ("cache_hits", "cache_misses", "dedup_hits", "batches",
-                    "batch_errors", "refreshes"):
+                    "batch_errors", "refreshes", "peer_stores"):
             out.setdefault(key, 0)
         return out
+
+    # ------------------------------------------------------- peer-cache hooks
+
+    def cache_lookup(
+        self, terms: Sequence[str], *, ranker: str = "tfidf",
+    ) -> "tuple[np.ndarray, np.ndarray] | None":
+        """Non-computing probe of the local result LRU under the SAME
+        canonical key the serve path uses (:meth:`query_key`) — the
+        replica-side answer to a peer's ``POST /cache/peek``
+        (``serving/fabric.py``): a hit returns the cached ``(scores,
+        docs)`` without touching the dispatch queue or the device, a miss
+        returns None and costs one tokenize."""
+        q_term, q_weight = self.make_query(terms)
+        return self._cache_get(self.query_key(q_term, q_weight, ranker))
+
+    def cache_insert(
+        self, terms: Sequence[str], scores, docs, *, ranker: str = "tfidf",
+    ) -> bool:
+        """Install an externally computed result into the local LRU (the
+        ``POST /cache/fill`` write-back from a non-owner replica).  The
+        value is stored against the CURRENT prior-generation stamp, so a
+        racing hot-swap invalidates it exactly like a locally computed
+        entry; values are stored in the serve path's own types, the weight
+        tables' dtype and int32 — the wire carried doubles that started as
+        results of that dtype, so the cast back is exact and a later hit
+        re-serialises byte for byte like the compute that produced them.
+        (The reference casts to float32, its only score dtype; the port
+        serves a float64 index in float64, so it casts to the tables'
+        dtype.)"""
+        q_term, q_weight = self.make_query(terms)
+        key = self.query_key(q_term, q_weight, ranker)
+        value = (np.asarray(scores, dtype=self._dtype),
+                 np.asarray(docs, dtype=np.int32))
+        with self._lock:
+            gen = self._prior_gen
+        self._cache_put(key, value, gen)
+        with self._lock:
+            self._stats["peer_stores"] += 1
+        return True
 
     # ---------------------------------------------------------- drain thread
 

@@ -83,6 +83,34 @@ GRAFT_ENV_KNOBS: frozenset = frozenset({
     # knob resolution ladder loads instead of the committed per-backend
     # default ("off" or empty disables profile loading
     # entirely: every knob falls back to TUNABLE_DEFAULTS)
+    "GRAFT_SOAK_DURATION_S",  # serving/soak.py: wall-clock length of the
+    # soak scenario (default 60; the fleet soak's 45)
+    "GRAFT_SOAK_QPS",  # serving/soak.py: closed-loop client target request
+    # rate across all client threads (default 30; the fleet soak's 12)
+    "GRAFT_SOAK_SLO_P99_MS",  # soak SLO target: served p99 latency bound
+    # the latency error budget is scored against (default 500)
+    "GRAFT_SOAK_SLO_AVAILABILITY",  # soak SLO target: good-request
+    # fraction the availability error budget is scored against
+    # (default 0.999)
+    "GRAFT_FABRIC_REPLICAS",  # serving/fabric.py: replica-fleet size the
+    # fleet soak / FabricConfig.from_env defaults to (default 2)
+    "GRAFT_FED_SCRAPE_S",  # obs/federation.py: seconds between fleet
+    # metrics scrapes of each replica's /snapshot.json (default 1.0; a
+    # replica unanswered for 3 periods is labeled stale)
+    "GRAFT_AUTOSCALE_MIN",  # serving/fabric.py AutoscaleConfig: the
+    # autoscaler's replica-count floor (default 1)
+    "GRAFT_AUTOSCALE_MAX",  # serving/fabric.py AutoscaleConfig: the
+    # autoscaler's replica-count ceiling (default 4)
+    "GRAFT_AUTOSCALE_COOLDOWN_S",  # serving/fabric.py AutoscaleConfig:
+    # minimum seconds between scale actions (default 10)
+    "GRAFT_CACHE_PEEK_DEADLINE_S",  # serving/fabric.py: hard bound on one
+    # owner cache-peek round-trip (default 0.25s) — the most a slow or
+    # partitioned peer can ever add to a request's latency
+    "GRAFT_CACHE_BREAKER_TRIP",  # serving/fabric.py: consecutive peer
+    # timeouts before that peer's circuit breaker opens (default 3)
+    "GRAFT_CACHE_BREAKER_PROBE_S",  # serving/fabric.py: seconds an open
+    # breaker waits before letting one half-open probe through
+    # (default 2.0)
 })
 
 # The degradation rungs of the resilience executor (resilience/executor.py
@@ -92,8 +120,8 @@ GRAFT_ENV_KNOBS: frozenset = frozenset({
 # device that names its index to the CPU, from the newest commit point;
 # the reference's per-segment rung is not ported) and as the end of the
 # mesh shrink; mesh_shrink and single_device are the sharded runners'
-# (parallel/); respawn waits for the fleet's process supervisor (ROADMAP
-# Queue 1 item 13).
+# (parallel/); respawn is fired by resilience/process.respawn, which the
+# serving fabric's supervisor calls when a replica process dies.
 DEGRADE_LADDER: tuple = (
     "mesh_shrink",  # rebuild the mesh over surviving devices (pow2 shrink)
     "single_device",  # the 1-device end of the shrink chain

@@ -176,11 +176,9 @@ def test_ranks_are_bundled_and_versions_advance(tmp_path):
 
 
 def test_serving_exports_the_artifact_only():
-    """The artifact's names, and since the query slice the reference's
-    serving surface but the fleet and the soak (ROADMAP Queue 1 item 13)."""
-    later = {"FabricConfig", "ServingFabric", "SoakConfig", "run_soak", "commit_floor",
-             "read_floor"}
-    assert set(serving.__all__) == (set(jserving.__all__) - later) | {
+    """The artifact's names, and since the fleet slice the reference's whole
+    serving surface, the fleet and the soak (loaded on first use) too."""
+    assert set(serving.__all__) == set(jserving.__all__) | {
         "INDEX_FORMAT", "build_term_offsets"}
     assert all(hasattr(serving, name) for name in serving.__all__)
     from page_rank_and_tfidf_using_apache_spark_tpu.serving import artifact as jartifact

@@ -139,6 +139,14 @@ def test_scan_covers_the_parallel_slice():
             "dataflow/partition.py"} <= scanned
 
 
+def test_scan_covers_the_fleet_slice():
+    """The process supervisor, the fabric, the soaks and the crash harness
+    are among the files the scan reads."""
+    scanned = {p.relative_to(PORT).as_posix() for p in FILES if p.is_relative_to(PORT)}
+    assert {"resilience/process.py", "serving/fabric.py", "serving/soak.py",
+            "tools/crash_harness.py"} <= scanned
+
+
 @pytest.mark.parametrize("source, flagged", [
     ("import page_rank_and_tfidf_using_apache_spark_tpu_torch.ops", set()),
     ("from page_rank_and_tfidf_using_apache_spark_tpu_torch import api", set()),
@@ -153,7 +161,7 @@ def test_import_scan_matches_whole_names(source, flagged):
     assert top_level_imports(source) & FORBIDDEN == flagged
 
 
-def test_port_runs_with_jax_unimportable():
+def test_port_runs_with_jax_unimportable(tmp_path):
     code = """
 import importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "page_rank_and_tfidf_using_apache_spark_tpu"):
@@ -168,10 +176,36 @@ for impl in SPMV_IMPLS:
     res = port.pagerank(g, dangling="redistribute", init="uniform", spmv_impl=impl,
                         dtype="float64", device="cpu")
     assert abs(res.ranks.sum() - 1.0) < 1e-12, (impl, res.ranks.sum())
+# a fleet replica process, itself started with JAX unimportable, shakes
+# hands and answers a query
+import json, urllib.request
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import process
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import segments as sgm
+tmp = sys.argv[1]
+cfg = port.TfidfConfig(vocab_bits=10)
+out = port.tfidf(["the cat sat", "the dog sat", "a cat ran"], cfg, device="cpu")
+sgm.commit_append(tmp, sgm.seal_segment(tmp, out, cfg, doc_base=0, bm25=None),
+                  cfg.config_hash())
+child = ("import sys\\n"
+         "for n in ('jax', 'jaxlib', 'page_rank_and_tfidf_using_apache_spark_tpu'):\\n"
+         "    sys.modules[n] = None\\n"
+         "from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import fabric\\n"
+         "sys.exit(fabric.main(sys.argv[1:]))\\n")
+h = process.ProcessHandle([sys.executable, "-c", child, "--replica", tmp, "--device", "cpu",
+                           "--top-k", "2"], ready_timeout_s=120.0).spawn()
+try:
+    req = urllib.request.Request(f"http://127.0.0.1:{h.ready['port']}/query",
+                                 data=json.dumps({"rid": "h-1", "terms": ["cat"]}).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=30) as r:
+        assert json.loads(r.read())["docs"][0] in (0, 2)
+    assert h.terminate(20.0) == 0
+finally:
+    h.kill()
 print("ok")
 """
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                         text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
 

@@ -211,6 +211,11 @@ def test_is_transient_cuda_classes(exc, transient):
 
 def test_inject_overrides_env_and_counts(pkg, monkeypatch):
     _, ch, *_ = pkg
+    # the module caches the env plan it parsed, call counts included: start
+    # from an empty cache and put the old one back afterwards, so neither
+    # this test nor tests/test_resilience.py's twin (the same spec, in the
+    # same process) meets a plan whose first call was already counted
+    monkeypatch.setattr(ch, "_env_cache", (None, None))
     monkeypatch.setenv("GRAFT_CHAOS", "s:lost@1")  # would fail immediately
     with ch.inject("s:fail@2") as plan:
         ch.on_call("s")  # call 1: no injection under the override
