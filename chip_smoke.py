@@ -242,6 +242,17 @@ Phases, each of which exits non-zero on failure:
    4 slots against the single-device runs at phase 12's bars; (16f)
    ``cli.pagerank --mesh 1 --shard-strategy auto`` byte-equal to the API,
    ``--mesh`` past the visible cards failing with the reference's message;
+   (16g) one mesh across processes (``parallel.init_distributed``): two
+   NCCL processes on the one card raise ``ValueError``; then two spawned
+   processes share the card over gloo, two slots each (D = 4), and run
+   every strategy in float32 under segment, ``edges`` under cumsum,
+   ``nodes`` in float64 and ``owned`` stopped at 10 and resumed from its
+   checkpoint, each bit-equal on both processes and to 16b's one-process
+   run, iterations/s beside 16b's; TF-IDF (config 2), PPR, HITS and
+   components at one slot a process, bit-equal to the one-process mesh of
+   two slots; ``segment.cu``, ``rowsum.cu`` and ``cumsum.cu`` launched in
+   the processes, counted under ``distributed``; one deadline for the
+   group, a process that raises, hangs or dies fails the phase;
 17. the serving fleet (``serving/fabric.py``, ``serving/soak.py``): (17a)
    11c's config-5 stand-in sealed as four segments and two replica
    processes on the card behind ``ServingFabric``: each handshake's
@@ -273,17 +284,20 @@ Phases, each of which exits non-zero on failure:
    keys, dropped 0, served twice 0, one recovery, ``segment`` launched by
    the prior (counted), one prior refresh within phase 4's float32 bar of
    ``device="cpu"``; (17g) ``run_fleet_soak`` with two replicas on the card
-   at ``tests/test_fabric.py``'s settings (respawns, rolled 2, the roll ok,
-   the floor) with the root ``tools/slo_watch.py --once --fleet`` against
-   its router meanwhile;
+   at ``tests/test_fabric.py``'s rates (respawns, rolled 2, the roll ok,
+   the floor), over 45 s with the kill at 5 s and the roll at 30 s, sized
+   to the card's respawn: ``time_to_recover_s`` not null, dropped 0,
+   served twice 0, roll retries 0, with the root ``tools/slo_watch.py
+   --once --fleet`` against its router meanwhile;
 7. one JSON line describing every kernel (with ``workload_launches``, each
    kernel's launches in 12a-12c, 13a-13c, 14, 15b, 16 and 17f-17g by
    workload), then the result line.
 
 Without a CUDA device, or without the port's package beside it, it exits
 non-zero and prints no result.  ``python3 chip_smoke.py --cards`` on a
-machine with four or more cards runs phase 16 alone with one slot a card;
-``python3 chip_smoke.py --fleet`` runs phase 17 alone.
+machine with four or more cards runs phase 16 alone with one slot a card,
+16g as one process a card over NCCL; ``python3 chip_smoke.py --fleet``
+runs phase 17 alone.
 """
 
 from __future__ import annotations
@@ -3968,13 +3982,16 @@ def sharded_run(graph, cfg, strategy: str, d: int, reset_counts, counts):
     return res, counts()
 
 
-def sharded_pagerank_phase(graph, reset_counts, counts, card_label: str) -> dict:
+def sharded_pagerank_phase(graph, reset_counts, counts, card_label: str,
+                           kept: dict) -> dict:
     """16b: every strategy at 4 slots under segment (owned also at 2), and
     cumsum under edges and nodes: float64 within 1e-9 L1 of the
     single-device float64 run, float32 within L1 1e-3 of float64, two
     float32 runs equal bit for bit, the launches (segment >= D x 20, rowsum
     >= 20 under hybrid, cumsum >= D x 20 under cumsum), iterations/s,
-    partition and put seconds.  Returns the launches of the float32 runs."""
+    partition and put seconds.  Returns the launches of the float32 runs;
+    ``kept[(strategy, d, impl, dtype)]`` gets each run's ranks and
+    iterations/s, which 16g holds the mesh across processes to."""
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import PageRankConfig
 
@@ -3992,6 +4009,8 @@ def sharded_pagerank_phase(graph, reset_counts, counts, card_label: str) -> dict
         r32, launched = sharded_run(graph, cfg32, strategy, d, reset_counts, counts)
         again, _ = sharded_run(graph, cfg32, strategy, d, reset_counts, counts)
         add_counts(total, launched)
+        kept[(strategy, d, impl, "float32")] = (r32.ranks, r32.metrics.records[-1]["iters_per_sec"])
+        kept[(strategy, d, impl, "float64")] = (r64.ranks, r64.metrics.records[-1]["iters_per_sec"])
         l1_64 = float(np.abs(r64.ranks - ref).sum())
         l1_32 = float(np.abs(r32.ranks.astype(np.float64) - ref).sum())
         differ = bits_differ(r32.ranks, again.ranks)
@@ -4206,16 +4225,158 @@ def sharded_phase(graph, stream: dict, reset_counts, counts, card_label: str) ->
     """Phase 16 (see the module docstring).  Returns the launches of its
     runs by sub-phase."""
     launches = {}
+    kept: dict = {}
     t0 = time.perf_counter()
     collectives_phase()
-    launches["sharded"] = sharded_pagerank_phase(graph, reset_counts, counts, card_label)
+    launches["sharded"] = sharded_pagerank_phase(graph, reset_counts, counts, card_label, kept)
     print(f"phase 16b: {time.perf_counter() - t0:.1f} s")
     launches["shrink"] = sharded_shrink_phase(graph, reset_counts, counts)
     sharded_tfidf_phase(stream, card_label)
     launches["sharded_workloads"] = sharded_workloads_phase(graph, reset_counts, counts,
                                                             card_label)
     sharded_cli_phase(graph)
+    t0 = time.perf_counter()
+    launches["distributed"] = distributed_phase(graph, stream, kept, card_label)
+    print(f"phase 16g: {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# 16g: the mesh across processes.  On one card MESH_PROCESSES processes share
+# cuda:0 over gloo (their tensors cross through the host), each owning
+# SHARD_SLOTS / MESH_PROCESSES slots; under --cards one process a card over
+# NCCL, one slot each.  TF-IDF and the workloads run one slot a process.
+MESH_PROCESSES, MESH_DEADLINE_S = 2, 420.0
+
+
+def mesh_cases(graph, stream: dict, tmp: str, per: int) -> list:
+    """16g's cases (``tools/mesh_processes.py``): every strategy in float32
+    under segment (``hybrid`` launches rowsum.cu), ``edges`` under cumsum,
+    ``nodes`` in float64, ``owned`` stopped at 10 and resumed to 20, then
+    TF-IDF (config 2) and PPR/HITS/components at 16d's and 16e's settings."""
+    base = dict(iterations=ITERS, dangling="redistribute", init="uniform")
+    f32 = dict(base, dtype="float32", spmv_impl="segment")
+    rng = np.random.default_rng(SEED)
+    idx = rng.integers(0, graph.n_nodes, size=PPR_BATCH)
+    cases = [dict(name=f"pagerank-{s}", kind="pagerank", strategy=s, slots=per, cfg=f32)
+             for s in SHARD_STRATEGIES]
+    cases += [
+        dict(name="pagerank-edges-cumsum", kind="pagerank", strategy="edges", slots=per,
+             cfg=dict(f32, spmv_impl="cumsum")),
+        dict(name="pagerank-nodes-f64", kind="pagerank", strategy="nodes", slots=per,
+             cfg=dict(f32, dtype="float64")),
+        dict(name="resume-owned", kind="resume", strategy="owned", slots=per, cfg=f32,
+             stop_at=10, every=5, checkpoint_dir=os.path.join(tmp, "resume")),
+        dict(name="tfidf", kind="tfidf", slots=1, chunk_docs=stream["chunk_docs"],
+             cfg=dict(stream["knobs"], idf_mode="smooth", l2_normalize=True)),
+        dict(name="ppr", kind="ppr", slots=1, queries=[[int(graph.node_ids[i])] for i in idx],
+             cfg=dict(base, iterations=PPR_ITERS, dtype="float64")),
+        dict(name="hits", kind="hits", slots=1,
+             cfg=dict(iterations=HITS_ITERS, tol=HITS_TOL, dtype="float64")),
+        dict(name="cc", kind="cc", slots=1),
+    ]
+    return cases
+
+
+def nccl_refusal_phase(mp) -> None:
+    """16g: two NCCL processes on the one card raise, each naming the card;
+    nothing turns them into gloo."""
+    try:
+        mp.spawn([], {}, processes=MESH_PROCESSES, device="cuda:0", backend="nccl",
+                 timeout_s=120.0)
+        check(False, "16g: two NCCL processes ran on one card")
+    except RuntimeError as exc:
+        msg = str(exc)
+        check(msg.count("cannot run two processes on one card") == MESH_PROCESSES,
+              f"16g: NCCL on one card failed otherwise: {msg[-2000:]}")
+    print(f"16g NCCL with {MESH_PROCESSES} processes on one card: each raised ValueError "
+          "(cannot run two processes on one card), no fallback to gloo")
+
+
+def distributed_phase(graph, stream: dict, kept: dict, card_label: str) -> dict:
+    """16g: one mesh across processes (``parallel.init_distributed``) on the
+    card, every result bit-equal on every process and to the one-process
+    mesh of the same slots (16b's runs; for TF-IDF and the workloads, the
+    parent's own over one slot a process), each child's kernel launches
+    counted, iterations/s beside 16b's.  Returns the children's launches."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import mesh_processes as mp
+
+    nccl = len(set(SLOT_DEVICES)) > 1  # --cards: one process a card
+    procs = SHARD_SLOTS if nccl else MESH_PROCESSES
+    per = SHARD_SLOTS // procs
+    backend = "nccl" if nccl else "gloo"
+    env = None
+    if nccl:
+        vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+        cards = vis.split(",") if vis else [str(i) for i in range(torch.cuda.device_count())]
+        env = [{"CUDA_VISIBLE_DEVICES": cards[r]} for r in range(procs)]
+    else:
+        nccl_refusal_phase(mp)
+    data = {"graph": (N_NODES, N_EDGES, SEED), "corpus": (TFIDF_DOCS, TFIDF_TOKENS, TFIDF_SEED)}
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = mesh_cases(graph, stream, tmp, per)
+        t0 = time.perf_counter()
+        outs = mp.spawn(cases, data, processes=procs, device=SLOT_DEVICES[0] if not nccl
+                        else "cuda:0", backend=backend, timeout_s=MESH_DEADLINE_S, env=env)
+        wall = time.perf_counter() - t0
+    where = (f"{procs} processes, one card each, over NCCL" if nccl else
+             f"{procs} processes sharing one card over gloo, {per} slots each; not "
+             "multi-GPU scaling")
+    total: dict = {}
+    for out in outs:
+        check(out["_process"]["jax_loaded"] == [], f"16g: a process imported "
+                                                   f"{out['_process']['jax_loaded']}")
+        for c in cases:
+            add_counts(total, out[c["name"]]["info"]["launches"])
+    cache = {"graph": graph, "docs": stream["docs"]}
+    for c in cases:
+        name, got = c["name"], outs[0][c["name"]]
+        for p in range(1, procs):
+            check(outs[p][name]["digests"] == got["digests"],
+                  f"16g {name}: process {p}'s result differs from process 0's")
+        info = got["info"]
+        check(info.get("processes") == procs and info.get("backend") == backend,
+              f"16g {name}: ran on {info.get('processes')} processes over {info.get('backend')}")
+        if c["kind"] in ("pagerank", "resume"):
+            impl, dtype = c["cfg"]["spmv_impl"], c["cfg"]["dtype"]
+            want, rate16b = kept[(c["strategy"], SHARD_SLOTS, impl, dtype)]
+            want = {"ranks": want}
+        else:
+            one = mp.run_case(c, data, mp.case_mesh(c, procs, SLOT_DEVICES, spread=False),
+                              cache)
+            want, rate16b = one["arrays"], None
+        check(all(got["arrays"][k].shape == v.shape and got["arrays"][k].dtype == v.dtype
+                  for k, v in want.items()) and got["arrays"].keys() == want.keys(),
+              f"16g {name}: arrays of other names, shapes or types than the one-process mesh's")
+        differ = {k: (bits_differ(got["arrays"][k], v) if v.dtype.kind == "f"
+                      else int((got["arrays"][k] != v).sum())) for k, v in want.items()}
+        launched = [outs[p][name]["info"]["launches"] for p in range(procs)]
+        rate = info.get("iters_per_sec")
+        print(f"16g {name} ({card_label}; {where}): {info['secs']:.3f} s in process 0"
+              + (f", {rate:.2f} iterations/s against 16b's {rate16b:.2f}"
+                 if rate is not None and rate16b is not None else "")
+              + f"; entries differing from the one-process mesh {differ}; launches a "
+                f"process {launched}")
+        check(all(n == 0 for n in differ.values()),
+              f"16g {name}: differs from the one-process mesh: {differ}")
+        if c["kind"] == "pagerank":
+            seg = sum(lp["segment"] for lp in launched)
+            if c["cfg"]["spmv_impl"] == "segment":
+                check(seg >= SHARD_SLOTS * ITERS, f"16g {name}: segment launched {seg} times")
+            else:
+                cum = sum(lp["cumsum"] for lp in launched)
+                check(cum >= SHARD_SLOTS * ITERS, f"16g {name}: cumsum launched {cum} times")
+            if c["strategy"] == "hybrid":
+                rows = sum(lp["rowsum"] for lp in launched)
+                check(rows >= ITERS, f"16g {name}: rowsum launched {rows} times")
+        if c["kind"] == "resume":
+            check(all(outs[p][name]["info"]["resumed_at"] == [5] for p in range(procs)),
+                  f"16g {name}: resumed at {info.get('resumed_at')}")
+    for k in ("segment", "rowsum", "cumsum"):
+        check(total.get(k, 0) > 0, f"16g: {k} never launched in the processes")
+    print(f"16g mesh across {procs} processes ({where}): {len(cases)} runs bit-equal on every "
+          f"process and to the one-process mesh, {wall:.1f} s wall from spawn to the last "
+          f"report (each process's start, graph and corpus build included); launches {total}")
+    return total
 
 
 # ---------------------------------------------------------------- phase 17
@@ -4226,9 +4387,12 @@ def sharded_phase(graph, stream: dict, reset_counts, counts, card_label: str) ->
 # generator's SERVE_QUERIES queries over that corpus.  17c scales up one
 # replica whose environment carries replica_query:proc_kill@FLEET_KILL_AT;
 # 17h's CLI replica answers the first FLEET_CLI_QUERIES queries; 17e's
-# in-process pair peeks FLEET_PEER_KEYS keys per check.  17f and 17g run the
-# soaks at tests/test_soak.py:41-46's and tests/test_fabric.py:548-551's
-# settings.
+# in-process pair peeks FLEET_PEER_KEYS keys per check.  17f runs the soak at
+# tests/test_soak.py:41-46's settings; 17g runs the fleet soak at
+# tests/test_fabric.py:548-551's qps, clients, replicas and rebuild period,
+# over a longer run sized to the card's respawn (9.8-11.4 s from the kill to
+# ready): the roll waits until the replacement is serving, so the soak sees
+# the recovery its record's time_to_recover_s reads.
 FLEET_REPLICAS, FLEET_CLIENTS, FLEET_KILL_AT = 2, 4, 3
 FLEET_CLI_QUERIES, FLEET_PEER_KEYS = 256, 24
 FLEET_MODULE = "page_rank_and_tfidf_using_apache_spark_tpu_torch.serving.fabric"
@@ -4236,8 +4400,8 @@ FLEET_DEVICE, FLEET_BACKEND = "cuda", "gpu"
 SOAK_SETTINGS = dict(duration_s=6.0, qps=20.0, clients=2, rebuild_every_s=2.5,
                      chunk_interval_s=0.3, prior_refresh_every_s=2.0, losses=1,
                      loss_at_s=2.0, grace_s=20.0)
-FLEET_SOAK_SETTINGS = dict(duration_s=18.0, qps=6.0, clients=2, replicas=2,
-                           rebuild_every_s=6.0, kill_at_s=5.0, roll_at_s=11.0)
+FLEET_SOAK_SETTINGS = dict(duration_s=45.0, qps=6.0, clients=2, replicas=2,
+                           rebuild_every_s=6.0, kill_at_s=5.0, roll_at_s=30.0)
 # the reference's record keys (serving/soak.py's two _score methods);
 # tests/test_torch_soak.py holds the port's records to the reference's
 SOAK_RECORD_KEYS = {
@@ -4639,6 +4803,10 @@ def fleet_soak_phase(card_label: str) -> None:
     check(rec["dropped"] == 0 and rec["double_served"] == 0 and rec["backend"] == FLEET_BACKEND,
           f"fleet soak dropped {rec['dropped']}, served twice {rec['double_served']}, "
           f"backend {rec['backend']}")
+    # the reference's bar (tests/test_fabric.py:554), and no roll retried
+    check(rec["recovery"]["time_to_recover_s"] is not None,
+          f"fleet soak recovery {rec['recovery']}: no time to recover")
+    check(fl["roll_retries"] == 0, f"fleet soak roll retries {fl['roll_retries']}")
     print(f"fleet 17g fleet soak ({card_label}): {wall:.1f} s wall, {rec['requests']} "
           f"requests at {rec['qps']} queries/s, served p50 {rec['served_p50_ms']} ms p99 "
           f"{rec['served_p99_ms']} ms, time to recover {rec['recovery']['time_to_recover_s']} "
@@ -5437,7 +5605,7 @@ def main() -> int:
     # (13a's and 13b's faulted runs, 13c's resumed run), phase 14's (the
     # card's launches before each loss, and 14b's), phase 15b's (one run
     # of each layout and dtype) and phase 16's (16b's float32 runs, 16c's
-    # shrinking runs, 16e's runs), by workload
+    # shrinking runs, 16e's runs, 16g's processes' runs), by workload
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": n, **main_rows[name],

@@ -276,6 +276,7 @@ def run_segments(
     extra_metrics: dict | None = None,
     elastic_rebuild: Callable | None = None,
     site_prefix: str = "pagerank",
+    save_checkpoint: Callable = ckpt.save_checkpoint,
 ):
     """Run ``cfg.iterations`` (from ``start_iter``) in checkpoint-sized
     segments.
@@ -294,7 +295,8 @@ def run_segments(
     0`` a segment boundary does not change the math (``iterate`` computes
     the delta on a segment's last step only), so a split run gives the
     unbroken run's bits.  Between segments the state goes to
-    ``utils/checkpoint.save_checkpoint`` as ``{"ranks": payload}``.  Each
+    ``save_checkpoint`` (``utils/checkpoint.save_checkpoint``, or a
+    multi-process mesh's writer) as ``{"ranks": payload}``.  Each
     segment records ``iter``, ``l1_delta``, ``secs`` and ``iters_per_sec``
     (and ``extra_metrics``, which is ``backend: "cpu"`` after a salvage) and each
     checkpoint a ``checkpoint`` event; the spans are ``{site_prefix}.segment`` and
@@ -399,7 +401,7 @@ def run_segments(
                     ranks_dev = res.ranks_dev
                     done += int(res.iters)  # 0 where the salvage was exact
                     payload = extract_np(ranks_dev)
-                path = ckpt.save_checkpoint(
+                path = save_checkpoint(
                     cfg.checkpoint_dir, done,
                     {"ranks": payload}, cfg.config_hash(),
                     extra=dict(extra_metrics or {}),

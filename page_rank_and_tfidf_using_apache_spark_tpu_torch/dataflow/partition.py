@@ -9,9 +9,12 @@ and whether the padded value is replicated on every slot or cut into one
 block a slot.  Where the reference holds one sharded ``jax.Array``, the
 port holds a list of per-slot tensors (``parallel/mesh.py``).
 
-The host->device direction pads, relabels and places; the device->host
-direction is one guarded pull (``resilience.executor.device_get``: retry,
-sync deadline, rungs) of the logical array.
+The host->device direction pads, relabels and places this process's
+slots' share; the device->host direction gathers every slot's block onto
+this process where the mesh spans processes
+(``parallel.collectives.gather_slots``), then makes one guarded pull
+(``resilience.executor.device_get``: retry, sync deadline, rungs) of the
+logical array.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ class PartitionedArray:
     n: int
     n_pad: int
     node_map: np.ndarray  # int64 [n]: global id -> padded slot
-    value: Any = None  # list of per-slot tensors
+    value: Any = None  # list of this process's per-slot tensors
     mesh: Any = None  # parallel.mesh.Mesh
     replicated: bool = False
 
@@ -72,14 +75,18 @@ class PartitionedArray:
     def pull(self, *, site: str = "partitioned_pull", metrics=None,
              checkpoint_dir: str | None = None) -> np.ndarray:
         """Guarded device->host pull of the LOGICAL array: one batched
-        transfer through the resilience executor (slot 0's copy of a
-        replicated value, every block of a sharded one), then the node_map
+        transfer through the resilience executor (the first slot's copy of
+        a replicated value, every block of a sharded one), then the node_map
         inverse on host."""
+        from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel import collectives as coll
+
         if self.value is None:
             raise ValueError("PartitionedArray holds no device value")
         with obs.span("dataflow.pull", site=site, n=self.n):
-            got = rx.device_get(self.value[0] if self.replicated else list(self.value),
-                                site=site, metrics=metrics, checkpoint_dir=checkpoint_dir)
+            view = (self.value[0] if self.replicated
+                    else coll.gather_slots(list(self.value), mesh=self.mesh))
+            got = rx.device_get(view, site=site, metrics=metrics,
+                                checkpoint_dir=checkpoint_dir)
         padded = got if self.replicated else np.concatenate(got)
         return padded[self.node_map]
 
@@ -98,8 +105,8 @@ class OwnedArray:
     h_pad: int
     tail_map: np.ndarray  # int64 [n]: global id -> padded tail slot; -1 head
     head_ids: np.ndarray  # int64 [H] ascending global ids
-    tail: Any = None  # list of per-slot [block] tensors
-    head: Any = None  # list of per-slot [h_pad] tensors (equal values)
+    tail: Any = None  # list of this process's per-slot [block] tensors
+    head: Any = None  # list of this process's per-slot [h_pad] tensors (equal values)
     mesh: Any = None  # parallel.mesh.Mesh
 
     @classmethod
@@ -129,14 +136,17 @@ class OwnedArray:
     def pull(self, *, site: str = "partitioned_pull", metrics=None,
              checkpoint_dir: str | None = None) -> np.ndarray:
         """Guarded boundary-aware pull: ONE batched transfer of every tail
-        block and slot 0's head, then the tail_map/head reassembly on host."""
+        block and the first slot's head, then the tail_map/head reassembly
+        on host."""
         from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import boundary as ob
+        from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel import collectives as coll
 
         if self.tail is None or self.head is None:
             raise ValueError("OwnedArray holds no device value")
         with obs.span("dataflow.pull", site=site, n=self.n, owned=True):
+            tails = coll.gather_slots(list(self.tail), mesh=self.mesh)
             tail_np, head_np = rx.device_get(
-                (list(self.tail), self.head[0]), site=site, metrics=metrics,
+                (tails, self.head[0]), site=site, metrics=metrics,
                 checkpoint_dir=checkpoint_dir,
             )
         return ob.merge_global(self, np.concatenate(tail_np), head_np)

@@ -1,12 +1,11 @@
 """parallel/: the sharded runners over a mesh of device slots.
 
-Counterpart of the JAX package's ``parallel/``, with its names but
-``init_distributed`` (multi-host initialisation, ROADMAP Queue 1):
+Counterpart of the JAX package's ``parallel/``, with its names:
 
-- ``mesh.py``         :class:`~.mesh.Mesh` of slots (a logical id and a
-                      ``torch.device`` each; a device may repeat),
-                      :func:`make_mesh`, :func:`replicated`,
-                      :func:`sharded_along`
+- ``mesh.py``         :class:`~.mesh.Mesh` of slots (a logical id, a
+                      ``torch.device`` and an owning process each; a device
+                      may repeat), :func:`make_mesh`, :func:`replicated`,
+                      :func:`sharded_along`, :func:`init_distributed`
 - ``collectives.py``  ``psum``, ``all_gather``, ``reduce_scatter``,
                       ``ppermute_ring``, ``ring_reduce_scatter``, ``pmax``,
                       ``butterfly_all_gather`` over per-slot tensor lists
@@ -17,12 +16,16 @@ Counterpart of the JAX package's ``parallel/``, with its names but
                       its query axis sharded
 
 One process drives every slot, as the reference's single ``shard_map``
-program drives its mesh; ``parallel/mesh.py`` says why.
+program drives its mesh; ``parallel/mesh.py`` says why.  After
+:func:`init_distributed` in every process a mesh's slots may span the
+processes: each runs the same call over its own slots, and every result
+is bit-equal to the one-process mesh of the same slots.
 """
 
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     NODES_AXIS,
+    init_distributed,
     make_mesh,
     replicated,
     sharded_along,
@@ -45,6 +48,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel.workloads_sharded
 __all__ = [
     "DATA_AXIS",
     "NODES_AXIS",
+    "init_distributed",
     "make_mesh",
     "replicated",
     "sharded_along",

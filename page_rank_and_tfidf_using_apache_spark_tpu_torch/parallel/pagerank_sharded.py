@@ -634,16 +634,17 @@ def _head_runs(head_node: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def device_put_sharded_graph(sg: ShardedGraph, mesh: Mesh) -> list[SlotArrays]:
-    """Place each slot's share of ``sg`` on its device, with the segment
-    kernel's plan of every pointer array, built here once."""
+    """Place each of this process's slots' share of ``sg`` on its device,
+    with the segment kernel's plan of every pointer array, built here
+    once."""
     out = []
     if sg.strategy == "owned":
         shard = sg.owned
         block = shard.block
         tptr = _row_pointers(shard.tail_dst, block)
         hptr = _row_pointers(shard.head_slot, shard.h_pad + 2)
-        for i, slot in enumerate(mesh.slots):
-            dev = slot.device
+        for i in mesh.positions:
+            dev = mesh.slots[i].device
             out.append(SlotArrays(
                 tsrc=_put(shard.tail_src_idx[i], dev), tw=_put(shard.tail_w[i], dev),
                 tptr=_put(tptr[i], dev), tplan=sk.segment_plan(tptr[i], device=dev),
@@ -662,8 +663,8 @@ def device_put_sharded_graph(sg: ShardedGraph, mesh: Mesh) -> list[SlotArrays]:
     # (the step reads the full vectors), one block a slot otherwise
     replicated_state = sg.strategy in ("edges", "hybrid")
     block = sg.block
-    for i, slot in enumerate(mesh.slots):
-        dev = slot.device
+    for i in mesh.positions:
+        dev = mesh.slots[i].device
         ptr = sg.local_indptr[i]
         fields = dict(
             src=_put(sg.src[i], dev), valid=_put(sg.valid[i], dev),
@@ -687,11 +688,13 @@ def make_sharded_runner(sg: ShardedGraph, cfg: PageRankConfig, mesh: Mesh):
     """The sharded iteration loop: ``run(state0, dev, e) -> (state, iters,
     delta)``, ``dev`` from :func:`device_put_sharded_graph`, ``e`` the
     per-slot restart vectors (a ``(tail, head)`` pair of lists under
-    ``owned``).  The state is a list of per-slot rank tensors: the full
-    replicated vector under ``edges``/``hybrid``, a block otherwise; under
-    ``owned`` the 4-tuple ``(tail, head, dslot, gdelta)`` of per-slot lists.
-    ``delta`` is a 0-d tensor on slot 0's device.  Each step writes fresh
-    tensors; the input state is left as it was."""
+    ``owned``).  The state is a list of this process's per-slot rank
+    tensors: the full replicated vector under ``edges``/``hybrid``, a
+    block otherwise; under ``owned`` the 4-tuple ``(tail, head, dslot,
+    gdelta)`` of per-slot lists.  ``delta`` is a 0-d tensor on the first
+    local slot's device, bit-equal on every process of the mesh, so every
+    process takes the same branch of a ``tol`` loop.  Each step writes
+    fresh tensors; the input state is left as it was."""
     if cfg.spark_exact:
         raise NotImplementedError(
             "spark_exact is a single-chip parity mode; run it without a mesh"
@@ -726,7 +729,7 @@ def make_sharded_runner(sg: ShardedGraph, cfg: PageRankConfig, mesh: Mesh):
             wts = [t * a.inv for t, a in zip(tails, dev)]
             whs = [h * a.inv_h for h, a in zip(heads, dev)]
             btables = coll.butterfly_all_gather(
-                [ob.pack_boundary(wt, a.out_idx) for wt, a in zip(wts, dev)])
+                [ob.pack_boundary(wt, a.out_idx) for wt, a in zip(wts, dev)], mesh=mesh)
             tail_contribs, bufs = [], []
             for i, a in enumerate(dev):
                 lookup = ob.boundary_lookup(wts[i], btables[i], whs[i])
@@ -741,7 +744,7 @@ def make_sharded_runner(sg: ShardedGraph, cfg: PageRankConfig, mesh: Mesh):
                                    + torch.sum(heads[i] * a.dang_h) * inv_d)
                 buf[h_pad + 1] += dslots[i][0]
                 bufs.append(buf)
-            bufs = coll.psum(bufs)  # THE one psum of the step
+            bufs = coll.psum(bufs, mesh=mesh)  # THE one psum of the step
             new = ([], [], [], [])
             for i in range(len(dev)):
                 head_contrib = bufs[i][:h_pad]
@@ -811,7 +814,7 @@ def make_sharded_runner(sg: ShardedGraph, cfg: PageRankConfig, mesh: Mesh):
             return partial
 
         def step(ranks, dev, e):
-            contribs = coll.psum([partial_of(r, a) for r, a in zip(ranks, dev)])
+            contribs = coll.psum([partial_of(r, a) for r, a in zip(ranks, dev)], mesh=mesh)
             dmass = ([torch.sum(r * a.dang) for r, a in zip(ranks, dev)]
                      if redistribute else None)
             return finish(contribs, e, dmass)
@@ -826,25 +829,27 @@ def make_sharded_runner(sg: ShardedGraph, cfg: PageRankConfig, mesh: Mesh):
 
         def step(ranks, dev, e):
             contribs = exchange([local_reduce(r * a.inv, a, n_pad)
-                                 for r, a in zip(ranks, dev)])
-            dmass = (coll.psum([torch.sum(r * a.dang) for r, a in zip(ranks, dev)])
+                                 for r, a in zip(ranks, dev)], mesh=mesh)
+            dmass = (coll.psum([torch.sum(r * a.dang) for r, a in zip(ranks, dev)], mesh=mesh)
                      if redistribute else None)
             return finish(contribs, e, dmass)
 
         def local_delta(new, old):
-            return coll.psum([torch.sum(torch.abs(a - b)) for a, b in zip(new, old)])[0]
+            return coll.psum([torch.sum(torch.abs(a - b)) for a, b in zip(new, old)],
+                             mesh=mesh)[0]
     else:
         # node strategies: all_gather the weighted rank blocks, reduce into
         # the slot's block, psum only the dangling-mass scalar
         def step(ranks, dev, e):
-            full = coll.all_gather([r * a.inv for r, a in zip(ranks, dev)])
+            full = coll.all_gather([r * a.inv for r, a in zip(ranks, dev)], mesh=mesh)
             contribs = [local_reduce(w, a, block) for w, a in zip(full, dev)]
-            dmass = (coll.psum([torch.sum(r * a.dang) for r, a in zip(ranks, dev)])
+            dmass = (coll.psum([torch.sum(r * a.dang) for r, a in zip(ranks, dev)], mesh=mesh)
                      if redistribute else None)
             return finish(contribs, e, dmass)
 
         def local_delta(new, old):
-            return coll.psum([torch.sum(torch.abs(a - b)) for a, b in zip(new, old)])[0]
+            return coll.psum([torch.sum(torch.abs(a - b)) for a, b in zip(new, old)],
+                             mesh=mesh)[0]
 
     def run(ranks0, dev, e):
         return dataflow.iterate(
@@ -892,6 +897,7 @@ class _ShardedExec:
             ),
             pad_frac=round(self.sg.pad_frac, 4), secs=t_part.elapsed,
             put_secs=t_put.elapsed, comm_bytes_per_step=self.comm_bytes_per_step,
+            processes=mesh.processes, backend=mesh.backend,
         )
         self._cfg = cfg
         self._metrics = metrics
@@ -959,11 +965,12 @@ class _ShardedExec:
             )
 
     def pull_view(self, rd):
-        """What the result pull reads: slot 0's copy of replicated ranks,
-        every block of sharded ones, every tail block and slot 0's head."""
+        """What the result pull reads: the first slot's copy of replicated
+        ranks, every block of sharded ones, every tail block and the first
+        slot's head (every slot's block gathered onto each process)."""
         if self.sg.strategy == "owned":
-            return (list(rd[0]), rd[1][0])
-        return rd[0] if self.layout.replicated else list(rd)
+            return (coll.gather_slots(list(rd[0]), mesh=self.mesh), rd[1][0])
+        return rd[0] if self.layout.replicated else coll.gather_slots(list(rd), mesh=self.mesh)
 
     def assemble(self, got) -> np.ndarray:
         """The global [n] ranks from what :meth:`pull_view` pulled."""
@@ -982,6 +989,29 @@ def _named_loss(exc: BaseException) -> BaseException | None:
     return lost
 
 
+def _may_rebuild(mesh: Mesh) -> bool:
+    """Whether the elastic rungs may rebuild ``mesh``: not under
+    ``GRAFT_ELASTIC=0``, and only in one process.  A multi-process mesh
+    does not shrink: its loss raises on every process (the reference's
+    rung would halve a ``jax.devices()`` that spans the hosts)."""
+    return elastic.enabled() and mesh.processes == 1
+
+
+def _checkpoint_writer(mesh: Mesh):
+    """``utils.checkpoint.save_checkpoint`` for a run over ``mesh``: on a
+    multi-process mesh process 0 writes and every process passes a barrier
+    before it goes on; each returns the checkpoint's path."""
+    if mesh.processes == 1:
+        return ckpt.save_checkpoint
+
+    def save(directory, step, arrays, config_hash, extra=None):
+        pmesh.first_process_writes(mesh, ckpt.save_checkpoint, directory, step, arrays,
+                                   config_hash, extra=extra)
+        return ckpt.latest_checkpoint(directory)
+
+    return save
+
+
 def _make_elastic_rebuild(graph: Graph, cfg: PageRankConfig, strategy: str,
                           metrics: MetricsRecorder, exec_box: dict):
     """The mesh-shrink rung of ``run_segments`` (its ``ElasticResult``
@@ -993,7 +1023,7 @@ def _make_elastic_rebuild(graph: Graph, cfg: PageRankConfig, strategy: str,
 
     def rebuild(exc, ranks_dev, done, seg_cfg):
         lost0 = _named_loss(exc)
-        if not elastic.enabled() or lost0 is None:
+        if not _may_rebuild(exec_box["exec"].mesh) or lost0 is None:
             raise exc
         exc = lost0
         elastic.health().mark_lost(elastic.device_index(exc))
@@ -1086,7 +1116,15 @@ def run_pagerank_sharded(
     slots instead.  A lost slot no longer ends the run: the elastic rung
     shrinks the mesh onto the surviving slots, repartitions and resumes,
     raising ``ResilienceExhausted`` with the newest checkpoint only when
-    nothing survives, the loss names no slot, or ``GRAFT_ELASTIC=0``."""
+    nothing survives, the loss names no slot, or ``GRAFT_ELASTIC=0``.
+
+    On a mesh whose slots span processes (``parallel.init_distributed``)
+    every process calls this with the same arguments: each partitions the
+    whole graph, places and steps its own slots, and returns the same
+    global ranks, bit-equal to the one-process mesh of the same slots.
+    Process 0 writes the checkpoints (every process waits for each) and
+    every process reads one to resume; a loss raises
+    ``ResilienceExhausted`` on every process, with no shrink."""
     metrics = metrics or MetricsRecorder()
     if mesh is None:
         mesh = mesh_for(n_devices, NODES_AXIS, device)
@@ -1123,6 +1161,7 @@ def run_pagerank_sharded(
         elastic_rebuild=_make_elastic_rebuild(
             graph, cfg, strategy, metrics, exec_box
         ),
+        save_checkpoint=_checkpoint_writer(mesh),
     )
 
     # A loss first surfacing at the result pull: salvage the newest
@@ -1131,7 +1170,7 @@ def run_pagerank_sharded(
     # rebuilt mesh, whose layout exec_box then holds.
     def pull_rebuild(exc):
         lost0 = _named_loss(exc)
-        if not elastic.enabled() or lost0 is None:
+        if not _may_rebuild(exec_box["exec"].mesh) or lost0 is None:
             raise exc
         exc = lost0
         elastic.health().mark_lost(elastic.device_index(exc))

@@ -18,6 +18,13 @@ checkpointed, the mesh is rebuilt over the surviving slots
 shrunk mesh from the host corpora the pipeline kept; committed chunks are
 never reprocessed.  As on every rung of the port, only a loss that names
 its slot is taken.
+
+On a mesh whose slots span processes every process reads the whole chunk
+stream and stages only its own slots' rows of each super-chunk; the DF
+``psum`` and the drain gather every slot's counts onto each process, so
+every process commits the same state and runs the second pass on its
+first slot's device.  Process 0 writes the checkpoints; a loss raises on
+every process, with no shrink.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel import collective
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     Mesh,
+    first_process_writes,
     mesh_for,
     rebuild_mesh,
 )
@@ -77,14 +85,14 @@ def _publish_device_timings(tensors: list, step: int) -> None:
 
 
 def make_sharded_counts_kernel(mesh: Mesh, vocab: int):
-    """``kernel(doc_ids, term_ids, valid)``: per-slot lists of ``[cap]``
-    tokens -> (per-slot ``ops.PaddedCounts``, the DF summed over the slots
-    on slot 0's device)."""
+    """``kernel(doc_ids, term_ids, valid)``: lists of ``[cap]`` tokens, one
+    a local slot -> (per-slot ``ops.PaddedCounts``, the DF summed over all
+    the slots on the first local slot's device)."""
 
     def kernel(doc_ids, term_ids, valid):
         counts = [ops.count_pairs(d, t, token_valid=v)
                   for d, t, v in zip(doc_ids, term_ids, valid)]
-        df = coll.psum([ops.document_frequency(c, vocab) for c in counts])
+        df = coll.psum([ops.document_frequency(c, vocab) for c in counts], mesh=mesh)
         return counts, df[0]
 
     return kernel
@@ -143,9 +151,10 @@ def run_tfidf_sharded(
             yield buf
 
     def stage_group(group: list[tio.TokenizedCorpus]):
-        """The H2D stage: the [D, cap] host arrays of one super-chunk, each
-        row put on its slot's device through the guarded staging site.  The
-        pipeline keeps the group's corpora until its drain commits them."""
+        """The H2D stage: the [D, cap] host arrays of one super-chunk, the
+        local slots' rows each put on its slot's device through the guarded
+        staging site.  The pipeline keeps the group's corpora until its
+        drain commits them."""
         nonlocal cap
         need = max(c.n_tokens for c in group)
         cap, _ = grow_chunk_cap(need, cap, metrics)
@@ -157,10 +166,11 @@ def run_tfidf_sharded(
             term_ids[i, : c.n_tokens] = c.term_ids
             valid[i, : c.n_tokens] = True
         slots = mesh.slots
+        local = mesh.positions
 
         def put():
-            return tuple([torch.from_numpy(a[i]).to(s.device, copy=True)
-                          for i, s in enumerate(slots)]
+            return tuple([torch.from_numpy(a[i]).to(slots[i].device, copy=True)
+                          for i in local]
                          for a in (doc_ids, term_ids, valid))
 
         return group, dflow.staged_put(put, metrics=metrics)
@@ -178,10 +188,13 @@ def run_tfidf_sharded(
         group, step_i, counts, df, t0 = rec
         with obs.span("tfidf.super_chunk", step=step_i, chunk=st.chunk_index):
             _publish_device_timings([c.n_pairs for c in counts], step_i)
-            # one batched pull a super-chunk; a transient fault re-pulls the
+            # every slot's counts (gathered across processes), then one
+            # batched pull a super-chunk; a transient fault re-pulls the
             # live tensors, a loss reaches the pipeline's recovery point
+            every = [coll.gather_slots([getattr(c, f) for c in counts], mesh=mesh)
+                     for f in ("doc", "term", "count", "n_pairs")]
             pulled, h_df = rx.device_get(
-                ([(c.doc, c.term, c.count, c.n_pairs) for c in counts], df),
+                (list(zip(*every)), df),
                 site="tfidf_shard_sync", metrics=metrics,
                 checkpoint_dir=cfg.checkpoint_dir,
             )
@@ -197,7 +210,7 @@ def run_tfidf_sharded(
         metrics.record(
             event="super_chunk", step=step_i, devices=len(group),
             docs=st.n_docs, tokens=int(sum(c.n_tokens for c in group)),
-            secs=time.perf_counter() - t0,
+            secs=time.perf_counter() - t0, processes=mesh.processes, backend=mesh.backend,
         )
 
     def checkpoint_due() -> bool:
@@ -208,7 +221,8 @@ def run_tfidf_sharded(
     def save_ckpt() -> None:
         nonlocal last_ckpt
         st.ingest_secs = secs0 + (time.perf_counter() - run_started)
-        save_ingest_checkpoint(cfg, metrics, st, extra_meta={"devices": d})
+        first_process_writes(mesh, save_ingest_checkpoint, cfg, metrics, st,
+                             extra_meta={"devices": d})
         last_ckpt = st.chunk_index
 
     def regrouped(remaining: Iterator) -> Iterator[list]:
@@ -222,6 +236,10 @@ def run_tfidf_sharded(
         in-flight groups over it.  A further loss in the replay re-enters
         here."""
         nonlocal mesh, d, kernel, last_ckpt
+        if mesh.processes > 1:
+            # no shrink across processes: every process raises at once (a
+            # barrier for a last snapshot would wait on a dead peer)
+            raise exc
         saved = None
         if cfg.checkpoint_dir and st.parts:
             st.ingest_secs = secs0 + (time.perf_counter() - run_started)
@@ -271,4 +289,4 @@ def run_tfidf_sharded(
             metrics=metrics,
         )
 
-    return finalize_tfidf(st, cfg, metrics, mesh.slots[0].device)
+    return finalize_tfidf(st, cfg, metrics, mesh.local_slots[0].device)

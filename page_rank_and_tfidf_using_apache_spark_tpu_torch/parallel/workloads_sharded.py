@@ -13,6 +13,11 @@ on ``csrc/segment.cu`` over each slot's CSR pointers and their plans;
 components' ``min`` combine is ``dataflow.segment_combine`` (exact,
 order-free, no kernel), as on one device.
 
+On a mesh whose slots span processes every process runs the whole call:
+each places and steps its own slots, the collectives gather across the
+processes, and every process returns the same result, bit-equal to the
+one-process mesh of the same slots.
+
 PPR's scale axis is the query batch: ``run_ppr_sharded`` splits the
 ``[B, n]`` teleport and rank matrices into one row block a slot (B padded
 to a multiple of the slot count by repeating the last query), places the
@@ -106,11 +111,12 @@ class _Direction(NamedTuple):
 
 def _device_put_pair(sf: ob.OwnedShard, sr: ob.OwnedShard,
                      mesh: Mesh) -> list[tuple[_Direction, _Direction]]:
-    """Each slot's (forward, reverse) operands on its device, with the
-    segment kernel's plan of each pointer array."""
+    """Each of this process's slots' (forward, reverse) operands on its
+    device, with the segment kernel's plan of each pointer array."""
     grid = np.arange(sf.block + 1)
     out = []
-    for i, slot in enumerate(mesh.slots):
+    for i in mesh.positions:
+        slot = mesh.slots[i]
         dirs = []
         for shard in (sf, sr):
             ptr = np.searchsorted(shard.tail_dst[i], grid).astype(np.int32)
@@ -139,11 +145,11 @@ def make_hits_sharded_runner(sf: ob.OwnedShard, sr: ob.OwnedShard,
     def one_pass(vals, dev, which: int, h_pad: int):
         dirs = [dv[which] for dv in dev]
         tables = coll.butterfly_all_gather(
-            [ob.pack_boundary(v, a.out_idx) for v, a in zip(vals, dirs)])
+            [ob.pack_boundary(v, a.out_idx) for v, a in zip(vals, dirs)], mesh=mesh)
         raw = [sk.segment_sum_kernel(ob.boundary_lookup(v, t, v.new_zeros(h_pad)), a.ptr,
                                      block, src=a.src, edge_weight=a.w, plan=a.plan)
                for v, t, a in zip(vals, tables, dirs)]
-        top = coll.pmax([torch.max(x) for x in raw])
+        top = coll.pmax([torch.max(x) for x in raw], mesh=mesh)
         return [x / torch.clamp(m, min=1e-30) for x, m in zip(raw, top)]
 
     def step(ha, dev):
@@ -156,7 +162,7 @@ def make_hits_sharded_runner(sf: ob.OwnedShard, sr: ob.OwnedShard,
             lambda ha: step(ha, dev), ha0,
             iterations=cfg.iterations, tol=cfg.tol,
             delta_fn=lambda new, old: coll.psum(
-                [torch.sum(torch.abs(a - b)) for a, b in zip(new[0], old[0])])[0],
+                [torch.sum(torch.abs(a - b)) for a, b in zip(new[0], old[0])], mesh=mesh)[0],
         )
 
     return run
@@ -192,7 +198,7 @@ def run_hits_sharded(
                    pad_frac=round(
                        (d * sf.e_dev - graph.n_edges)
                        / max(d * sf.e_dev, 1), 4),
-                   secs=t_part.elapsed)
+                   secs=t_part.elapsed, processes=mesh.processes, backend=mesh.backend)
     layout = OwnedArray.from_shard(sf, mesh=mesh)
     init = np.full(n, 1.0 / n, cfg.dtype)
     hub0 = layout.put(init, cfg.dtype)
@@ -233,7 +239,7 @@ def make_components_sharded_runner(sf: ob.OwnedShard, sr: ob.OwnedShard,
     def incoming(labels, dev, which: int, h_pad: int):
         dirs = [dv[which] for dv in dev]
         tables = coll.butterfly_all_gather(
-            [ob.pack_boundary(lab, a.out_idx) for lab, a in zip(labels, dirs)])
+            [ob.pack_boundary(lab, a.out_idx) for lab, a in zip(labels, dirs)], mesh=mesh)
         return [combine.segment_combine(
                     ob.boundary_lookup(lab, t, lab.new_full((h_pad,), big), fill=big)[a.src],
                     a.dst, block, op="min", indices_are_sorted=True)
@@ -250,7 +256,7 @@ def make_components_sharded_runner(sf: ob.OwnedShard, sr: ob.OwnedShard,
             lambda lab: step(lab, dev), labels0,
             iterations=cfg.iterations, tol=cfg.tol,
             delta_fn=lambda new, old: coll.psum(
-                [torch.sum((a != b).to(torch.float32)) for a, b in zip(new, old)])[0],
+                [torch.sum((a != b).to(torch.float32)) for a, b in zip(new, old)], mesh=mesh)[0],
         )
 
     return run
@@ -280,7 +286,8 @@ def run_components_sharded(
         sf, sr = build_owned_pair(graph, d, "float32")
         dev = _device_put_pair(sf, sr, mesh)
     metrics.record(event="partition", strategy="owned", workload="cc",
-                   devices=d, block=sf.block, secs=t_part.elapsed)
+                   devices=d, block=sf.block, secs=t_part.elapsed,
+                   processes=mesh.processes, backend=mesh.backend)
     layout = OwnedArray.from_shard(sf, mesh=mesh)
     lab0 = layout.put(np.arange(n, dtype=np.int32), np.int32)
 
@@ -336,13 +343,14 @@ def run_ppr_sharded(
     b_pad = -(-b // d) * d
     queries_p = list(queries) + [queries[-1]] * (b_pad - b)
     metrics.record(event="ppr_sharded", queries=b, batch_pad=b_pad,
-                   devices=d, nodes=n)
+                   devices=d, nodes=n, processes=mesh.processes, backend=mesh.backend)
 
     rows = b_pad // d
     e_host = ppr_mod.restart_batch(graph, cfg, queries_p).astype(cfg.dtype)
     r_host = np.broadcast_to(np.asarray(ops.init_ranks(n, cfg)), (b_pad, n)).copy()
     dgs, es, ranks0 = [], [], []
-    for i, slot in enumerate(mesh.slots):
+    for i in mesh.positions:
+        slot = mesh.slots[i]
         dgs.append(put_graph_for(graph, cfg, slot.device))
         es.append(torch.from_numpy(np.ascontiguousarray(e_host[i * rows:(i + 1) * rows]))
                   .to(slot.device, copy=True))
@@ -360,12 +368,14 @@ def run_ppr_sharded(
         rd, iters, delta = dataflow.iterate(
             step, ranks0, iterations=cfg.iterations, tol=cfg.tol,
             delta_fn=lambda new, old: coll.pmax(
-                [torch.max(torch.sum(torch.abs(a - o), dim=1)) for a, o in zip(new, old)])[0],
+                [torch.max(torch.sum(torch.abs(a - o), dim=1)) for a, o in zip(new, old)],
+                mesh=mesh)[0],
         )
         delta = float(delta)  # the scalar read syncs the loop
         with obs.span("ppr.result_pull"):
             ranks = rx.device_get(
-                list(rd), site="ppr_result_pull", metrics=metrics,
+                coll.gather_slots(list(rd), mesh=mesh), site="ppr_result_pull",
+                metrics=metrics,
             )
     return ppr_mod.PprBatchResult(ranks=np.concatenate(ranks)[:b],
                                   iterations=int(iters), l1_delta=delta,

@@ -3,8 +3,11 @@ the ingest→servable path in seconds, not a full rebuild.
 
 Counterpart of the JAX package's ``serving/segments.py``, copied so the
 port never imports that package.  Its code is held to the reference's by
-``tests/test_torch_segments.py``.  A segmented directory written by either
-package loads in the other.
+``tests/test_torch_segments.py``, but for one addition: ``merge_segments``
+and :class:`SegmentMerger` take the segments' ``device``, on which the
+merge seals its BM25 table (the reference merges on its default backend,
+the caller's own; the port's default is ``cuda``).  A segmented directory
+written by either package loads in the other.
 
 A *segmented index directory* holds immutable segment artifacts plus a
 versioned manifest naming the live set::
@@ -582,7 +585,7 @@ def wrap_index_as_set(index: ServableIndex) -> SegmentSet:
 
 
 def merge_segments(directory: str, refs: tuple[SegmentRef, ...],
-                   cfg: TfidfConfig) -> SegmentRef:
+                   cfg: TfidfConfig, device: str | None = None) -> SegmentRef:
     """Compact adjacent segments into one sealed segment covering their
     combined contiguous doc range (NOT yet live — commit with
     :func:`commit_replace`).  Postings are re-sorted (term, doc) over the
@@ -638,7 +641,7 @@ def merge_segments(directory: str, refs: tuple[SegmentRef, ...],
     out = TfidfOutput(
         n_docs=n_docs, vocab_bits=cfg.vocab_bits, doc=doc, term=term,
         weight=w, df=df, idf=idf, metrics=MetricsRecorder(),
-        count=count, doc_lengths=doc_lengths,
+        count=count, doc_lengths=doc_lengths, device=device,
     )
     bm25_cfg = segs[0].extra.get("bm25_config")
     return seal_segment(
@@ -672,9 +675,11 @@ class SegmentMerger:
     serving-side depends on a merge happening)."""
 
     def __init__(self, directory: str, cfg: TfidfConfig, *,
-                 max_segments: int = 4, interval_s: float = 1.0):
+                 max_segments: int = 4, interval_s: float = 1.0,
+                 device: str | None = None):
         self.directory = directory
         self.cfg = cfg
+        self.device = device
         self.max_segments = max(int(max_segments), 1)
         self.interval_s = interval_s
         self._stop = threading.Event()
@@ -719,7 +724,7 @@ class SegmentMerger:
         with obs.span("segment.merge", a=pair[0].name, b=pair[1].name,
                       nnz=pair[0].nnz + pair[1].nnz):
             ref = rx.run_guarded(
-                lambda: merge_segments(self.directory, pair, self.cfg),
+                lambda: merge_segments(self.directory, pair, self.cfg, self.device),
                 site=MERGE_SITE,
             )
             commit_replace(self.directory, (pair[0].name, pair[1].name), ref)

@@ -57,8 +57,8 @@ Env knobs (all declared in ``utils/config.GRAFT_ENV_KNOBS``):
 ``GRAFT_SOAK_DURATION_S``, ``GRAFT_SOAK_QPS``, ``GRAFT_SOAK_SLO_P99_MS``,
 ``GRAFT_SOAK_SLO_AVAILABILITY``, ``GRAFT_FABRIC_REPLICAS``,
 ``GRAFT_AUTOSCALE_COOLDOWN_S``, plus ``GRAFT_METRICS_PORT`` for the
-endpoint.  The merger seals a merged segment's BM25 weights on the
-default device (``serving/segments.py`` is a copy of the reference's).
+endpoint.  The merger seals a merged segment's BM25 weights on the soak's
+device too (``SegmentMerger``'s ``device``).
 """
 
 from __future__ import annotations
@@ -637,7 +637,7 @@ class _Soak:
             self._merger = sgm.SegmentMerger(
                 self.index_dir, scfg,
                 max_segments=cfg.max_live_segments,
-                interval_s=cfg.merge_interval_s,
+                interval_s=cfg.merge_interval_s, device=cfg.device,
             ).start()
             self._t0 = time.perf_counter()
             self._deadline = self._t0 + cfg.duration_s

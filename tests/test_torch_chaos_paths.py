@@ -49,7 +49,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import checkpoint as
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder
 from tests.test_torch_obs import HUB_ARGS, _Clock
-from tests.test_torch_segments import _docs, _seal, host_default  # noqa: F401 — fixture
+from tests.test_torch_segments import _docs, _seal
 from tests.test_torch_serving import QUERIES, _one_shot, make_server, oracle_index  # noqa: F401
 from tests.test_torch_tfidf import check_float, ill_rows, ill_terms, oracle
 
@@ -428,7 +428,7 @@ def test_warmup_fault_retries_invisibly(oracle_index):
     assert got[0].tobytes() == want[0].tobytes() and got[1].tobytes() == want[1].tobytes()
 
 
-def test_merge_preserves_scores_and_merger_chaos_retry(tmp_path, host_default):  # noqa: F811
+def test_merge_preserves_scores_and_merger_chaos_retry(tmp_path):
     """Merging segments changes no served bit, and a transient fault at the
     ``segment_merge`` site retries invisibly."""
     scfg = tcfg.TfidfConfig(vocab_bits=10)
@@ -441,7 +441,7 @@ def test_merge_preserves_scores_and_merger_chaos_retry(tmp_path, host_default): 
     assert len(segset.segments) == 3
     with make_server(segset, top_k=5, scoring="impacted") as srv:
         before = {tuple(q): srv.query(q) for q in QUERIES}
-        merger = sgm.SegmentMerger(str(tmp_path), scfg, max_segments=1)
+        merger = sgm.SegmentMerger(str(tmp_path), scfg, max_segments=1, device="cpu")
         with chaos.inject("segment_merge:fail@1") as plan:
             assert merger.merge_once()  # the injected fault retried inside
         assert plan.call_count("segment_merge") >= 2

@@ -358,9 +358,7 @@ import page_rank_and_tfidf_using_apache_spark_tpu_torch as port
 from page_rank_and_tfidf_using_apache_spark_tpu_torch import serving
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.cli import serve
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.serving import segments as sgm
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import device
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import Bm25Config
-device.DEFAULT_DEVICE = "cpu"  # the merge seals its BM25 on the default device
 tmp = sys.argv[1]
 cfg = port.TfidfConfig(vocab_bits=10)
 base = 0
@@ -375,7 +373,7 @@ for scoring in ("coo", "impacted"):
             top_k=3, scoring=scoring), device="cpu") as srv:
         got.append(srv.query(["cat"], ranker="bm25"))
         if scoring == "impacted":
-            assert sgm.SegmentMerger(tmp, cfg, max_segments=1).merge_once()
+            assert sgm.SegmentMerger(tmp, cfg, max_segments=1, device="cpu").merge_once()
             srv.refresh_segments(sgm.load_segment_set(tmp))
             assert srv.query(["cat"], ranker="bm25")[1].tolist() == got[-1][1].tolist()
 assert got[0][0].tobytes() == got[1][0].tobytes()

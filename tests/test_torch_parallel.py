@@ -674,6 +674,6 @@ def test_cli_mesh_beyond_the_visible_cards(monkeypatch, tmp_path):
 def test_parallel_surface_is_the_references():
     from page_rank_and_tfidf_using_apache_spark_tpu import parallel as jparallel
 
-    assert set(parallel.__all__) == set(jparallel.__all__) - {"init_distributed"}
+    assert set(parallel.__all__) == set(jparallel.__all__)
     for name in parallel.__all__:
         assert hasattr(parallel, name), name

@@ -13,6 +13,8 @@ query served from a segment committed after the server started.
 
 from __future__ import annotations
 
+import ast
+import shutil
 import time
 from pathlib import Path
 
@@ -62,21 +64,60 @@ def oracle_index(tmp_path_factory):
     return serving.load_index(str(d))
 
 
-@pytest.fixture
-def host_default(monkeypatch):
-    """The merge seals its segment's BM25 table on the default device,
-    which is cuda; the tests ask for the CPU."""
-    monkeypatch.setattr(tdevice, "DEFAULT_DEVICE", "cpu")
-
-
 def _docs() -> list[str]:
     return FIXTURE.read_text().splitlines()
 
 
 # ------------------------------------------------------------------ the copy
 
+class _WithoutMergeDevice(ast.NodeTransformer):
+    """The port's one addition to ``serving/segments.py``: the ``device``
+    argument of ``merge_segments`` and ``SegmentMerger``, the merger's
+    ``self.device = device``, and the two places that pass it on."""
+
+    def _drop_device(self, args: ast.arguments) -> None:
+        names = [a.arg for a in args.args]
+        if "device" in names:
+            i = names.index("device")
+            del args.args[i]
+            del args.defaults[i - (len(names) - len(args.defaults))]
+        names = [a.arg for a in args.kwonlyargs]
+        if "device" in names:
+            i = names.index("device")
+            del args.kwonlyargs[i], args.kw_defaults[i]
+
+    def visit_FunctionDef(self, node):
+        if node.name in ("merge_segments", "__init__"):
+            self._drop_device(node.args)
+        self.generic_visit(node)
+        return node
+
+    def visit_Assign(self, node):
+        tgt = node.targets[0]
+        if (isinstance(tgt, ast.Attribute) and tgt.attr == "device"
+                and isinstance(node.value, ast.Name) and node.value.id == "device"):
+            return None
+        self.generic_visit(node)
+        return node
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        name = getattr(node.func, "id", None)
+        if name == "TfidfOutput":
+            node.keywords = [k for k in node.keywords if k.arg != "device"]
+        if (name == "merge_segments" and len(node.args) == 4
+                and isinstance(node.args[3], ast.Attribute)
+                and node.args[3].attr == "device"):
+            node.args = node.args[:3]
+        return node
+
+
 def test_copy_matches_reference():
-    assert _code(PORT / "serving" / "segments.py") == _code(REF / "serving" / "segments.py")
+    """The copy's code is the reference's but for the merge's ``device``."""
+    port = PORT / "serving" / "segments.py"
+    assert (_code(port, _WithoutMergeDevice())
+            == _code(REF / "serving" / "segments.py"))
+    assert _code(port) != _code(REF / "serving" / "segments.py")
 
 
 # ------------------------------------------------ impacted-list equality
@@ -300,7 +341,7 @@ def test_set_prior_carries_over_refresh(tmp_path):
     np.testing.assert_array_equal(got, np.concatenate([ranks, [1.0]]).astype(np.float32))
 
 
-def test_merge_preserves_scores(tmp_path, host_default):
+def test_merge_preserves_scores(tmp_path):
     """Merging segments under the same global stats changes no served bit;
     replaced segment dirs go one generation later, the merged one
     serves."""
@@ -314,7 +355,8 @@ def test_merge_preserves_scores(tmp_path, host_default):
     assert len(segset.segments) == 3
     with make_server(segset, top_k=5, scoring="impacted") as srv:
         before = {tuple(q): srv.query(q) for q in QUERIES}
-        merger = sgm.SegmentMerger(str(tmp_path), scfg, max_segments=1)
+        merger = sgm.SegmentMerger(str(tmp_path), scfg, max_segments=1, device="cpu")
+        assert tdevice.DEFAULT_DEVICE == "cuda"
         assert merger.merge_once()
         while merger.merge_once():
             pass
@@ -330,17 +372,41 @@ def test_merge_preserves_scores(tmp_path, host_default):
     assert live <= on_disk
 
 
-def test_merger_thread_compacts_in_background(tmp_path, host_default):
+def test_merger_thread_compacts_in_background(tmp_path):
     scfg = TfidfConfig(vocab_bits=10)
     docs = _docs()
     o1, _ = _seal(tmp_path, docs[:4], scfg, 0)
     _seal(tmp_path, docs[4:], scfg, o1.n_docs)
-    with sgm.SegmentMerger(str(tmp_path), scfg, max_segments=1, interval_s=0.05) as merger:
+    with sgm.SegmentMerger(str(tmp_path), scfg, max_segments=1, interval_s=0.05,
+                           device="cpu") as merger:
         deadline = time.monotonic() + 30.0
         while merger.merges < 1 and time.monotonic() < deadline:
             time.sleep(0.02)
     assert merger.merges == 1
     assert len(sgm.latest_manifest(str(tmp_path)).segments) == 1
+
+
+def test_merge_seals_bm25_on_the_segments_device(tmp_path):
+    """Two ``device="cpu"`` segments merge on the CPU with the default
+    device left at cuda, and the merged segment's BM25 table equals the
+    JAX package's merge of the same two segments."""
+    scfg = TfidfConfig(vocab_bits=10)
+    docs = _docs()
+    port_dir, ref_dir = tmp_path / "port", tmp_path / "ref"
+    o1, r1 = _seal(port_dir, docs[:5], scfg, 0)
+    _, r2 = _seal(port_dir, docs[5:], scfg, o1.n_docs)
+    shutil.copytree(port_dir, ref_dir)
+    assert tdevice.DEFAULT_DEVICE == "cuda"
+    got = sgm.load_segment(str(port_dir), sgm.merge_segments(str(port_dir), (r1, r2), scfg,
+                                                              device="cpu"))
+    jr1, jr2 = (jsgm.SegmentRef.from_json(r.to_json()) for r in (r1, r2))
+    jcfg_ = jcfg.TfidfConfig(vocab_bits=10)
+    want = jsgm.load_segment(str(ref_dir), jsgm.merge_segments(str(ref_dir), (jr1, jr2), jcfg_))
+    np.testing.assert_array_equal(np.asarray(got.doc), np.asarray(want.doc))
+    np.testing.assert_array_equal(np.asarray(got.term), np.asarray(want.term))
+    assert got.bm25_weight is not None
+    np.testing.assert_allclose(np.asarray(got.bm25_weight), np.asarray(want.bm25_weight),
+                               rtol=0, atol=2e-6)
 
 
 def test_merge_refuses_non_contiguous(tmp_path):

@@ -70,8 +70,6 @@ def loss_soaks(tmp_path_factory):
     trace_dir = tmp_path_factory.mktemp("torch_soak_trace")
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("GRAFT_CHAOS", "")
-        # the merger seals a merged segment's BM25 on the default device
-        mp.setattr(tdevice, "DEFAULT_DEVICE", "cpu")
         sink = obs.MemorySink()
         obs.bus().attach(sink)
         try:
@@ -158,6 +156,27 @@ def test_soak_record_lands_in_trace(loss_soaks):
     assert rep["slo"]["dropped"] == 0
     human = tr.render_human(rep)
     assert "slo:" in human and "time-to-recover" in human
+
+
+def test_cpu_soak_merges_on_its_device():
+    """A ``device="cpu"`` soak whose live set may hold one segment merges
+    on the CPU, with the default device left at cuda: merges land and no
+    ``segment_merge_failed`` is published."""
+    assert tdevice.DEFAULT_DEVICE == "cuda"
+    sink = obs.MemorySink()
+    obs.bus().attach(sink)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("GRAFT_CHAOS", "")
+            rec = soak.run_soak(soak.SoakConfig(
+                duration_s=4.0, qps=10.0, clients=1, rebuild_every_s=1.0,
+                chunk_interval_s=0.2, prior_refresh_every_s=60.0, losses=0,
+                max_live_segments=1, merge_interval_s=0.25, device="cpu"))
+    finally:
+        obs.bus().detach(sink)
+    assert rec["ingest"]["merges"] >= 1
+    assert not [e for e in sink.events if e["kind"] == "segment_merge_failed"]
+    assert rec["dropped"] == 0 and rec["double_served"] == 0
 
 
 @pytest.mark.parametrize("n_docs, seed", [(240, 7), (1000, 1007), (37, 3)])
