@@ -289,15 +289,26 @@ Phases, each of which exits non-zero on failure:
    to the card's respawn: ``time_to_recover_s`` not null, dropped 0,
    served twice 0, roll retries 0, with the root ``tools/slo_watch.py
    --once --fleet`` against its router meanwhile;
+18. the port's static analysis and its wire-protocol harness: (18a)
+   ``python -m ..._torch.analysis`` over the tree as shipped, one process
+   a ported tier (1; 4 with ``--lock-graph``; 5 with ``--crash-points``; 6
+   with ``--wire-probes``), all started together, each exiting 0 with no
+   finding under the empty baseline, its findings and seconds printed;
+   (18b) ``tools/protocol_harness.py`` with its replica and the router on
+   ``cuda:0``: every probe of the declared message space answered within
+   its timeout with a declared code, a duplicate request id leaving the
+   replica's ``executions`` unmoved, ``double_served == 0``, a stale floor
+   ending in a typed ``FabricExhausted``; the probe count, the handshake
+   and harness seconds printed beside the card's name and power limit;
 7. one JSON line describing every kernel (with ``workload_launches``, each
-   kernel's launches in 12a-12c, 13a-13c, 14, 15b, 16 and 17f-17g by
+   kernel's launches in 12a-12c, 13a-13c, 14, 15b, 16, 17f-17g and 18b by
    workload), then the result line.
 
 Without a CUDA device, or without the port's package beside it, it exits
 non-zero and prints no result.  ``python3 chip_smoke.py --cards`` on a
 machine with four or more cards runs phase 16 alone with one slot a card,
 16g as one process a card over NCCL; ``python3 chip_smoke.py --fleet``
-runs phase 17 alone.
+runs phase 17 alone and ``python3 chip_smoke.py --analysis`` phase 18.
 """
 
 from __future__ import annotations
@@ -984,9 +995,10 @@ def check_cli_trace(trace_dir: str, profile_dir: str) -> None:
     traces = glob.glob(os.path.join(trace_dir, "pagerank.*.trace.jsonl"))
     check(len(traces) == 1, f"CLI trace dir holds {traces}")
     rep = trace_report.report(traces[0])
-    check("pagerank.result_pull" in rep["breakdown"] and rep["manifest"]["status"] == "ok"
-          and rep["manifest"]["backend"] == "cuda",
-          f"CLI trace: phases {sorted(rep['breakdown'])}, manifest {rep.get('manifest')}")
+    man = rep["manifest"]
+    check("pagerank.result_pull" in rep["breakdown"] and man["status"] == "ok"
+          and man["backend"] == "cuda",
+          f"CLI trace: phases {sorted(rep['breakdown'])}, manifest {man}")
     profiles = glob.glob(os.path.join(profile_dir, "*.pt.trace.json"))
     check(len(profiles) == 1, f"CLI profile dir holds {profiles}")
     with open(profiles[0]) as f:
@@ -1048,7 +1060,7 @@ def run_twice_bits(graph) -> dict:
     )
 
     n = graph.n_nodes
-    differ = {}
+    cases = []  # (mode, dtype, shape ok, [finite, entries that differ, max abs diff])
     for dtype in ("float32", "float64"):
         bits = torch.int32 if dtype == "float32" else torch.int64
         for impl in SPMV_IMPLS:
@@ -1065,15 +1077,21 @@ def run_twice_bits(graph) -> dict:
                 e = torch.from_numpy(ops.restart_vector(n, c)).to("cuda")
                 r0 = torch.from_numpy(ops.init_ranks(n, c)).to("cuda")
                 a, b = (runner(dg, r0, e)[0] for _ in range(2))
-                torch.cuda.synchronize()
-                check(a.shape == (n,) and bool(torch.isfinite(a).all()),
-                      f"determinism {mode} {dtype}: ranks not finite or wrong shape")
-                count = int((a.view(bits) != b.view(bits)).sum())
-                differ[(mode, dtype)] = count
-                print(f"determinism {mode} {dtype}: two runs "
-                      f"{'equal bit for bit' if count == 0 else 'DIFFER'}; {count} of {n} "
-                      f"entries differ, max abs diff {float((a - b).abs().max()):.3g}")
+                # the comparison stays on the card; one pull reads every case
+                cases.append((mode, dtype, a.shape == (n,), torch.stack([
+                    torch.isfinite(a).all().double(),
+                    (a.view(bits) != b.view(bits)).sum().double(),
+                    (a - b).abs().max().double()])))
             del dg
+    stats = torch.stack([v for *_, v in cases]).cpu().tolist()
+    differ = {}
+    for (mode, dtype, shaped, _), (finite, count, max_diff) in zip(cases, stats):
+        check(shaped and finite == 1.0,
+              f"determinism {mode} {dtype}: ranks not finite or wrong shape")
+        differ[(mode, dtype)] = count = int(count)
+        print(f"determinism {mode} {dtype}: two runs "
+              f"{'equal bit for bit' if count == 0 else 'DIFFER'}; {count} of {n} "
+              f"entries differ, max abs diff {max_diff:.3g}")
     return differ
 
 
@@ -1127,32 +1145,36 @@ def check_tfidf_modes(tops, tcfg, corpus, base, device) -> dict:
     doc_t, term_t, len_t = (torch.from_numpy(a).to(device) for a in
                             (corpus.doc_ids, corpus.term_ids, corpus.doc_lengths))
     kw = dict(n_docs=max(corpus.n_docs, 1), vocab=1 << corpus.vocab_bits)
-    results = {}
+    results, notes = {}, {}
     for tf_mode in tcfg.TfMode:
         for idf_mode in tcfg.IdfMode:
             for l2 in (False, True):
                 mode = dict(tf_mode=tf_mode, idf_mode=idf_mode, l2_normalize=l2)
                 res = tops.tfidf_pipeline(doc_t, term_t, len_t, **kw, **mode)
-                label = f"{tf_mode.value}/{idf_mode.value}/{'l2' if l2 else 'no-l2'}"
-                for f in ("doc", "term", "count"):
-                    check(np.array_equal(getattr(res, f).cpu().numpy(), base[f]),
-                          f"tfidf {label}: {f} differs from the oracle")
-                check(np.array_equal(res.df.cpu().numpy(), base["df"]),
-                      f"tfidf {label}: df differs from the oracle")
-                idf, w = tfidf_oracle_weights(base, tf_mode.value, idf_mode.value, l2)
-                e_idf, e_w = rel_err(res.idf.cpu().numpy(), idf), rel_err(res.weight.cpu().numpy(), w)
-                check(e_idf <= TFIDF_RTOL and e_w <= TFIDF_RTOL,
-                      f"tfidf {label}: idf {e_idf:.3g}, weight {e_w:.3g} > rtol {TFIDF_RTOL}")
-                note = ""
+                key = (tf_mode.value, idf_mode.value, l2)
+                notes[key] = ""
                 if l2:
                     again = tops.tfidf_pipeline(doc_t, term_t, len_t, **kw, **mode)
                     check(all(torch.equal(getattr(res, f), getattr(again, f))
                               for f in ("doc", "term", "weight", "idf", "df", "count")),
-                          f"tfidf {label}: two runs differ")
-                    note = "; two runs equal bit for bit"
-                print(f"tfidf {label}: COO, counts, df equal to the float64 oracle; largest "
-                      f"relative error idf {e_idf:.3g}, weight {e_w:.3g} (rtol {TFIDF_RTOL}){note}")
-                results[(tf_mode.value, idf_mode.value, l2)] = res
+                          f"tfidf {tf_mode.value}/{idf_mode.value}/l2: two runs differ")
+                    notes[key] = "; two runs equal bit for bit"
+                results[key] = res
+    # every mode is queued before the first pull
+    fields = ("doc", "term", "count", "df", "idf", "weight")
+    host = {key: {f: getattr(res, f).cpu().numpy() for f in fields}
+            for key, res in results.items()}
+    for (tf_mode, idf_mode, l2), h in host.items():
+        label = f"{tf_mode}/{idf_mode}/{'l2' if l2 else 'no-l2'}"
+        for f in ("doc", "term", "count", "df"):
+            check(np.array_equal(h[f], base[f]), f"tfidf {label}: {f} differs from the oracle")
+        idf, w = tfidf_oracle_weights(base, tf_mode, idf_mode, l2)
+        e_idf, e_w = rel_err(h["idf"], idf), rel_err(h["weight"], w)
+        check(e_idf <= TFIDF_RTOL and e_w <= TFIDF_RTOL,
+              f"tfidf {label}: idf {e_idf:.3g}, weight {e_w:.3g} > rtol {TFIDF_RTOL}")
+        print(f"tfidf {label}: COO, counts, df equal to the float64 oracle; largest "
+              f"relative error idf {e_idf:.3g}, weight {e_w:.3g} (rtol {TFIDF_RTOL})"
+              f"{notes[(tf_mode, idf_mode, l2)]}")
     return results
 
 
@@ -1387,20 +1409,27 @@ def check_chunk_counts_carry(tops, corpus, device) -> None:
     ids = np.arange(cap, dtype=np.int32)
     cases = {"real chunk": real, "no valid token": real[:2] + (0,),
              "n_pairs == cap": (ids, ids % vocab, cap)}
-    carries = {d: torch.zeros(vocab, device=d) for d in ("cpu", device)}
+    carries = {d: torch.zeros(vocab, dtype=torch.float32, device=d) for d in ("cpu", device)}
+    runs = []  # (label, {device: (counts, the carry after the chunk)})
     for label, (doc, term, n_valid) in cases.items():
         outs = {}
         for d in carries:
             pad = [torch.zeros(cap, dtype=torch.int32) for _ in range(2)]
             pad[0][:len(doc)], pad[1][:len(term)] = torch.from_numpy(doc), torch.from_numpy(term)
             valid = torch.arange(cap) < n_valid
-            counts, _ = tops.chunk_counts_carry(pad[0].to(d), pad[1].to(d), valid.to(d),
-                                                carries[d], vocab=vocab)
-            outs[d] = [t.cpu() for t in counts]
-        equal = all(torch.equal(a, b) for a, b in zip(outs["cpu"], outs[device]))
-        check(equal and torch.equal(carries["cpu"], carries[device].cpu()),
+            counts, carries[d] = tops.chunk_counts_carry(pad[0].to(d), pad[1].to(d),
+                                                         valid.to(d), carries[d], vocab=vocab)
+            outs[d] = (list(counts), carries[d].clone())
+        runs.append((label, outs))
+    # every chunk is queued before the first pull
+    pulled = [(label, {d: ([t.cpu() for t in c], k.cpu()) for d, (c, k) in outs.items()})
+              for label, outs in runs]
+    for label, outs in pulled:
+        (c_cpu, k_cpu), (c_dev, k_dev) = outs["cpu"], outs[device]
+        equal = all(torch.equal(a, b) for a, b in zip(c_cpu, c_dev))
+        check(equal and torch.equal(k_cpu, k_dev),
               f"chunk_counts_carry {label}: {device} differs from the CPU")
-        print(f"chunk_counts_carry {label}: n_pairs {int(outs['cpu'][3])} of {cap}; outputs "
+        print(f"chunk_counts_carry {label}: n_pairs {int(c_cpu[3])} of {cap}; outputs "
               f"and carry on {device} equal to the CPU's")
 
 
@@ -1899,7 +1928,8 @@ def closed_loop(srv, queries, clients: int, ranker: str = "tfidf") -> dict:
         except Exception as exc:  # noqa: BLE001 — reported by the caller
             errors.append(exc)
 
-    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    threads = [threading.Thread(target=client, args=(c,), name=f"smoke-client-{c}")
+               for c in range(clients)]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
@@ -2006,7 +2036,8 @@ def bench_server(serving, metrics_pct, index, queries, canon, tops, device,
                     errors.append(exc)
                 i += 1
 
-        threads = [threading.Thread(target=traffic) for _ in range(2)]
+        threads = [threading.Thread(target=traffic, name=f"smoke-traffic-{k}")
+                   for k in range(2)]
         for t in threads:
             t.start()
         try:
@@ -2122,7 +2153,8 @@ def segments_phase(serving, wiki, device, card_label: str, *, segments: int = SE
                                 errors.append(exc)
                             i += 1
 
-                    threads = [threading.Thread(target=traffic) for _ in range(2)]
+                    threads = [threading.Thread(target=traffic, name=f"smoke-traffic-{k}")
+                               for k in range(2)]
                     for t in threads:
                         t.start()
                     try:
@@ -4521,7 +4553,8 @@ def fleet_loop(fn, items: list, clients: int) -> tuple[list, list, float]:
         except Exception as exc:  # noqa: BLE001 — reported by the caller
             errors.append(exc)
 
-    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    threads = [threading.Thread(target=client, args=(c,), name=f"smoke-client-{c}")
+               for c in range(clients)]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
@@ -4771,7 +4804,7 @@ def fleet_soak_phase(card_label: str) -> None:
             box["error"] = exc
 
     t0 = time.perf_counter()
-    worker = threading.Thread(target=run)
+    worker = threading.Thread(target=run, name="smoke-run")
     worker.start()
     try:
         url = None
@@ -5018,8 +5051,9 @@ def fleet_phase(wiki, reset_counts, counts, card_label: str) -> dict:
 
             ports_before = dict(fab._ports)
             pids_before = {i: h.pid for i, h in fab._handles.items()}
-            threads = [threading.Thread(target=hammer, args=(c,))
-                       for c in range(FLEET_CLIENTS)] + [threading.Thread(target=sample)]
+            threads = [threading.Thread(target=hammer, args=(c,), name=f"smoke-client-{c}")
+                       for c in range(FLEET_CLIENTS)] + [
+                threading.Thread(target=sample, name="smoke-sample")]
             for t in threads:
                 t.start()
             try:
@@ -5092,6 +5126,115 @@ def fleet_phase(wiki, reset_counts, counts, card_label: str) -> dict:
     launched = soak_phase(reset_counts, counts, card_label)
     fleet_soak_phase(card_label)
     return launched
+
+
+# Phase 18: the analyzer's ported tiers, each with the enumeration it prints
+# (--lock-graph, --crash-points, --wire-probes), one process a tier; and the
+# protocol harness's per-exchange HTTP timeout (a hit is a hang: a failure).
+ANALYSIS_TIERS = (("1", ()), ("4", ("--lock-graph",)), ("5", ("--crash-points",)),
+                  ("6", ("--wire-probes",)))
+ANALYSIS_TIMEOUT_S, HARNESS_TIMEOUT_S = 300.0, 10.0
+
+
+def analysis_phase(reset_counts, counts, card_label: str) -> dict:
+    """18a: the port's analyzer over the tree as shipped, one process a
+    ported tier, all started together: each exits 0 with no finding under
+    the empty baseline; prints each tier's findings, what its enumeration
+    holds and its seconds.  18b: the protocol harness with its replica and
+    the router on cuda:0: every probe conforms, the duplicate rid leaves
+    ``executions`` unmoved, ``double_served == 0``, the stale floor ends in
+    ``FabricExhausted``.  Returns the kernels' launches over 18b (no kernel
+    is on the analysis path)."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import protocol_harness
+
+    procs, secs, outs = {}, {}, {}
+    t0 = time.perf_counter()
+    try:
+        for tier, flags in ANALYSIS_TIERS:
+            procs[tier] = subprocess.Popen(
+                [sys.executable, "-m", "page_rank_and_tfidf_using_apache_spark_tpu_torch.analysis",
+                 "--tier", tier, *flags, "--json"], cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        # each tier's own wall time: poll them all, read each once it ends
+        while len(outs) < len(procs):
+            check(time.perf_counter() - t0 < ANALYSIS_TIMEOUT_S,
+                  f"18a: tiers {sorted(set(procs) - set(outs))} still running")
+            for tier, proc in procs.items():
+                if tier not in outs and proc.poll() is not None:
+                    secs[tier] = time.perf_counter() - t0
+                    outs[tier] = proc.communicate()
+            time.sleep(0.02)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for tier, proc in procs.items():
+        out, err = outs[tier]
+        check(proc.returncode == 0,
+              f"18a tier {tier}: exit {proc.returncode}: {out[-2000:]} {err[-2000:]}")
+        doc = json.loads(out)
+        check(doc["ok"] is True and doc["findings"] == [] and doc["tiers"] == [int(tier)],
+              f"18a tier {tier}: {doc['findings']}")
+        graph = doc.get("lock_graph", {})
+        held = {"1": "",
+                "4": f"; lock graph: {len(graph.get('nodes', {}))} locks, "
+                     f"{len(graph.get('edges', []))} edges, {len(graph.get('threads', []))} "
+                     "threads",
+                "5": f"; {sum(len(v or []) for v in doc.get('crash_points', {}).values())} "
+                     f"crash points over {len(doc.get('crash_points', {}))} commit sequences",
+                "6": f"; {len(doc.get('wire_probes', []))} wire probes"}[tier]
+        print(f"18a analysis tier {tier}: exit 0, {len(doc['findings'])} findings "
+              f"({doc['known']} baselined){held}; {secs[tier]:.2f} s")
+    print(f"18a analysis: tiers {', '.join(procs)} clean in {max(secs.values()):.2f} s "
+          "(started together)")
+
+    reset_counts()
+    t1 = time.perf_counter()
+    report = protocol_harness.run_harness(timeout_s=HARNESS_TIMEOUT_S, device="cuda:0")
+    harness_s = time.perf_counter() - t1
+    launched = counts()
+    check("fatal" not in report, f"18b protocol harness: {report.get('fatal')}")
+    check(report["ok"], f"18b protocol harness violations: {report['violations']}")
+    check(report["device"] == "cuda:0", f"18b replica on {report['device']}")
+    check(report["duplicate_executions"] == 0,
+          f"18b duplicate rid moved executions by {report['duplicate_executions']}")
+    check(report["double_served"] == 0, f"18b double_served {report['double_served']}")
+    check(report["router_refusal"] == "FabricExhausted",
+          f"18b stale floor ended in {report['router_refusal']}")
+    print(f"18b protocol harness ({card_label}): {report['probes']} probes, "
+          f"{report['replica_checks']} replica checks, {report['router_checks']} router "
+          f"check against contract {report['fingerprint']}, replica and router on "
+          f"{report['device']}; handshake {report['handshake_s']:.2f} s, harness "
+          f"{harness_s:.2f} s; duplicate rid executions +{report['duplicate_executions']}, "
+          f"double_served {report['double_served']}, stale floor -> "
+          f"{report['router_refusal']}; kernel launches {launched}")
+    return launched
+
+
+def analysis_main() -> int:
+    """``--analysis``: phase 18 alone, a result line at the end."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import gather_kernels as gk
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pallas_kernels as pk
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import segment_kernels as sk
+
+    def reset_counts() -> None:
+        pk.reset_launches()
+        gk.reset_launches()
+        sk.reset_launches()
+
+    def counts() -> dict:
+        return {**pk.LAUNCHES, **gk.LAUNCHES, **sk.LAUNCHES}
+
+    smi = card()
+    print(f"{smi['device']}, {smi['power_limit']}")
+    t0 = time.perf_counter()
+    analysis_phase(reset_counts, counts, f"{smi['device']}, {smi['power_limit']}")
+    print(f"phase 18 (analysis): {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def fleet_main() -> int:
@@ -5581,6 +5724,12 @@ def main() -> int:
     workload_launches["fleet"] = fleet_phase(stream["wiki"], reset_counts, counts, card_label)
     print(f"phase 17 (fleet): {time.perf_counter() - t0:.1f} s")
 
+    # 18. the port's static analysis over the shipped tree, and the
+    # wire-protocol harness at a replica on the card
+    t0 = time.perf_counter()
+    workload_launches["analysis"] = analysis_phase(reset_counts, counts, card_label)
+    print(f"phase 18 (analysis): {time.perf_counter() - t0:.1f} s")
+
     # 7. the kernels line, then the result line; launches are those of the
     # kernel's own path: cumsum's from the hybrid run (its tail's prefix
     # sum), segment's from the segment run
@@ -5621,9 +5770,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] in (["--cards"], ["--fleet"]):
+    ALONE = {"--cards": cards_main, "--fleet": fleet_main, "--analysis": analysis_main}
+    if len(sys.argv) == 2 and sys.argv[1] in ALONE:
         if not torch.cuda.is_available():
             print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
             sys.exit(2)
-        sys.exit(cards_main() if sys.argv[1:] == ["--cards"] else fleet_main())
+        sys.exit(ALONE[sys.argv[1]]())
     sys.exit(main())

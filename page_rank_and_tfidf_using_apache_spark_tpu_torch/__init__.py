@@ -35,12 +35,23 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
     PageRankConfig,
     TfidfConfig,
 )
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.api import pagerank, tfidf
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import (
-    ResilienceExhausted,
-)
 
 __version__ = "0.1.0"
 
 __all__ = ["PageRankConfig", "ResilienceExhausted", "TfidfConfig", "pagerank", "tfidf",
            "__version__"]
+
+# The entry points import torch, so they load on first use: the stdlib-only
+# static analyzer (``analysis/``) imports this package without torch.
+_LAZY = {"pagerank": "api", "tfidf": "api", "ResilienceExhausted": "resilience"}
+
+
+def __getattr__(name: str):
+    module = _LAZY.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(f"{__name__}.{module}"), name)
+    globals()[name] = value
+    return value

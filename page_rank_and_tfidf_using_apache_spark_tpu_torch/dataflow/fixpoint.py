@@ -98,7 +98,7 @@ def iterate(
     carry = carry0
     if tol > 0.0:
         it = 0
-        while it < iterations and float(delta) > tol:
+        while it < iterations and float(delta) > tol:  # graftlint: disable=host-sync-in-loop (ROADMAP Queue 3: dataflow/fixpoint.iterate with tol > 0 syncs the host once a step)
             new = step(carry)
             delta = delta_fn(new, carry)
             carry = new

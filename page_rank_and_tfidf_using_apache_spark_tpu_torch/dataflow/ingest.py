@@ -246,7 +246,7 @@ class StagingRing:
         i, bufs, events, busy = self._claim((len(rows), int(cap)))
         try:
             if events[i] is not None:
-                events[i].synchronize()
+                events[i].synchronize()  # graftlint: disable=unguarded-host-sync (ROADMAP Queue 3: StagingRing.stage refills a slot after its last copy, inside the caller's staged_put)
             buf = bufs[i]
             host = buf.numpy()
             for r, a in enumerate(rows):
@@ -265,7 +265,7 @@ class StagingRing:
         """Block until every copy out of the ring has completed."""
         for event in self._events:
             if event is not None:
-                event.synchronize()
+                event.synchronize()  # graftlint: disable=unguarded-host-sync,blocking-under-lock (ROADMAP Queue 3: StagingRing.stage rebuilds the ring after its copies, under its lock, inside the caller's staged_put)
 
     @staticmethod
     def consume(tensor: torch.Tensor, event) -> torch.Tensor:
@@ -331,6 +331,7 @@ class Prefetched:
         self._orphans: list = []
         self._leftover: list = []
         self._raised: list = []
+        self._lock = threading.Lock()  # the producer's parking lists
         self._closed = False
         self._finished = False
         self.thread = threading.Thread(target=self._produce, name=name,
@@ -351,13 +352,14 @@ class Prefetched:
             for item in self.source:
                 if not self._put(_Item(item)):
                     # close() hit while this item was in hand: park it for
-                    # leftover().  Only this thread writes the parking
-                    # lists, and close() joins before anyone reads them.
-                    self._orphans.append(item)
+                    # leftover(); close() joins before it reads them.
+                    with self._lock:
+                        self._orphans.append(item)
                     return
         except BaseException as exc:  # noqa: BLE001 — forwarded to the consumer
             if not self._put(_Raised(exc)):
-                self._raised.append(exc)
+                with self._lock:
+                    self._raised.append(exc)
         else:
             self._put(_END)
 

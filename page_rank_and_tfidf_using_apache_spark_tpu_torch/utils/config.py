@@ -68,6 +68,7 @@ GRAFT_ENV_KNOBS: frozenset = frozenset({
     # unset = no exporter, 0 = ephemeral port, else the literal port;
     # serves /snapshot.json (rolling-window SLO snapshot) + /metrics
     # (Prometheus text) from a running cli.serve
+    "GRAFT_CKPT_KEEP",  # checkpoint retention count (utils/checkpoint.py)
     "GRAFT_CHAOS",  # fault-injection plan (resilience/chaos.py)
     "GRAFT_ELASTIC",  # the CPU salvage on a lost device
     # (resilience/elastic.py; "0" disables it)
@@ -128,6 +129,115 @@ DEGRADE_LADDER: tuple = (
     "cpu",  # re-lower on the CPU backend (single-chip paths)
     "respawn",  # replace a dead replica PROCESS (resilience/process.py):
     # past every in-process rung — recovery belongs to the supervisor
+)
+
+# Every thread the port starts, declared in one place like the env knobs
+# and ladder rungs above: the JAX package's THREAD_REGISTRY with the
+# port's module paths, plus the threads of chip_smoke.py.  Each entry is
+# ``(name, owning module, locks it may hold)``:
+#
+# - ``name`` matches the literal ``threading.Thread(name=...)`` spelling;
+#   a trailing ``*`` globs a formatted suffix (``soak-client-{i}``).
+# - ``module`` is the repo-relative file that constructs the thread.
+# - the lock tuple lists every lock the thread's target (plus same-file
+#   callees) may acquire, spelled ``Class.attr`` / ``name`` (scoped to the
+#   owning module) or fully qualified ``<module>::<Class>.<attr>``.
+#
+# The port's linter validates both directions: tier 1's
+# ``thread-registry-drift`` fails on a Thread constructed with an
+# undeclared (or statically unresolvable) name and on a declared entry no
+# code implements, and tier 4's ``thread-lock-drift`` fails when a
+# declared thread's target acquires a lock outside its declared set.
+# Parsed lexically by the linter — keep it a literal.
+THREAD_REGISTRY: tuple = (
+    ("ingest-source",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/dataflow/ingest.py",
+     # bounded queue handoff; the parking lists of a closed or failed
+     # producer under the prefetcher's own lock
+     ("Prefetched._lock",)),
+    ("ingest-h2d",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/dataflow/ingest.py",
+     ("Prefetched._lock",)),  # the H2D staging producer: same discipline
+    ("resilience-*",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/resilience/executor.py",
+     ()),  # per-site watchdog attempt threads: run the guarded fn only
+    ("graft-metrics-http",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/obs/export.py",
+     # handler threads read through the hub's own instrument locks
+     ("page_rank_and_tfidf_using_apache_spark_tpu_torch/obs/metrics.py::"
+      "MetricsHub._lock",)),
+    ("tfidf-serve-drain",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/serving/server.py",
+     # cache + stats; NEVER _submit_lock (the drain must keep consuming
+     # while a submitter blocks on the bounded queue holding it)
+     ("TfidfServer._lock",)),
+    ("segment-merge",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/serving/segments.py",
+     # background compaction: its own stats lock + the module commit lock
+     # serializing manifest read-modify-write against ingest seals
+     ("SegmentMerger._lock", "_COMMIT_LOCK")),
+    ("soak-ingest",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/serving/soak.py",
+     ("_Soak._lock",
+      # delta-segment commits go through the segments module commit lock
+      "page_rank_and_tfidf_using_apache_spark_tpu_torch/serving/segments.py::"
+      "_COMMIT_LOCK")),
+    ("soak-prior",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/serving/soak.py",
+     ("_Soak._lock",)),
+    ("soak-client-*",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/serving/soak.py",
+     ("_Soak._lock",)),
+    ("fleet-ingest",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/serving/soak.py",
+     ("_FleetSoak._lock",
+      "page_rank_and_tfidf_using_apache_spark_tpu_torch/serving/segments.py::"
+      "_COMMIT_LOCK")),
+    ("fleet-client-*",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/serving/soak.py",
+     ("_FleetSoak._lock",
+      # fabric.query folds delivery stats under the router's own lock
+      "page_rank_and_tfidf_using_apache_spark_tpu_torch/serving/fabric.py::"
+      "ServingFabric._lock")),
+    ("proc-stdout-drain",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/resilience/process.py",
+     ()),  # drains a supervised child's stdout so it can't fill the pipe
+    ("fabric-replica-poll",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/serving/fabric.py",
+     # floor/generation state under the replica's own lock; the hot swap
+     # itself goes through the server's refresh path
+     ("_Replica._lock",)),
+    ("fabric-health",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/serving/fabric.py",
+     ("ServingFabric._lock",)),  # suspect set + per-replica stats fold
+    ("fabric-supervisor",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/serving/fabric.py",
+     ("ServingFabric._lock",)),  # handle/port swap on respawn
+    ("fed-scraper",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/obs/federation.py",
+     # per-replica mergeable/staleness state under the fleet hub's lock;
+     # the guarded fetch itself runs on a resilience-* watchdog thread
+     ("FleetHub._lock",)),
+    ("fabric-autoscaler",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/serving/fabric.py",
+     # scale_up/scale_down swap membership + ring under the router's lock
+     ("ServingFabric._lock",)),
+    ("fabric-peer-peek",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/serving/fabric.py",
+     ()),  # disposable bounded-deadline cache peek: one HTTP round-trip
+    # into a result cell, abandoned past the deadline
+    ("fabric-peer-fill",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/serving/fabric.py",
+     # owner write-back drain: breaker + peer tallies under the replica's
+     # peer lock, never the serving hot path's _lock
+     ("_Replica._peer_lock",)),
+    # chip_smoke.py's load generators: closed-loop clients against a server
+    # or the router (their result lists under the loop's own ``lock``),
+    # and the samplers beside them
+    ("smoke-client-*", "chip_smoke.py", ("lock",)),
+    ("smoke-traffic-*", "chip_smoke.py", ()),
+    ("smoke-run", "chip_smoke.py", ()),
+    ("smoke-sample", "chip_smoke.py", ()),
 )
 
 SPMV_IMPLS = ("segment", "bcoo", "cumsum", "cumsum_mxu", "hybrid",

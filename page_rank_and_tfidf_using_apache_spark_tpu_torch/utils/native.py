@@ -41,7 +41,7 @@ def _build() -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = os.path.join(BUILD_DIR, f"libfastio.{os.getpid()}.tmp.so")
     try:
-        subprocess.run(["g++", *CXX_FLAGS, SRC, "-o", tmp], check=True,
+        subprocess.run(["g++", *CXX_FLAGS, SRC, "-o", tmp], check=True,  # graftlint: disable=blocking-under-lock (ROADMAP Queue 3, shared with the reference: a build-once guard; the lock is held across the g++ build ON PURPOSE so concurrent loaders wait for one build instead of racing duplicate compilers at the same .so path)
                        capture_output=True, text=True)
         os.replace(tmp, LIB_PATH)
     finally:

@@ -26,6 +26,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu.analysis.registry import (
 from page_rank_and_tfidf_using_apache_spark_tpu.analysis.registry import (
     TUNED_KNOBS as REF_TUNED_KNOBS,
 )
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.analysis import registry
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import autotune
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
 
@@ -62,7 +63,10 @@ def plan(probes):
 # --------------------------------------------------------- the copies
 
 def test_knob_space_is_the_references():
-    assert autotune.TUNED_KNOBS == REF_TUNED_KNOBS
+    """The knob space lives in the port's analysis/registry.py, which the
+    tuner imports, and equals the reference's rows."""
+    assert registry.TUNED_KNOBS == REF_TUNED_KNOBS
+    assert autotune.TUNED_KNOBS is registry.TUNED_KNOBS
     assert set(autotune._knob_domains()) == set(tcfg.TUNABLE_DEFAULTS)
 
 

@@ -147,6 +147,59 @@ def test_scan_covers_the_fleet_slice():
             "tools/crash_harness.py"} <= scanned
 
 
+def test_scan_covers_the_analysis_slice():
+    """The port's static analysis, its gate and the protocol harness are
+    among the files the scan reads."""
+    scanned = {p.relative_to(PORT).as_posix() for p in FILES if p.is_relative_to(PORT)}
+    assert {f"analysis/{m}.py" for m in ("__init__", "__main__", "findings", "engine",
+                                         "context", "rules", "registry", "concurrency",
+                                         "persistence", "protocol")} <= scanned
+    assert "tools/protocol_harness.py" in scanned
+
+
+ANALYSIS = sorted((PORT / "analysis").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", ANALYSIS, ids=lambda p: p.name)
+def test_analysis_imports_only_the_stdlib(path):
+    """The analyzer never imports the code it scans: no torch, no numpy, no
+    jax, nothing of the JAX package — the stdlib and its own modules."""
+    allowed = set(sys.stdlib_module_names) | {"page_rank_and_tfidf_using_apache_spark_tpu_torch"}
+    bad = top_level_imports(path.read_text()) - allowed
+    assert not bad, f"{path.name} imports {sorted(bad)}"
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom) and node.module and \
+                node.module.startswith("page_rank_and_tfidf_using_apache_spark_tpu_torch"):
+            assert node.module.startswith(
+                "page_rank_and_tfidf_using_apache_spark_tpu_torch.analysis"), node.module
+
+
+def test_analyzer_runs_with_torch_unimportable():
+    """Every ported tier runs with torch, numpy and JAX unimportable, as the
+    reference's runs even when jax is broken: the CLI's tier 1 over the
+    analyzer's own modules and tier 6 over the wire surface, tiers 4 and 5
+    over the serving modules."""
+    code = """
+import sys
+for name in ("torch", "numpy", "jax", "jaxlib", "page_rank_and_tfidf_using_apache_spark_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+from pathlib import Path
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.analysis import __main__ as cli
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.analysis import concurrency, persistence
+port = Path("page_rank_and_tfidf_using_apache_spark_tpu_torch")
+assert cli.main(["--tier", "1", str(port / "analysis")]) == 0
+assert cli.main(["--tier", "6"]) == 0
+root = Path.cwd()
+assert not concurrency.run_concurrency(root=root, paths=[port / "serving"]).findings
+assert not persistence.run_persistence(root=root, paths=[port / "serving"]).findings
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
 @pytest.mark.parametrize("source, flagged", [
     ("import page_rank_and_tfidf_using_apache_spark_tpu_torch.ops", set()),
     ("from page_rank_and_tfidf_using_apache_spark_tpu_torch import api", set()),
