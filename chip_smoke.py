@@ -291,18 +291,27 @@ Phases, each of which exits non-zero on failure:
    --once --fleet`` against its router meanwhile;
 18. the port's static analysis and its wire-protocol harness: (18a)
    ``python -m ..._torch.analysis`` over the tree as shipped, one process
-   a ported tier (1; 4 with ``--lock-graph``; 5 with ``--crash-points``; 6
-   with ``--wire-probes``), all started together, each exiting 0 with no
-   finding under the empty baseline, its findings and seconds printed;
+   a tier (1; 2, the traced steps; 3 with ``--cost-report``; 4 with
+   ``--lock-graph``; 5 with ``--crash-points``; 6 with ``--wire-probes``),
+   all started together, each exiting 0 with no finding under the empty
+   baseline, its findings and seconds printed;
    (18b) ``tools/protocol_harness.py`` with its replica and the router on
    ``cuda:0``: every probe of the declared message space answered within
    its timeout with a declared code, a duplicate request id leaving the
    replica's ``executions`` unmoved, ``double_served == 0``, a stale floor
    ending in a typed ``FabricExhausted``; the probe count, the handshake
    and harness seconds printed beside the card's name and power limit;
+   (18c) each main-path entry of the registry (``pagerank_step``,
+   ``_pallas``, ``_hybrid``, ``_sort_shuffle``, ``pagerank_rowsum_pallas``)
+   at the web-Google stand-in's shape on ``cuda:0``: traced on fake
+   tensors, then one real step, whose launches of each kernel equal that
+   kernel's op nodes in the trace; the step again under
+   ``torch.cuda.set_sync_debug_mode("error")`` wherever the trace counted
+   no host read; the modelled bytes and FLOPs a step printed beside the
+   step's measured device ms;
 7. one JSON line describing every kernel (with ``workload_launches``, each
-   kernel's launches in 12a-12c, 13a-13c, 14, 15b, 16, 17f-17g and 18b by
-   workload), then the result line.
+   kernel's launches in 12a-12c, 13a-13c, 14, 15b, 16, 17f-17g, 18b and 18c
+   by workload), then the result line.
 
 Without a CUDA device, or without the port's package beside it, it exits
 non-zero and prints no result.  ``python3 chip_smoke.py --cards`` on a
@@ -5131,30 +5140,119 @@ def fleet_phase(wiki, reset_counts, counts, card_label: str) -> dict:
 # Phase 18: the analyzer's ported tiers, each with the enumeration it prints
 # (--lock-graph, --crash-points, --wire-probes), one process a tier; and the
 # protocol harness's per-exchange HTTP timeout (a hit is a hang: a failure).
-ANALYSIS_TIERS = (("1", ()), ("4", ("--lock-graph",)), ("5", ("--crash-points",)),
-                  ("6", ("--wire-probes",)))
+ANALYSIS_TIERS = (("1", ()), ("2", ()), ("3", ("--cost-report",)), ("4", ("--lock-graph",)),
+                  ("5", ("--crash-points",)), ("6", ("--wire-probes",)))
+# 18c: the registry's main-path entries and the SpMV impl of each (None:
+# the hybrid head's row sums alone, at that run's head rows).
+MAIN_ENTRIES = (("pagerank_step", "segment"), ("pagerank_step_pallas", "pallas"),
+                ("pagerank_step_hybrid", "hybrid"),
+                ("pagerank_step_sort_shuffle", "sort_shuffle"),
+                ("pagerank_rowsum_pallas", None))
 ANALYSIS_TIMEOUT_S, HARNESS_TIMEOUT_S = 300.0, 10.0
 
 
-def analysis_phase(reset_counts, counts, card_label: str) -> dict:
+def traced_entry(name: str, fn, args: tuple, reset_counts, counts, card_label: str) -> dict:
+    """18c for one entry: ``fn(*args)`` traced on fake tensors of its
+    arguments' shapes, then one real step (``fixpoint.single_step``), whose
+    launches of each kernel must equal its op nodes in the trace; where the
+    trace counted no host read, the step again under
+    ``set_sync_debug_mode("error")``, which raises on any sync; the
+    modelled bytes and FLOPs a step (tier 3's model) printed beside the
+    step's device ms (CUDA events).  Returns the real step's launches."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.analysis import cost
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.analysis import trace as tr
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow import fixpoint
+
+    def step():
+        with fixpoint.single_step():
+            return fn(*args)
+
+    t0 = time.perf_counter()
+    trace = tr.trace_variant(fn, tr.spec_of(args))
+    trace_s = time.perf_counter() - t0
+    nodes = trace.kernel_nodes()
+    model = cost.summarize(trace)
+    step()  # warm-up: the kernels' libraries load
+    torch.cuda.synchronize()
+    reset_counts()
+    step()
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in counts().items() if v}
+    check(launched == nodes, f"18c {name}: one step launched {launched}, the trace has "
+                             f"{nodes} kernel op nodes")
+    reads = trace.transfers()
+    if not reads:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    ms = time_ms(step)
+    b, by = bound_ms(model.hbm_bytes, model.flops)
+    print(f"18c {name} ({card_label}): traced in {trace_s:.2f} s, {len(trace.nodes)} ops, "
+          f"kernel op nodes {nodes} == one step's launches {launched}; host reads "
+          f"{len(reads)}" + ("" if reads else ", no sync under sync_debug_mode('error')")
+          + f"; modelled {model.hbm_bytes} bytes, {model.flops} FLOPs a step (intensity "
+          f"{model.intensity:.4f}, bound {b:.4f} ms by {by}); measured {ms:.4f} ms a step")
+    return launched
+
+
+def traced_entries_phase(graph, reset_counts, counts, card_label: str) -> dict:
+    """18c: each main-path entry of the registry at the stand-in's shape on
+    cuda:0 (``traced_entry``): the runner of each main impl over its
+    ``put_graph_for`` graph, and the row sums alone at the ``hybrid``
+    head's rows.  Returns the kernels' launches over the real steps."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.analysis.registry import ENTRY_POINTS
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import put_graph_for
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pagerank as ops
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pallas_kernels as pk
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import PageRankConfig
+
+    registered = {ep.name for ep in ENTRY_POINTS}
+    total: dict = {}
+    head_rows = None
+    for name, impl in MAIN_ENTRIES:
+        check(name in registered, f"18c: {name} is not a registered entry")
+        if impl is None:
+            fn, args = pk.rowsum_kernel, (head_rows,)
+        else:
+            cfg = PageRankConfig(iterations=ITERS, dangling="redistribute", init="uniform",
+                                 spmv_impl=impl)
+            dg = put_graph_for(graph, cfg, "cuda")
+            e = torch.from_numpy(ops.restart_vector(graph.n_nodes, cfg)).to("cuda")
+            r0 = torch.from_numpy(ops.init_ranks(graph.n_nodes, cfg)).to("cuda")
+            fn, args = ops.make_pagerank_runner(graph.n_nodes, cfg), (dg, r0, e)
+            if impl == "hybrid":  # the head's gathered rows at uniform ranks
+                w = dg.inv_outdeg / graph.n_nodes
+                head_rows = torch.cat([w, w.new_zeros(1)])[dg.hybrid.head_src]
+        add_counts(total, traced_entry(name, fn, args, reset_counts, counts, card_label))
+    return total
+
+
+def analysis_phase(graph, reset_counts, counts, card_label: str) -> dict:
     """18a: the port's analyzer over the tree as shipped, one process a
-    ported tier, all started together: each exits 0 with no finding under
-    the empty baseline; prints each tier's findings, what its enumeration
-    holds and its seconds.  18b: the protocol harness with its replica and
-    the router on cuda:0: every probe conforms, the duplicate rid leaves
-    ``executions`` unmoved, ``double_served == 0``, the stale floor ends in
-    ``FabricExhausted``.  Returns the kernels' launches over 18b (no kernel
-    is on the analysis path)."""
+    tier, all started together: each exits 0 with no finding under the
+    empty baseline; prints each tier's findings, what its enumeration or
+    report holds and its seconds.  18b: the protocol harness with its
+    replica and the router on cuda:0: every probe conforms, the duplicate
+    rid leaves ``executions`` unmoved, ``double_served == 0``, the stale
+    floor ends in ``FabricExhausted``.  18c: ``traced_entries_phase``.
+    Returns the kernels' launches over 18b (none: no kernel is on the
+    harness's path) and 18c."""
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import protocol_harness
 
-    procs, secs, outs = {}, {}, {}
+    procs, secs, outs, files = {}, {}, {}, {}
     t0 = time.perf_counter()
     try:
         for tier, flags in ANALYSIS_TIERS:
+            # each tier writes to files: a report larger than a pipe's buffer
+            # would block its writer until the reader came
+            files[tier] = (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
             procs[tier] = subprocess.Popen(
                 [sys.executable, "-m", "page_rank_and_tfidf_using_apache_spark_tpu_torch.analysis",
-                 "--tier", tier, *flags, "--json"], cwd=ROOT, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True)
+                 "--tier", tier, *flags, "--json"], cwd=ROOT, stdout=files[tier][0],
+                stderr=files[tier][1], text=True)
         # each tier's own wall time: poll them all, read each once it ends
         while len(outs) < len(procs):
             check(time.perf_counter() - t0 < ANALYSIS_TIMEOUT_S,
@@ -5162,13 +5260,16 @@ def analysis_phase(reset_counts, counts, card_label: str) -> dict:
             for tier, proc in procs.items():
                 if tier not in outs and proc.poll() is not None:
                     secs[tier] = time.perf_counter() - t0
-                    outs[tier] = proc.communicate()
+                    outs[tier] = tuple(f.seek(0) or f.read() for f in files[tier])
             time.sleep(0.02)
     finally:
         for proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        for pair in files.values():
+            for f in pair:
+                f.close()
     for tier, proc in procs.items():
         out, err = outs[tier]
         check(proc.returncode == 0,
@@ -5176,11 +5277,15 @@ def analysis_phase(reset_counts, counts, card_label: str) -> dict:
         doc = json.loads(out)
         check(doc["ok"] is True and doc["findings"] == [] and doc["tiers"] == [int(tier)],
               f"18a tier {tier}: {doc['findings']}")
-        graph = doc.get("lock_graph", {})
-        held = {"1": "",
-                "4": f"; lock graph: {len(graph.get('nodes', {}))} locks, "
-                     f"{len(graph.get('edges', []))} edges, {len(graph.get('threads', []))} "
-                     "threads",
+        lock_graph = doc.get("lock_graph", {})
+        report = doc.get("cost_report", {})
+        held = {"1": "", "2": "",
+                "3": f"; {len(report.get('entries', []))} entries costed, intensity gate "
+                     f"{report.get('intensity_gate')}, {len(doc.get('advisories', []))} "
+                     "advisories",
+                "4": f"; lock graph: {len(lock_graph.get('nodes', {}))} locks, "
+                     f"{len(lock_graph.get('edges', []))} edges, "
+                     f"{len(lock_graph.get('threads', []))} threads",
                 "5": f"; {sum(len(v or []) for v in doc.get('crash_points', {}).values())} "
                      f"crash points over {len(doc.get('crash_points', {}))} commit sequences",
                 "6": f"; {len(doc.get('wire_probes', []))} wire probes"}[tier]
@@ -5209,11 +5314,14 @@ def analysis_phase(reset_counts, counts, card_label: str) -> dict:
           f"{harness_s:.2f} s; duplicate rid executions +{report['duplicate_executions']}, "
           f"double_served {report['double_served']}, stale floor -> "
           f"{report['router_refusal']}; kernel launches {launched}")
+    launched = dict(launched)
+    add_counts(launched, traced_entries_phase(graph, reset_counts, counts, card_label))
     return launched
 
 
 def analysis_main() -> int:
-    """``--analysis``: phase 18 alone, a result line at the end."""
+    """``--analysis``: phase 18 alone (the kernels built first and the
+    stand-in graph generated, for 18c), a result line at the end."""
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import gather_kernels as gk
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pallas_kernels as pk
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import segment_kernels as sk
@@ -5226,11 +5334,18 @@ def analysis_main() -> int:
     def counts() -> dict:
         return {**pk.LAUNCHES, **gk.LAUNCHES, **sk.LAUNCHES}
 
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import synthetic_powerlaw
+
     smi = card()
     print(f"{smi['device']}, {smi['power_limit']}")
     t0 = time.perf_counter()
-    analysis_phase(reset_counts, counts, f"{smi['device']}, {smi['power_limit']}")
-    print(f"phase 18 (analysis): {time.perf_counter() - t0:.1f} s")
+    _build.build(force=True)
+    print(f"build: {time.perf_counter() - t0:.2f} s wall")
+    graph = synthetic_powerlaw(N_NODES, N_EDGES, seed=SEED)
+    t0 = time.perf_counter()
+    launched = analysis_phase(graph, reset_counts, counts,
+                              f"{smi['device']}, {smi['power_limit']}")
+    print(f"phase 18 (analysis): {time.perf_counter() - t0:.1f} s; launches {launched}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -5724,10 +5839,11 @@ def main() -> int:
     workload_launches["fleet"] = fleet_phase(stream["wiki"], reset_counts, counts, card_label)
     print(f"phase 17 (fleet): {time.perf_counter() - t0:.1f} s")
 
-    # 18. the port's static analysis over the shipped tree, and the
-    # wire-protocol harness at a replica on the card
+    # 18. the port's static analysis over the shipped tree, the
+    # wire-protocol harness at a replica on the card, and the main-path
+    # entries' traces held to one real step each
     t0 = time.perf_counter()
-    workload_launches["analysis"] = analysis_phase(reset_counts, counts, card_label)
+    workload_launches["analysis"] = analysis_phase(graph, reset_counts, counts, card_label)
     print(f"phase 18 (analysis): {time.perf_counter() - t0:.1f} s")
 
     # 7. the kernels line, then the result line; launches are those of the
@@ -5753,8 +5869,10 @@ def main() -> int:
     # (12a's resumed runs, 12b's API runs, 12c's first runs), phase 13's
     # (13a's and 13b's faulted runs, 13c's resumed run), phase 14's (the
     # card's launches before each loss, and 14b's), phase 15b's (one run
-    # of each layout and dtype) and phase 16's (16b's float32 runs, 16c's
-    # shrinking runs, 16e's runs, 16g's processes' runs), by workload
+    # of each layout and dtype), phase 16's (16b's float32 runs, 16c's
+    # shrinking runs, 16e's runs, 16g's processes' runs), phase 17's (17f,
+    # 17g) and phase 18's (18b's harness, 18c's one real step an entry), by
+    # workload
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": n, **main_rows[name],

@@ -1,7 +1,7 @@
 """graftlint for the PyTorch port: static analysis of this package.
 
-The JAX package's ``analysis/`` over the port's own code and contracts, for
-the four tiers that read no trace, over one ratchet baseline:
+The JAX package's ``analysis/`` over the port's own code and contracts,
+every tier, over one ratchet baseline:
 
 - **Tier 1 (lexical, rules.py)**: stdlib-only AST rules over the package
   and the root ``chip_smoke.py`` — steps handed to the loop driver stay
@@ -11,6 +11,17 @@ the four tiers that read no trace, over one ratchet baseline:
   route through the resilience executor and the staging API; thread
   targets take the lock; threads, env knobs, metric names and ladder
   rungs are declared.
+- **Tier 2 (trace, semantic.py)**: one step of each registered entry
+  point (``registry.ENTRY_POINTS``) traced with ``make_fx`` on fake
+  tensors on the card's device (``trace.py``; each kernel one
+  ``graft_torch`` op): distinct shapes against ``max_compiles``, 64-bit
+  values from pinned inputs, host reads per step, collectives' axes and
+  counts, collectives after a slot-varying host read.
+- **Tier 3 (cost.py, profile.py)**: the static FLOP/byte model of the
+  same traces against the intensity floors (advisory until the port's
+  cost artifact is gpu-stamped), the pad_frac budgets of the partition
+  and padding plans, the in-place contract against the step's writes; and
+  the tuned-profile contract (``profile-drift``, ``untuned-knob-read``).
 - **Tier 4 (concurrency, concurrency.py)**: lock-order cycles,
   blocking-under-lock, use-after-donate over the ``DONATED_CALLEES``
   contract (the callees that overwrite an argument in place),
@@ -25,10 +36,11 @@ the four tiers that read no trace, over one ratchet baseline:
   monotonicity, and the message space ``tools/protocol_harness.py``
   replays at a live replica.
 
-Every tier is stdlib-only: it never imports the code it scans, torch
-included.  The reference's trace-based tiers 2 and 3 are not ported yet
-(ROADMAP item 15b).  ``analysis/baseline.json`` is kept empty: fix true
-positives, don't freeze them.  ``tools/lint.sh`` is the gate.
+Tiers 1, 4, 5 and 6 and the profile half of tier 3 are stdlib-only: they
+never import the code they scan, torch included; the traces of tiers 2
+and 3 import torch, and run on the CPU with no card.
+``analysis/baseline.json`` is kept empty: fix true positives, don't freeze
+them.  ``tools/lint.sh`` is the gate.
 """
 
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.analysis.engine import (

@@ -26,7 +26,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import Bm25Co
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import resolve_device
 
 
-def bm25_weights(
+def bm25_weights(  # graftlint: disable=implicit-promotion (ROADMAP Queue 3, 64-bit values by design: the corpus's token total sums in int64 and avgdl divides in float64)
     doc: torch.Tensor,  # int32 [nnz]
     term: torch.Tensor,  # int32 [nnz]
     count: torch.Tensor,  # float32 [nnz] raw per-pair counts

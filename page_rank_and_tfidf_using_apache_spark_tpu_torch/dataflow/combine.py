@@ -27,7 +27,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import segment_kernels
 _OPS = ("add", "min", "max")
 
 
-def segment_combine(
+def segment_combine(  # graftlint: disable=implicit-promotion (ROADMAP Queue 3, 64-bit values by design: scatter_reduce_ and scatter_add_ take int64 keys)
     values: torch.Tensor,
     keys: torch.Tensor,
     num_segments: int,

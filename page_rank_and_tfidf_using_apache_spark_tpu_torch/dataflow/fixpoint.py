@@ -29,8 +29,10 @@ there.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import threading
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -75,6 +77,24 @@ def _first_tensor(carry) -> torch.Tensor:
     return carry
 
 
+# ``single_step`` is open in this thread: the static analyzer traces one step.
+_TRACING = threading.local()
+
+
+@contextlib.contextmanager
+def single_step():
+    """While open, :func:`iterate` in this thread runs its step once on the
+    initial carry and returns ``(new carry, 1, None)``: the step a runner
+    hands the loop, alone, which is what the static analyzer traces of an
+    entry point (``analysis/trace.py``)."""
+    was = getattr(_TRACING, "single_step", False)
+    _TRACING.single_step = True
+    try:
+        yield
+    finally:
+        _TRACING.single_step = was
+
+
 def iterate(
     step: Callable,
     carry0,
@@ -91,7 +111,10 @@ def iterate(
     (one sync per step), stopping once it is ``<= tol``.  Returns
     ``(carry, iters_done, last_delta)``; ``last_delta`` is a 0-d tensor of
     the carry's dtype (float32 for a non-float carry), ``inf`` when
-    ``iterations == 0``."""
+    ``iterations == 0``.  Under :func:`single_step` it runs one step and
+    measures nothing."""
+    if getattr(_TRACING, "single_step", False):
+        return step(carry0), 1, None
     like = _first_tensor(carry0)
     dtype = like.dtype if like.is_floating_point() else torch.float32
     delta = torch.full((), float("inf"), dtype=dtype, device=like.device)

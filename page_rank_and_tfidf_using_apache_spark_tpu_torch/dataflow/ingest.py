@@ -531,7 +531,7 @@ def chunked_ingest(
     save_checkpoint: Callable[[], None] | None = None,
     prefetch_source: bool = True,
     stage: Callable | None = None,
-    pipeline_depth: int = 0,
+    pipeline_depth: int = 0,  # graftlint: disable=untuned-knob-read (ROADMAP Queue 3, suppressed as in the reference: 0 is the serial path of a caller without an IngestConfig; the tuned depth arrives through ingest=)
     ingest: IngestConfig | None = None,
     recover: Callable | None = None,
     retain_until_commit: bool = False,

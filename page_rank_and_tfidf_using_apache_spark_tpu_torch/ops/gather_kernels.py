@@ -16,14 +16,16 @@ hold (``gather_table_limit()`` of the device).
 
 ``LAUNCHES`` counts kernel launches, so a run can show that it went through
 the kernel.  It is kept apart from ``pallas_kernels.LAUNCHES``, whose keys
-are the PageRank path's kernels.
+are the PageRank path's kernels.  Under the static analyzer's trace (fake
+tensors on a CUDA device) the wrapper is one ``graft_torch::gather`` op
+instead (``ops/traced.py``), wherever it would launch.
 """
 
 from __future__ import annotations
 
 import torch
 
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import _build
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import _build, traced
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops.pallas_kernels import _raise_on
 
 # Rows of the table block each group of 8 output rows gathers from.
@@ -122,6 +124,8 @@ def take_along_rows_kernel(x: torch.Tensor, idx: torch.Tensor, *, axis: int) -> 
     if x.device.type == "cpu":
         return take_along_rows_plain(x, idx, axis=axis)
     rows, width = idx.shape
+    if idx.numel() and traced.is_fake(x):
+        return _gather_op()(x, idx, axis)
     out = torch.empty_like(idx, dtype=torch.float32)
     if out.numel() == 0:
         return out
@@ -136,3 +140,16 @@ def take_along_rows_kernel(x: torch.Tensor, idx: torch.Tensor, *, axis: int) -> 
     _raise_on(rc, lib, "gather_error_string", "gather")
     LAUNCHES["gather"] += 1
     return out
+
+
+def _gather_impl(x, idx, axis):
+    return take_along_rows_kernel(x, idx, axis=axis)
+
+
+def _gather_fake(x, idx, axis):
+    return torch.empty_like(idx, dtype=torch.float32)
+
+
+def _gather_op():
+    return traced.kernel_op("gather", "(Tensor x, Tensor idx, int axis) -> Tensor",
+                            _gather_impl, _gather_fake)

@@ -20,7 +20,10 @@ Each wrapper checks its input, takes a CPU tensor to the plain PyTorch
 version beside it (``spmv_pallas_plain``, ``cumsum_plain``,
 ``rowsum_plain``), and launches the kernel on a CUDA tensor or raises: there
 is no fallback on the card.  ``LAUNCHES`` counts kernel launches per
-wrapper, so a run can show that it went through the kernels.
+wrapper, so a run can show that it went through the kernels.  Under the
+static analyzer's trace (fake tensors on a CUDA device) each wrapper is one
+op of the ``graft_torch`` namespace instead (``ops/traced.py``), named by
+its ``LAUNCHES`` key, wherever it would launch.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import _build
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import _build, traced
 
 # Kernel launches per wrapper since the last reset_launches().
 LAUNCHES: dict[str, int] = {"cumsum": 0, "rowsum": 0, "spmv": 0}
@@ -89,6 +92,8 @@ def cumsum_kernel(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[0]
     if n == 0:
         return x
+    if traced.is_fake(x):
+        return _op("cumsum")(x)
     lib = _build.library("cumsum")
     out = torch.empty_like(x)
     scratch = torch.empty(lib.cumsum_scratch_len(n), dtype=torch.uint8, device=x.device)
@@ -116,6 +121,8 @@ def rowsum_kernel(rows: torch.Tensor) -> torch.Tensor:
     if rows.device.type == "cpu":
         return rowsum_plain(rows)
     r, w = rows.shape
+    if r and traced.is_fake(rows):
+        return _op("rowsum")(rows)
     out = torch.empty(r, dtype=rows.dtype, device=rows.device)
     if r == 0:
         return out
@@ -266,6 +273,8 @@ def spmv_pallas(
     e = src.shape[0]
     if e == 0 or n == 0:
         return torch.zeros(n, dtype=w.dtype, device=w.device)
+    if traced.is_fake(w):
+        return _op("spmv")(src, indptr, w, n, edge_weight)
     lib = _build.library("spmv")
     if plan is None:
         plan = spmv_plan(indptr)
@@ -279,3 +288,22 @@ def spmv_pallas(
     _raise_on(rc, lib, "spmv_error_string", "spmv")
     LAUNCHES["spmv"] += 1
     return out
+
+
+# The kernels' ops for the analyzer's trace: name -> (schema, impl, fake).
+_OPS = {
+    "cumsum": ("(Tensor x) -> Tensor",
+               lambda x: cumsum_kernel(x) if x.numel() else x.clone(),
+               torch.empty_like),
+    "rowsum": ("(Tensor rows) -> Tensor",
+               rowsum_kernel,
+               lambda rows: rows.new_empty(rows.shape[0])),
+    "spmv": ("(Tensor src, Tensor indptr, Tensor w, int n, Tensor? edge_weight) -> Tensor",
+             lambda src, indptr, w, n, edge_weight: spmv_pallas(src, indptr, w, n=n,
+                                                                edge_weight=edge_weight),
+             lambda src, indptr, w, n, edge_weight: w.new_empty(n)),
+}
+
+
+def _op(name: str):
+    return traced.kernel_op(name, *_OPS[name])

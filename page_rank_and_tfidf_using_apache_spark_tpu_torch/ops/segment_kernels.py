@@ -18,7 +18,9 @@ CUDA.  The split is a :class:`SegmentPlan`, built once per pointer array
 On the CPU the wrapper runs :func:`segment_sum_plain` and ignores the plan.
 
 ``LAUNCHES`` counts kernel launches, so a run can show that it went
-through the kernel.
+through the kernel.  Under the static analyzer's trace (fake tensors on a
+CUDA device) the wrapper is one ``graft_torch::segment`` op instead
+(``ops/traced.py``), wherever it would launch.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import _build
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import _build, traced
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops.pallas_kernels import _check, _raise_on
 
 # Kernel launches per wrapper since the last reset_launches().
@@ -213,6 +215,8 @@ def segment_sum_kernel(
     e = _check_segment(values, ptr, n, src, edge_weight, plan)
     if values.device.type == "cpu":
         return segment_sum_plain(values, ptr, n, src=src, edge_weight=edge_weight)
+    if traced.is_fake(values):
+        return _segment_op()(values, ptr, n, src, edge_weight) if n and e else values.new_zeros(n)
     out = torch.empty(n, dtype=values.dtype, device=values.device)
     lib = _build.library("segment")  # it returns at once for n = 0, zeros out for E = 0
     if plan is None:
@@ -234,3 +238,17 @@ def segment_sum_kernel(
     if n and e:
         LAUNCHES["segment"] += 1
     return out
+
+
+def _segment_impl(values, ptr, n, src, edge_weight):
+    return segment_sum_kernel(values, ptr, n, src=src, edge_weight=edge_weight)
+
+
+def _segment_fake(values, ptr, n, src, edge_weight):
+    return values.new_empty(n)
+
+
+def _segment_op():
+    return traced.kernel_op(
+        "segment", "(Tensor values, Tensor ptr, int n, Tensor? src, Tensor? edge_weight) -> Tensor",
+        _segment_impl, _segment_fake)

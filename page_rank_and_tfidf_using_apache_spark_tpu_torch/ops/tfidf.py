@@ -105,7 +105,7 @@ class TfidfResult(NamedTuple):
         return int(self.doc.shape[0])
 
 
-def count_pairs(doc_ids: torch.Tensor, term_ids: torch.Tensor, *,
+def count_pairs(doc_ids: torch.Tensor, term_ids: torch.Tensor, *,  # graftlint: disable=implicit-promotion (ROADMAP Queue 3, 64-bit values by design: the sort key term << 31 | doc needs 62 bits)
                 token_valid: torch.Tensor | None = None) -> SparseCounts | PaddedCounts:
     """The TF pass: ((term, doc), 1) → reduceByKey(add), as one sort + RLE of
     the key ``term << 31 | doc`` (non-negative int32 ids).  Pairs that tie
@@ -122,7 +122,7 @@ def count_pairs(doc_ids: torch.Tensor, term_ids: torch.Tensor, *,
     if token_valid is not None:
         return _count_padded(doc_ids, term_ids, token_valid)
     key = (term_ids.long() << DOC_BITS) | doc_ids.long()
-    pairs, count = torch.unique(key, sorted=True, return_counts=True)
+    pairs, count = torch.unique(key, sorted=True, return_counts=True)  # graftlint: disable=transfer-census (ROADMAP Queue 3, host reads by design: the batch TF pass learns its pair count on the host, once a call)
     return SparseCounts(
         doc=(pairs & ((1 << DOC_BITS) - 1)).int(),
         term=(pairs >> DOC_BITS).int(),
@@ -130,7 +130,7 @@ def count_pairs(doc_ids: torch.Tensor, term_ids: torch.Tensor, *,
     )
 
 
-def _count_padded(doc_ids: torch.Tensor, term_ids: torch.Tensor,
+def _count_padded(doc_ids: torch.Tensor, term_ids: torch.Tensor,  # graftlint: disable=implicit-promotion (ROADMAP Queue 3, 64-bit values by design: the 62-bit sort key, and its run ids and rows)
                   token_valid: torch.Tensor) -> PaddedCounts:
     cap = doc_ids.shape[0]
     dev = doc_ids.device
@@ -203,7 +203,7 @@ def _tf(count: torch.Tensor, doc: torch.Tensor, doc_lengths: torch.Tensor,
     raise ValueError(f"unknown tf mode {mode}")
 
 
-def doc_sums(values: torch.Tensor, doc: torch.Tensor, n_docs: int) -> torch.Tensor:
+def doc_sums(values: torch.Tensor, doc: torch.Tensor, n_docs: int) -> torch.Tensor:  # graftlint: disable=implicit-promotion (ROADMAP Queue 3, 64-bit values by design: the L2 sums run in float64; argsort and segment_reduce's lengths are int64)
     """float64 [n_docs]: the sum of ``values`` over each document's rows in
     an order fixed by the rows' order within the document, so equal inputs
     give equal bits on every run.  On the CPU that order is left to right;
@@ -241,7 +241,7 @@ def tfidf_pipeline(
                        count=counts.count)
 
 
-def finalize_weights(
+def finalize_weights(  # graftlint: disable=implicit-promotion (ROADMAP Queue 3, 64-bit values by design: the L2 norm is a float64 sum)
     doc: torch.Tensor,  # int32 [nnz]
     count: torch.Tensor,  # float32 [nnz]
     doc_lengths: torch.Tensor,  # int32 [n_docs]
@@ -294,7 +294,7 @@ def chunk_counts_carry(
     return counts, df_carry.add_(df)
 
 
-def _ordered_scores(flat: torch.Tensor, prod: torch.Tensor, n_slots: int, batch: int,
+def _ordered_scores(flat: torch.Tensor, prod: torch.Tensor, n_slots: int, batch: int,  # graftlint: disable=implicit-promotion (ROADMAP Queue 3, 64-bit values by design: a score is a float64 sum in the module's order, over int64 flat slots)
                     n_docs: int) -> torch.Tensor:
     """float32 [batch, n_docs]: the products ``prod`` written at the flat
     indices ``flat`` of a zeroed float64 ``[n_slots + 1, batch, n_docs]``
@@ -309,7 +309,7 @@ def _ordered_scores(flat: torch.Tensor, prod: torch.Tensor, n_slots: int, batch:
     return total.float()
 
 
-def _coo_scores(doc, term, weight, term_valid, q_term, q_weight, q_real, *,
+def _coo_scores(doc, term, weight, term_valid, q_term, q_weight, q_real, *,  # graftlint: disable=implicit-promotion (ROADMAP Queue 3, 64-bit values by design: exact float64 products at int64 flat slots)
                 n_docs: int, vocab: int) -> torch.Tensor:
     """float32 [B, n_docs] scores of every posting against ``B`` canonical
     query rows: a ``[B, vocab + 1]`` table of slots (padding writes the
@@ -329,7 +329,7 @@ def _coo_scores(doc, term, weight, term_valid, q_term, q_weight, q_real, *,
     return _ordered_scores(flat, prod, q, b, n_docs)
 
 
-def _top_k(scores: torch.Tensor, k: int,
+def _top_k(scores: torch.Tensor, k: int,  # graftlint: disable=implicit-promotion (ROADMAP Queue 3, 64-bit values by design: torch.sort gives int64 positions)
            doc_prior: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The ``k`` highest scores of each row and their int32 doc ids, after
     the float32 prior if one is given; a stable sort keeps the lower doc id
@@ -340,7 +340,7 @@ def _top_k(scores: torch.Tensor, k: int,
     return top[:, :k].contiguous(), idx[:, :k].int()
 
 
-def score_query(
+def score_query(  # graftlint: disable=implicit-promotion (ROADMAP Queue 3, 64-bit values by design: torch.nonzero gives int64 term ids)
     result: TfidfResult,
     query_weights: torch.Tensor,  # float32 [vocab]: the query's weight per term
     *,
@@ -355,7 +355,7 @@ def score_query(
     this path's one host sync."""
     if not 0 <= k <= n_docs:
         raise ValueError(f"k must be in [0, n_docs={n_docs}], got {k}")
-    q_term = torch.nonzero(query_weights).reshape(1, -1)
+    q_term = torch.nonzero(query_weights).reshape(1, -1)  # graftlint: disable=transfer-census (ROADMAP Queue 3, host reads by design: the one-shot scorer learns the query's terms on the host, once a call)
     q_weight = query_weights[q_term]
     scores = _coo_scores(result.doc, result.term, result.weight, None, q_term, q_weight,
                          torch.ones_like(q_term, dtype=torch.bool), n_docs=n_docs,
@@ -390,7 +390,7 @@ def score_query_batch(
     return _top_k(scores, k, doc_prior if use_prior else None)
 
 
-def score_impacted_batch(
+def score_impacted_batch(  # graftlint: disable=implicit-promotion (ROADMAP Queue 3, 64-bit values by design: exact float64 products at int64 flat slots)
     doc: torch.Tensor,  # int32 [nnz] postings, (term, doc)-sorted
     weight: torch.Tensor,  # float32 [nnz] ranker weights over the same rows
     bucket_start: torch.Tensor,  # int32 [C] postings offset of each bucket's first row
@@ -424,7 +424,7 @@ def score_impacted_batch(
     return _top_k(scores, k, doc_prior if use_prior else None)
 
 
-def topk_merge(seg_scores, seg_ids, seg_bases, *, k: int):
+def topk_merge(seg_scores, seg_ids, seg_bases, *, k: int):  # graftlint: disable=implicit-promotion (ROADMAP Queue 3, 64-bit values by design: torch.sort gives int64 positions)
     """Merge per-segment top-k candidates: ``seg_scores``/``seg_ids`` are
     per-segment ``[B, k_i]`` tensors (local int32 doc ids), ``seg_bases``
     the segments' global doc-id bases.  One stable sort of the candidates

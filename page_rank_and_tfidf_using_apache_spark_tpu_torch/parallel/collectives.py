@@ -33,11 +33,48 @@ one-process mesh's bits, where ``all_reduce`` would add in an order the
 library picks; the price is D-fold traffic, not the least.  Under gloo the
 tensors cross through the host (gloo takes no CUDA tensor), under NCCL
 they stay on the card.  Every slot's tensor must have one shape and dtype.
+
+Being Python over lists, a collective leaves no op of its own in a traced
+graph.  So while the static analyzer traces a step (``analysis/trace.py``
+opens :func:`recording`), each reports its name, the mesh's axis and slot
+count and its results to the recorder: :func:`ppermute_ring` as one
+``ppermute``, :func:`ring_reduce_scatter` as its D-1 ``ppermute`` hops and
+:func:`butterfly_all_gather` as its log2(D) ``ppermute`` rounds, the
+reference's communication primitives.  Outside a trace nothing records.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+from typing import Callable
+
 import torch
+
+# This thread's open recorder, if any (see ``recording``).
+_TRACING = threading.local()
+
+
+@contextlib.contextmanager
+def recording(recorder: Callable):
+    """While open, every collective of this thread calls ``recorder(name,
+    axis, size, outputs, count)``: its primitive's name, ``mesh.axis``
+    (None without a mesh), the slot count, the per-slot results and how
+    many primitives of that name it ran."""
+    was = getattr(_TRACING, "recorder", None)
+    _TRACING.recorder = recorder
+    try:
+        yield
+    finally:
+        _TRACING.recorder = was
+
+
+def _note(name: str, xs: list, mesh, out: list, count: int = 1) -> list:
+    recorder = getattr(_TRACING, "recorder", None)
+    if recorder is not None and count:
+        recorder(name, None if mesh is None else mesh.axis,
+                 len(xs) if _one_process(mesh) else mesh.size, out, count)
+    return out
 
 
 def _one_process(mesh) -> bool:
@@ -83,13 +120,14 @@ def _fold(xs: list[torch.Tensor], op) -> torch.Tensor:
 
 def psum(xs: list[torch.Tensor], *, mesh=None) -> list[torch.Tensor]:
     """The sum over slots, left to right from slot 0, on every slot."""
-    return _spread(_fold(gather_slots(xs, mesh=mesh), torch.add), xs)
+    return _note("psum", xs, mesh, _spread(_fold(gather_slots(xs, mesh=mesh), torch.add), xs))
 
 
 def pmax(xs: list[torch.Tensor], *, mesh=None) -> list[torch.Tensor]:
     """The elementwise max over slots on every slot (the normalisation
     collective of sharded HITS)."""
-    return _spread(_fold(gather_slots(xs, mesh=mesh), torch.maximum), xs)
+    return _note("pmax", xs, mesh,
+                 _spread(_fold(gather_slots(xs, mesh=mesh), torch.maximum), xs))
 
 
 def all_gather(xs: list[torch.Tensor], *, mesh=None) -> list[torch.Tensor]:
@@ -97,26 +135,51 @@ def all_gather(xs: list[torch.Tensor], *, mesh=None) -> list[torch.Tensor]:
     order on every slot."""
     full = gather_slots(xs, mesh=mesh)
     home = full[0].device
-    return _spread(torch.cat([x.to(home) for x in full]), xs)
+    return _note("all_gather", xs, mesh, _spread(torch.cat([x.to(home) for x in full]), xs))
 
 
-def reduce_scatter(xs: list[torch.Tensor], *, mesh=None) -> list[torch.Tensor]:
-    """``[D*B]`` a slot -> the sum over slots, of which slot ``i`` keeps
-    block ``i``."""
-    if not _one_process(mesh):
-        return _keep(reduce_scatter(gather_slots(xs, mesh=mesh)), xs, mesh)
+def _across(one_process_fn, xs: list, mesh) -> list:
+    """``one_process_fn`` over every slot's tensor: over ``xs`` on a
+    one-process mesh, else over the gathered list, of which this process's
+    slots keep theirs."""
+    if _one_process(mesh):
+        return one_process_fn(xs)
+    return _keep(one_process_fn(gather_slots(xs, mesh=mesh)), xs, mesh)
+
+
+def _reduce_scatter(xs: list[torch.Tensor]) -> list[torch.Tensor]:
     d = len(xs)
     blocks = _fold(xs, torch.add).reshape(d, -1)
     return [blocks[i].to(x.device) for i, x in enumerate(xs)]
 
 
+def reduce_scatter(xs: list[torch.Tensor], *, mesh=None) -> list[torch.Tensor]:
+    """``[D*B]`` a slot -> the sum over slots, of which slot ``i`` keeps
+    block ``i``."""
+    return _note("reduce_scatter", xs, mesh, _across(_reduce_scatter, xs, mesh))
+
+
+def _ppermute(xs: list[torch.Tensor], shift: int) -> list[torch.Tensor]:
+    n = len(xs)
+    return [xs[(i - shift) % n].to(x.device) for i, x in enumerate(xs)]
+
+
 def ppermute_ring(xs: list[torch.Tensor], *, shift: int = 1,
                   mesh=None) -> list[torch.Tensor]:
     """Rotate: slot ``i``'s tensor goes to slot ``(i + shift) % D``."""
-    if not _one_process(mesh):
-        return _keep(ppermute_ring(gather_slots(xs, mesh=mesh), shift=shift), xs, mesh)
-    n = len(xs)
-    return [xs[(i - shift) % n].to(x.device) for i, x in enumerate(xs)]
+    return _note("ppermute", xs, mesh, _across(lambda full: _ppermute(full, shift), xs, mesh))
+
+
+def _ring_reduce_scatter(partials: list[torch.Tensor]) -> list[torch.Tensor]:
+    d = len(partials)
+    if d == 1:
+        return list(partials)
+    chunks = [p.reshape(d, -1) for p in partials]
+    acc = [chunks[i][(i - 1) % d] for i in range(d)]
+    for s in range(d - 1):
+        acc = _ppermute(acc, 1)  # receive from slot i-1
+        acc = [a + chunks[i][(i - 2 - s) % d] for i, a in enumerate(acc)]
+    return acc
 
 
 def ring_reduce_scatter(partials: list[torch.Tensor], *, mesh=None) -> list[torch.Tensor]:
@@ -127,17 +190,8 @@ def ring_reduce_scatter(partials: list[torch.Tensor], *, mesh=None) -> list[torc
     adds its own partial for that block, so slot ``i`` ends with block
     ``i`` complete.  Equal to :func:`reduce_scatter` up to the order of
     the adds.  Across processes the hops run on the gathered partials."""
-    if not _one_process(mesh):
-        return _keep(ring_reduce_scatter(gather_slots(partials, mesh=mesh)), partials, mesh)
-    d = len(partials)
-    if d == 1:
-        return list(partials)
-    chunks = [p.reshape(d, -1) for p in partials]
-    acc = [chunks[i][(i - 1) % d] for i in range(d)]
-    for s in range(d - 1):
-        acc = ppermute_ring(acc, shift=1)  # receive from slot i-1
-        acc = [a + chunks[i][(i - 2 - s) % d] for i, a in enumerate(acc)]
-    return acc
+    out = _across(_ring_reduce_scatter, partials, mesh)
+    return _note("ppermute", partials, mesh, out, axis_size(partials, mesh=mesh) - 1)
 
 
 def butterfly_all_gather(blocks: list[torch.Tensor], *, mesh=None) -> list[torch.Tensor]:
@@ -148,8 +202,11 @@ def butterfly_all_gather(blocks: list[torch.Tensor], *, mesh=None) -> list[torch
     to slot ``i XOR 2^k``.  D must be a power of two (the ``owned``
     planner refuses other counts).  Across processes the rounds run on the
     gathered blocks."""
-    if not _one_process(mesh):
-        return _keep(butterfly_all_gather(gather_slots(blocks, mesh=mesh)), blocks, mesh)
+    out = _across(_butterfly_all_gather, blocks, mesh)
+    return _note("ppermute", blocks, mesh, out, axis_size(blocks, mesh=mesh).bit_length() - 1)
+
+
+def _butterfly_all_gather(blocks: list[torch.Tensor]) -> list[torch.Tensor]:
     d = len(blocks)
     if d == 1:
         return list(blocks)

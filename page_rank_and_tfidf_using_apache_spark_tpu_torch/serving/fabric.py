@@ -72,10 +72,11 @@ And two cooperating robustness layers:
   SIGTERMs the predecessor, which stops accepting, drains its in-flight
   requests to completion (non-daemon handler threads joined on close),
   stops its server and only then exits and frees its device memory — the
-  kernel steers new connections to the successor the whole time, so a
-  roll under load needs ZERO sibling retries (the ``roll_retries`` audit
-  key pins this).  The suspect/retry machinery stays as the
-  UNPLANNED-failure path.
+  router routes around the id from just before the TERM until the
+  predecessor has exited, so no router connection meets the closing
+  listener, and a roll under load needs ZERO sibling retries (the
+  ``roll_retries`` audit key pins this).  The suspect/retry machinery
+  stays as the UNPLANNED-failure path.
 - **Sharded distributed result cache**: the consistent-hash ring owner
   of an affinity key is its cache authority.  A non-owner replica that
   misses its local LRU issues a bounded-deadline ``POST /cache/peek`` to
@@ -105,7 +106,12 @@ Divergences from the reference: the replica takes ``--device`` (default
 ``cuda``, as ``cli/serve.py``) and ``FabricConfig.device`` passes it to
 every replica it spawns; a replica resolves the tuned profile of its own
 device's backend (``utils/config.load_tuned_profile``), not of the
-process's default backend.
+process's default backend.  Two more divergences, both in the drain
+handoff: the router routes around a rolled id for its predecessor's drain
+(the reference keeps it in rotation, and the kernel resets connections
+queued at a closing listener of the group: a roll under load took a
+sibling retry), and a replica polls for its SIGTERM (the reference's
+bare ``wait()`` can sleep through a signal that lands on another thread).
 """
 
 from __future__ import annotations
@@ -999,6 +1005,18 @@ class _Replica:
                 json.dumps({"ok": True, "peers": len(peers)}))
 
 
+def _await_signal(stop: threading.Event) -> None:
+    """Return once a signal handler on the main thread has set ``stop``.
+
+    The kernel may hand a process-directed SIGTERM to any thread, and
+    CPython runs the handler on the main thread only when that thread next
+    runs bytecode: a bare ``stop.wait()`` can sleep through it until the
+    router's grace ends in SIGKILL, resetting whatever the replica had in
+    flight.  Polling runs the handler within 0.1 s."""
+    while not stop.wait(0.1):
+        pass
+
+
 def replica_main(argv: "list[str] | None" = None) -> int:
     """``--replica`` process entry: serve one replica until SIGTERM.
 
@@ -1075,7 +1093,7 @@ def replica_main(argv: "list[str] | None" = None) -> int:
                           "pid": os.getpid(),
                           "generation": rep.generation}), flush=True)
         try:
-            stop.wait()
+            _await_signal(stop)
         finally:
             # graceful: stop accepting (HTTP down), then drain the server
             # — with --reuse-port the exporter BLOCKS here until every
@@ -1118,9 +1136,11 @@ class ServingFabric:
         # ids mid-drain-handoff: the supervisor must NOT respawn a
         # predecessor that dies inside the handoff window (the swap
         # would orphan the respawn — two listeners on one port), but
-        # unlike _restarting the id stays in routing rotation: the
-        # whole point of the handoff is that it never stops serving
+        # unlike _restarting the id stays in routing rotation until its
+        # predecessor's listener closes
         self._handoff_ids: set[int] = set()
+        # router→replica hops in flight, by id (under _lock)
+        self._inflight: collections.Counter = collections.Counter()
         self._down_since: dict[int, float] = {}
         self._ring = _Ring(range(cfg.replicas), cfg.ring_slots)
         self._lock = threading.Lock()  # membership/ports/suspects/audit/stats
@@ -1377,13 +1397,18 @@ class ServingFabric:
                 break
             with self._lock:
                 avoid = self._suspect | self._restarting
-            order = self._ring.route(key, exclude=avoid)
-            # rotate across the HEALTHY candidates (suspects sit at the
-            # back of `order`): a hop that just partitioned must not be
-            # the very next target; with the whole fleet suspect, rotate
-            # over everyone — the supervisor may be respawning them
-            pool = [r for r in order if r not in avoid] or order
-            target = pool[attempt % len(pool)]
+                order = self._ring.route(key, exclude=avoid)
+                # rotate across the HEALTHY candidates (suspects sit at
+                # the back of `order`): a hop that just partitioned must
+                # not be the very next target; with the whole fleet
+                # suspect, rotate over everyone — the supervisor may be
+                # respawning them
+                pool = [r for r in order if r not in avoid] or order
+                target = pool[attempt % len(pool)]
+                # counted under the lock that read `avoid`: once a handoff
+                # has seen no hop in flight to an id it routes around,
+                # none starts (_handoff_replica)
+                self._inflight[target] += 1
             try:
                 # one chaos-hooked hop: net_partition / net_hang / fail
                 # at this site fault the router→replica link
@@ -1426,6 +1451,9 @@ class ServingFabric:
                         self._stats["roll_retries"] += 1
                 time.sleep(self.cfg.retry_pause_s)
                 continue
+            finally:
+                with self._lock:
+                    self._inflight[target] -= 1
             with self._lock:
                 self._audit[rid] += 1
                 self._stats["delivered"] += 1
@@ -1574,10 +1602,11 @@ class ServingFabric:
         its successor into the SAME SO_REUSEPORT listener group FIRST,
         blocking until the successor's deferred handshake (== healthy at
         ≥ G), and only then TERMing the predecessor, which stops
-        accepting and drains its in-flight requests to completion — the
-        kernel steers every new connection to the successor throughout,
-        so the roll needs zero sibling retries and the replica never
-        leaves the routing ring.  Without SO_REUSEPORT (or with
+        accepting and drains its in-flight requests to completion.  The
+        id leaves the routing ring only for that drain, once every hop
+        already sent to its port is answered, so no router connection
+        meets the closing listener and the roll needs zero sibling
+        retries.  Without SO_REUSEPORT (or with
         cfg.handoff off) the retry-carried path runs: TERM → respawn →
         wait-ready, with in-flight queries failing typed (ServerShutdown
         → HTTP 503) and re-dispatching to siblings under their original
@@ -1628,9 +1657,10 @@ class ServingFabric:
             # suppress supervisor respawn for the window: a predecessor
             # SIGKILLed mid-handoff must be REPLACED by the swap below,
             # not raced by a second spawn onto the same port — unlike
-            # _restarting the id stays in routing rotation (the handoff
-            # never stops serving)
+            # _restarting the id stays in routing rotation until the
+            # predecessor drains
             self._handoff_ids.add(i)
+        routed_around = False
         t0 = time.monotonic()
         try:
             obs.emit("fabric_handoff", replica=i, phase="spawn", floor=G)
@@ -1649,14 +1679,25 @@ class ServingFabric:
                     return
                 self._handles[i] = fresh
                 # port unchanged (the anchor pins it) — no ring or fleet
-                # registration churn; the replica never left rotation
+                # registration churn
             self._register_with_fleet(i, int(fresh.ready["port"]))
+            # the kernel spreads the port's connections over both
+            # listeners, and the predecessor's close resets whatever it
+            # has queued: route around the id (no query, no health probe)
+            # from before the TERM until the predecessor has exited, and
+            # TERM only once every hop already sent to the port is answered
+            with self._lock:
+                routed_around = i not in self._restarting
+                self._restarting.add(i)
+            self._await_no_hops(i)
             obs.emit("fabric_handoff", replica=i, phase="drain",
                      pid=old.pid)
             old.terminate(self.cfg.grace_s)  # SIGTERM → drain → exit
         finally:
             with self._lock:
                 self._handoff_ids.discard(i)
+                if routed_around:
+                    self._restarting.discard(i)
         handoff_s = time.monotonic() - t0
         obs.histogram("fabric_handoff_s", handoff_s)
         with self._lock:
@@ -1664,6 +1705,16 @@ class ServingFabric:
         obs.emit("fabric_rolled", replica=i, floor=G, handoff=True,
                  restart_s=round(handoff_s, 3))
         self._push_peers()
+
+    def _await_no_hops(self, i: int) -> None:
+        """Until no router→replica hop to ``i`` is in flight, at most one
+        hop's timeout."""
+        deadline = time.monotonic() + self.cfg.request_timeout_s
+        while time.monotonic() < deadline:
+            with self._lock:
+                if not self._inflight[i]:
+                    return
+            time.sleep(0.005)
 
     def _roll_replica_retry(self, i: int, G: int, timeout: float) -> None:
         """The retry-carried replacement (no SO_REUSEPORT)."""

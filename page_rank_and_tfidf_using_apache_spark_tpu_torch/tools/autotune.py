@@ -32,9 +32,9 @@ package's ``tools/autotune.py``, measured on the card.
    ``utils/config.load_tuned_profile`` / ``tuned_config`` (flag > env >
    profile > TUNABLE_DEFAULTS).
 
-The knob space (``TUNED_KNOBS``, declared in the port's
-``analysis/registry.py``) and the entries' budgets (``ENTRY_BUDGETS``) are
-copies of the JAX package's ``analysis/registry.py`` rows, which
+The knob space (``TUNED_KNOBS``) and the budgets of the entries the prune
+reads (``ENTRY_BUDGETS``, from their ``ENTRY_POINTS`` rows) live in the
+port's ``analysis/registry.py``, with the JAX package's values, which
 ``tests/test_torch_autotune.py`` holds equal to the reference.
 
 Usage::
@@ -58,7 +58,10 @@ import tempfile
 import time
 
 # the knob space: (name, candidate domain, entry points it shapes)
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.analysis.registry import TUNED_KNOBS
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.analysis.registry import (
+    ENTRY_POINTS,
+    TUNED_KNOBS,
+)
 
 # Knob groups: knobs inside one group interact (their product is swept);
 # groups are independent (their winners compose).  Every TUNED_KNOBS name
@@ -100,18 +103,14 @@ CONFIRM_ORDER = "DWWDWDDWWD"
 # on the card, where the packer's host pass costs more than it saves.
 INGEST_DOCS, INGEST_CHUNK_DOCS = 4096, 1024
 
-# The budgets of the entry points the prune reads: copies of the JAX
-# package's analysis/registry.py ENTRY_POINTS rows (pagerank_step_sort_shuffle
-# :1517, pagerank_sharded_hybrid :1586, pagerank_sharded_owned :1611,
-# tfidf_chunk_ingest_carry :1720, tfidf_score_query_batch :1800,
-# tfidf_score_impacted_batch :1826).
+# The entry points whose budgets the prune reads, and those budgets, from
+# their registry rows.
+PRUNED_ENTRIES = ("pagerank_sharded_hybrid", "pagerank_sharded_owned",
+                  "pagerank_step_sort_shuffle", "tfidf_chunk_ingest_carry",
+                  "tfidf_score_query_batch", "tfidf_score_impacted_batch")
 ENTRY_BUDGETS: dict = {
-    "pagerank_sharded_hybrid": {"pad_frac_ceiling": 0.25, "intensity_floor": 0.04},
-    "pagerank_sharded_owned": {"pad_frac_ceiling": 0.30, "intensity_floor": 0.03},
-    "pagerank_step_sort_shuffle": {"pad_frac_ceiling": None, "intensity_floor": 0.05},
-    "tfidf_chunk_ingest_carry": {"pad_frac_ceiling": 0.20, "intensity_floor": 0.25},
-    "tfidf_score_query_batch": {"pad_frac_ceiling": 0.30, "intensity_floor": 0.04},
-    "tfidf_score_impacted_batch": {"pad_frac_ceiling": 0.62, "intensity_floor": 0.03},
+    ep.name: {"pad_frac_ceiling": ep.pad_frac_ceiling, "intensity_floor": ep.intensity_floor}
+    for ep in ENTRY_POINTS if ep.name in PRUNED_ENTRIES
 }
 
 

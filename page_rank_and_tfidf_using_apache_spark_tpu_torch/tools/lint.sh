@@ -8,6 +8,13 @@
 # With none, it runs the whole gate, with the budgets of the JAX package's
 # tools/ci.sh:
 #   - tier 1 (lexical rules);
+#   - tier 2 (the traced steps of the entry points) within
+#     GRAFT_SEMANTIC_BUDGET_S (60 s);
+#   - tier 3 (the cost model and the tuned-profile contract) within
+#     GRAFT_COST_BUDGET_S (30 s: the reference's is 10 s, but the port's
+#     cost pass traces every entry again, some 12 s on one CPU core), its
+#     --cost-report naming every entry with the pagerank_step segment
+#     kernel as one op, its --profile-report every knob;
 #   - tier 4 (concurrency) within GRAFT_CONC_BUDGET_S (10 s), its
 #     --lock-graph DOT naming the serving drain lock;
 #   - tier 5 (persistence) within GRAFT_PERSIST_BUDGET_S (10 s), its
@@ -18,7 +25,8 @@
 #   - the protocol harness (tools/protocol_harness.py) against a fixture
 #     replica on the CPU, within the same protocol budget.
 # Exit 0 = clean; 1 = new findings, a smoke that failed or a blown budget.
-# The tiers are stdlib-only; only the harness imports torch.
+# Tiers 1, 4, 5 and 6 are stdlib-only; tiers 2 and 3 trace with torch on
+# the CPU, and the harness imports torch.
 set -euo pipefail
 cd "$(dirname "$0")/../.."
 PKG=page_rank_and_tfidf_using_apache_spark_tpu_torch
@@ -37,6 +45,34 @@ budget() {  # budget <label> <seconds> <limit>
 
 echo "== tier 1 (lexical) =="
 python -m "$PKG.analysis" --tier 1
+
+echo "== tier 2 (traced steps, budget ${GRAFT_SEMANTIC_BUDGET_S:-60}s) =="
+t0=$(date +%s)
+python -m "$PKG.analysis" --tier 2
+budget "trace tier" $(( $(date +%s) - t0 )) "${GRAFT_SEMANTIC_BUDGET_S:-60}"
+
+echo "== tier 3 (cost model + tuned profiles, budget ${GRAFT_COST_BUDGET_S:-30}s; incl. cost-report smoke) =="
+t0=$(date +%s)
+cost_json=$(python -m "$PKG.analysis" --tier 3 --cost-report --profile-report --json)
+budget "cost tier" $(( $(date +%s) - t0 )) "${GRAFT_COST_BUDGET_S:-30}"
+printf '%s\n' "$cost_json" | python -c '
+import json
+import sys
+
+doc = json.load(sys.stdin)
+assert doc["ok"] is True, doc.get("findings")
+entries = {e["entry"]: e for e in doc["cost_report"]["entries"]}
+assert len(entries) == 26, sorted(entries)
+step = next(iter(entries["pagerank_step"]["variants"].values()))
+assert step["kernels"]["segment"]["nodes"] == 1 and step["flops"] > 0, step
+assert entries["tfidf_chunk_ingest_carry"]["donation"] == {"declared": [3], "written": [3]}
+knobs = doc["profile_report"]["knobs"]
+assert knobs and all(k["tuned"].get("gpu") is not None for k in knobs.values()), knobs
+gate = doc["cost_report"]["intensity_gate"]
+advisories = len(doc.get("advisories", []))
+print(f"cost-report smoke: OK ({len(entries)} entries, intensity gate {gate}, "
+      f"{advisories} advisories; {len(knobs)} knobs tuned for gpu)")
+'
 
 echo "== tier 4 (concurrency, budget ${GRAFT_CONC_BUDGET_S:-10}s; incl. lock-graph smoke) =="
 t0=$(date +%s)

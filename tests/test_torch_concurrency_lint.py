@@ -253,11 +253,15 @@ def launch_rebound(ring, tokens, copied):
 
 def test_donation_contract_of_the_port(repo_run):
     """The port's DONATED_CALLEES names its in-place callees, at the
-    positions their signatures take the overwritten storage; no row names
-    an entry point (the trace-based tiers that declare them are not
-    ported), so the contract validation finds nothing to drift."""
+    positions their signatures take the overwritten storage, and the entry
+    points each serves: every entry declaring a non-empty ``donate`` is
+    served with its argnums, so the contract validation in both
+    directions finds nothing to drift."""
     rows = {leaf: (argnums, ents) for leaf, argnums, ents in registry.DONATED_CALLEES}
-    assert rows == {"chunk_counts_carry": ((3,), ()), "consume": ((0,), ())}
+    assert rows == {"chunk_counts_carry": ((3,), ("tfidf_chunk_ingest_carry",)),
+                    "consume": ((0,), ())}
+    donating = {ep.name: ep.donate for ep in registry.ENTRY_POINTS if ep.donate}
+    assert donating == {"tfidf_chunk_ingest_carry": (3,)}
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.ingest import StagingRing
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import tfidf as ops
 

@@ -11,8 +11,8 @@ partitioned fill that costs nothing.  The reuse-port exporter drains
 in-flight requests, and its listener leaves the group on its serving
 thread.  Then the handoff on real replica processes: a successor spawn
 that fails leaves the predecessor serving, a roll under closed-loop load
-needs zero roll-attributed retries, and the retry-carried roll still
-rolls.
+needs zero roll-attributed retries and TERMs each predecessor with no
+query in flight to it, and the retry-carried roll still rolls.
 """
 
 from __future__ import annotations
@@ -529,6 +529,47 @@ def test_rolling_restart_handoff_zero_roll_retries_under_load(tmp_path):
         with urllib.request.urlopen(f"http://127.0.0.1:{ports_before[0]}/status",
                                     timeout=10) as r:
             assert json.loads(r.read())["pid"] == pids_after[0]
+    finally:
+        fab.stop()
+
+
+@pytest.mark.skipif(not reuse_port_supported(), reason="platform lacks SO_REUSEPORT")
+def test_handoff_terms_the_predecessor_with_no_hop_in_flight(tmp_path, monkeypatch):
+    """The predecessor's listener closes with whatever the kernel queued
+    there: so the router routes around the id from before the TERM until
+    the predecessor has exited, and TERMs it only once no hop to the id is
+    in flight.  The id is back in rotation after the roll."""
+    _seal(tmp_path, _docs())
+    fab = _fab(tmp_path)
+    fab.start()
+    seen = []
+    terminate = fabric.procs.ProcessHandle.terminate
+
+    def spy(handle, *args, **kwargs):
+        ids = [i for i, p in olds.items() if p == handle.pid]
+        if ids:
+            with fab._lock:
+                seen.append((ids[0], ids[0] in fab._restarting, fab._inflight[ids[0]]))
+        return terminate(handle, *args, **kwargs)
+
+    try:
+        olds = {i: h.pid for i, h in fab._handles.items()}
+        monkeypatch.setattr(fabric.procs.ProcessHandle, "terminate", spy)
+        stop = threading.Event()
+
+        def closed_loop():
+            while not stop.is_set():
+                fab.query(["node", "graph"])
+
+        t = threading.Thread(target=closed_loop, daemon=True)
+        t.start()
+        try:
+            fab.rolling_restart(timeout=60.0)
+        finally:
+            stop.set()
+            t.join(10.0)
+        assert sorted(seen) == [(0, True, 0), (1, True, 0)]
+        assert not fab._restarting and fab.audit()["roll_retries"] == 0
     finally:
         fab.stop()
 

@@ -27,6 +27,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import textwrap
 import time
 import urllib.error
 import urllib.request
@@ -590,6 +591,34 @@ def test_replica_process_handshake_query_and_sigterm(tmp_path):
         assert handle.terminate(grace_s=20.0) == 0
     finally:
         handle.kill()
+
+
+def test_replica_wait_runs_a_sigterm_that_lands_on_another_thread():
+    """The kernel may hand a process-directed SIGTERM to any thread.  Sent
+    to a thread blocked in a lock wait, the handler still runs on the main
+    thread, and the replica's wait returns (a bare ``Event.wait()`` sleeps
+    through it: the child would hang)."""
+    child = textwrap.dedent(f"""
+        import signal, threading, time
+        from {MODULE.rsplit('.', 1)[0]} import fabric
+        stop = threading.Event()
+        signal.signal(signal.SIGTERM, lambda *_: stop.set())
+        blocked = threading.Thread(target=threading.Event().wait, daemon=True)
+        blocked.start()
+
+        def send():
+            time.sleep(0.3)
+            signal.pthread_kill(blocked.ident, signal.SIGTERM)
+
+        threading.Thread(target=send, daemon=True).start()
+        t0 = time.monotonic()
+        fabric._await_signal(stop)
+        print(round(time.monotonic() - t0, 3))
+    """)
+    out = subprocess.run([sys.executable, "-c", child], cwd=ROOT, capture_output=True,
+                         text=True, timeout=60)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert float(out.stdout.split()[-1]) < 5.0
 
 
 def test_fleet_of_one_behind_the_router(tmp_path, monkeypatch):

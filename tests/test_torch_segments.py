@@ -177,6 +177,21 @@ def test_artifact_term_offsets_describe_runs(oracle_index):
         assert (term[s:e] == t).all()
 
 
+def test_registry_covers_impacted_entries():
+    """The impacted scorer writes no input, its bucket plan stays under its
+    ceiling, and the segments' merge is registered (the twin of
+    tests/test_segments.py's)."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.analysis.registry import ENTRY_POINTS
+
+    eps = {ep.name: ep for ep in ENTRY_POINTS}
+    imp = eps["tfidf_score_impacted_batch"]
+    assert imp.donate == ()  # must write no input
+    assert imp.pad_plan is not None and imp.pad_frac_ceiling is not None
+    worst = max(frac for _, frac in imp.pad_plan())
+    assert worst <= imp.pad_frac_ceiling
+    assert "tfidf_topk_merge" in eps
+
+
 def test_streaming_built_artifact_is_term_sorted(tmp_path):
     docs = _docs()
     chunks = [docs[i:i + 3] for i in range(0, len(docs), 3)]

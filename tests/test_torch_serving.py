@@ -475,6 +475,18 @@ def test_serve_pad_plan_matches_policy():
     assert frac == pytest.approx((31 - 26) / 31)
 
 
+def test_registry_covers_batched_serve_entry():
+    """The batched scorer's declared shape matrix collapses to the warm
+    set: tier 2's no-new-shape-a-request proof rides on it (the twin of
+    tests/test_serving.py's)."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.analysis import registry, semantic
+
+    ep = {e.name: e for e in registry.ENTRY_POINTS}["tfidf_score_query_batch"]
+    assert ep.max_compiles == len(batch_shape_matrix(registry.SERVE_MAX_BATCH))
+    sigs = semantic.distinct_variants(registry.build_traceable(ep))
+    assert len(sigs) <= ep.max_compiles
+
+
 def test_warmup_runs_full_shape_matrix(oracle_index):
     srv = make_server(oracle_index, top_k=2, max_batch=8)
     try:
