@@ -309,15 +309,29 @@ Phases, each of which exits non-zero on failure:
    ``torch.cuda.set_sync_debug_mode("error")`` wherever the trace counted
    no host read; the modelled bytes and FLOPs a step printed beside the
    step's measured device ms;
+19. the port's CI and chaos gates on the card: (19a) each scenario of
+   ``..._torch/tools/chaos_scenarios.py`` on ``cuda:0`` but the crash
+   harness's (its workers touch no device): the 2-slot mesh of ``cuda:0``
+   losing slot 1 (PageRank sharded, TF-IDF sharded and ``owned`` within
+   1e-6 of the unbroken run, three ``mesh_shrinks`` 2 -> 1, nothing
+   exhausted), the tolerance fixpoint and batched PPR, the staged ingest,
+   the segment hot swap (every request served once), then with the
+   replicas on ``cuda:0`` malformed messages at a faulted fleet, the scrape
+   partition and hang, the cache-peer partition and hang (dropped 0,
+   served twice 0, roll retries 0); (19b) the owned-strategy and segment
+   smokes of ``..._torch/tools/ci_smokes.py`` on the card, within the
+   reference's budgets; each scenario's and smoke's bars and seconds
+   printed, and the kernels' launches over the phase (``segment`` above 0);
 7. one JSON line describing every kernel (with ``workload_launches``, each
-   kernel's launches in 12a-12c, 13a-13c, 14, 15b, 16, 17f-17g, 18b and 18c
-   by workload), then the result line.
+   kernel's launches in 12a-12c, 13a-13c, 14, 15b, 16, 17f-17g, 18b, 18c
+   and 19 by workload), then the result line.
 
 Without a CUDA device, or without the port's package beside it, it exits
 non-zero and prints no result.  ``python3 chip_smoke.py --cards`` on a
 machine with four or more cards runs phase 16 alone with one slot a card,
 16g as one process a card over NCCL; ``python3 chip_smoke.py --fleet``
-runs phase 17 alone and ``python3 chip_smoke.py --analysis`` phase 18.
+runs phase 17 alone, ``python3 chip_smoke.py --analysis`` phase 18 and
+``python3 chip_smoke.py --ci`` phase 19.
 """
 
 from __future__ import annotations
@@ -5319,6 +5333,56 @@ def analysis_phase(graph, reset_counts, counts, card_label: str) -> dict:
     return launched
 
 
+# ------------------------------------------------------------- phase 19
+# the port's CI and chaos gates on the card: every scenario of
+# tools/chaos_scenarios.py but the crash harness's, whose workers touch no
+# device, and the smokes of tools/ci_smokes.py that run a device path
+
+CI_SCENARIOS = ("device_lost", "fixpoint", "ingest_h2d", "segment_swap", "malformed",
+                "fed_scrape", "cache_peer")
+CI_SMOKES = ("owned", "segment")
+
+
+def ci_phase(reset_counts, counts, card_label: str) -> dict:
+    """19a: each scenario of ``CI_SCENARIOS`` on ``cuda:0`` (mesh slots of
+    the card, replicas on the card), holding the reference's bars (the
+    scenario asserts them) and printing its records and seconds.  19b: the
+    ``CI_SMOKES`` on the card within the reference's budgets.  Returns the
+    kernels' launches over the phase; the sharded runners' segmented sums
+    launch ``segment``."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import chaos_scenarios as cs
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import ci_smokes
+
+    reset_counts()
+    secs = {}
+    for name in CI_SCENARIOS:
+        t0 = time.perf_counter()
+        try:
+            rep = cs.SCENARIOS[name]("cuda:0")
+        except AssertionError as exc:  # a bar the scenario holds
+            raise RuntimeError(f"chip_smoke check failed: 19a {name}: {exc}") from exc
+        secs[name] = time.perf_counter() - t0
+        held = {k: rep[k] for k in ("mesh_shrinks", "exhausted", "degraded", "audit",
+                                    "max_abs_err", "blocking_s", "typed_rejections",
+                                    "requests") if k in rep}
+        print(f"19a {name} ({card_label}): {rep['line']}; {held}; {secs[name]:.2f} s")
+    for name in CI_SMOKES:
+        t0 = time.perf_counter()
+        try:
+            rep = ci_smokes.SMOKES[name]("cuda:0")
+        except AssertionError as exc:  # a bar the scenario holds
+            raise RuntimeError(f"chip_smoke check failed: 19b {name}: {exc}") from exc
+        secs[name] = time.perf_counter() - t0
+        print(f"19b {name} smoke ({card_label}): {rep['line']}; {secs[name]:.2f} s of its "
+              f"{rep['budget_s']:g} s budget")
+    launched = counts()
+    check(launched.get("segment", 0) > 0, f"19: the sharded runners launched no segment: "
+          f"{launched}")
+    print(f"19 ci: {len(CI_SCENARIOS)} scenarios and {len(CI_SMOKES)} smokes held in "
+          f"{sum(secs.values()):.1f} s; kernel launches {launched}")
+    return launched
+
+
 def analysis_main() -> int:
     """``--analysis``: phase 18 alone (the kernels built first and the
     stand-in graph generated, for 18c), a result line at the end."""
@@ -5346,6 +5410,35 @@ def analysis_main() -> int:
     launched = analysis_phase(graph, reset_counts, counts,
                               f"{smi['device']}, {smi['power_limit']}")
     print(f"phase 18 (analysis): {time.perf_counter() - t0:.1f} s; launches {launched}")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def ci_main() -> int:
+    """``--ci``: phase 19 alone (the kernels built first), a result line at
+    the end."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import gather_kernels as gk
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pallas_kernels as pk
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import segment_kernels as sk
+
+    def reset_counts() -> None:
+        pk.reset_launches()
+        gk.reset_launches()
+        sk.reset_launches()
+
+    def counts() -> dict:
+        return {**pk.LAUNCHES, **gk.LAUNCHES, **sk.LAUNCHES}
+
+    smi = card()
+    print(f"{smi['device']}, {smi['power_limit']}")
+    t0 = time.perf_counter()
+    _build.build(force=True)
+    print(f"build: {time.perf_counter() - t0:.2f} s wall")
+    t0 = time.perf_counter()
+    launched = ci_phase(reset_counts, counts, f"{smi['device']}, {smi['power_limit']}")
+    print(f"phase 19 (ci): {time.perf_counter() - t0:.1f} s; launches {launched}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -5846,6 +5939,12 @@ def main() -> int:
     workload_launches["analysis"] = analysis_phase(graph, reset_counts, counts, card_label)
     print(f"phase 18 (analysis): {time.perf_counter() - t0:.1f} s")
 
+    # 19. the port's CI and chaos gates: the chaos scenarios on cuda:0 (a
+    # mesh of the card's slots, replicas on the card) and the device smokes
+    t0 = time.perf_counter()
+    workload_launches["ci"] = ci_phase(reset_counts, counts, card_label)
+    print(f"phase 19 (ci): {time.perf_counter() - t0:.1f} s")
+
     # 7. the kernels line, then the result line; launches are those of the
     # kernel's own path: cumsum's from the hybrid run (its tail's prefix
     # sum), segment's from the segment run
@@ -5871,8 +5970,8 @@ def main() -> int:
     # card's launches before each loss, and 14b's), phase 15b's (one run
     # of each layout and dtype), phase 16's (16b's float32 runs, 16c's
     # shrinking runs, 16e's runs, 16g's processes' runs), phase 17's (17f,
-    # 17g) and phase 18's (18b's harness, 18c's one real step an entry), by
-    # workload
+    # 17g), phase 18's (18b's harness, 18c's one real step an entry) and
+    # phase 19's (19a's scenarios, 19b's smokes), by workload
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": n, **main_rows[name],
@@ -5888,7 +5987,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    ALONE = {"--cards": cards_main, "--fleet": fleet_main, "--analysis": analysis_main}
+    ALONE = {"--cards": cards_main, "--fleet": fleet_main, "--analysis": analysis_main,
+             "--ci": ci_main}
     if len(sys.argv) == 2 and sys.argv[1] in ALONE:
         if not torch.cuda.is_available():
             print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)

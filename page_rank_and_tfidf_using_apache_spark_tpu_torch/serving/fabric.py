@@ -1395,20 +1395,7 @@ class ServingFabric:
         for attempt in range(self.cfg.retry_limit):
             if deadline is not None and time.monotonic() > deadline:
                 break
-            with self._lock:
-                avoid = self._suspect | self._restarting
-                order = self._ring.route(key, exclude=avoid)
-                # rotate across the HEALTHY candidates (suspects sit at
-                # the back of `order`): a hop that just partitioned must
-                # not be the very next target; with the whole fleet
-                # suspect, rotate over everyone — the supervisor may be
-                # respawning them
-                pool = [r for r in order if r not in avoid] or order
-                target = pool[attempt % len(pool)]
-                # counted under the lock that read `avoid`: once a handoff
-                # has seen no hop in flight to an id it routes around,
-                # none starts (_handoff_replica)
-                self._inflight[target] += 1
+            target = self._pick_target(key, attempt)
             try:
                 # one chaos-hooked hop: net_partition / net_hang / fail
                 # at this site fault the router→replica link
@@ -1466,6 +1453,34 @@ class ServingFabric:
             f"query {rid} undeliverable after {self.cfg.retry_limit} "
             f"attempts (last: {last_err})"
         )
+
+    def _pick_target(self, key: str, attempt: int) -> int:
+        """The replica a query's ``attempt`` goes to, its hop counted in
+        flight.  Where every candidate is an id routed around for its
+        handoff predecessor's drain (a one-replica fleet mid-roll), wait
+        for the drain instead of sending into the closing listener, at
+        most one hop's timeout and the TERM's grace."""
+        hold_until = time.monotonic() + self.cfg.request_timeout_s + self.cfg.grace_s
+        while True:
+            with self._lock:
+                avoid = self._suspect | self._restarting
+                order = self._ring.route(key, exclude=avoid)
+                # rotate across the HEALTHY candidates (suspects sit at
+                # the back of `order`): a hop that just partitioned must
+                # not be the very next target; with the whole fleet
+                # suspect, rotate over everyone — the supervisor may be
+                # respawning them
+                pool = [r for r in order if r not in avoid] or order
+                draining = self._restarting & self._handoff_ids
+                held = bool(pool) and set(pool) <= draining
+                if not held or time.monotonic() >= hold_until:
+                    target = pool[attempt % len(pool)]
+                    # counted under the lock that read `avoid`: once a
+                    # handoff has seen no hop in flight to an id it routes
+                    # around, none starts (_handoff_replica)
+                    self._inflight[target] += 1
+                    return target
+            time.sleep(0.005)
 
     def _mark_suspect(self, i: int, why: str) -> None:
         with self._lock:

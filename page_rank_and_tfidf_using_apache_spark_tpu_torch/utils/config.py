@@ -231,6 +231,18 @@ THREAD_REGISTRY: tuple = (
      # owner write-back drain: breaker + peer tallies under the replica's
      # peer lock, never the serving hot path's _lock
      ("_Replica._peer_lock",)),
+    # the chaos gate's clients against a segmented server (the abandoned-
+    # future audit reads their records after the join)
+    ("chaos-client-*",
+     "page_rank_and_tfidf_using_apache_spark_tpu_torch/tools/chaos_scenarios.py", ()),
+    # the CI drain smoke: the roll under test and its closed-loop load
+    ("ci-roll", "page_rank_and_tfidf_using_apache_spark_tpu_torch/tools/ci_smokes.py",
+     # rolling_restart swaps handles and the floor under the router's lock
+     ("page_rank_and_tfidf_using_apache_spark_tpu_torch/serving/fabric.py::"
+      "ServingFabric._lock",)),
+    ("ci-load", "page_rank_and_tfidf_using_apache_spark_tpu_torch/tools/ci_smokes.py",
+     ("page_rank_and_tfidf_using_apache_spark_tpu_torch/serving/fabric.py::"
+      "ServingFabric._lock",)),
     # chip_smoke.py's load generators: closed-loop clients against a server
     # or the router (their result lists under the loop's own ``lock``),
     # and the samplers beside them

@@ -574,6 +574,63 @@ def test_handoff_terms_the_predecessor_with_no_hop_in_flight(tmp_path, monkeypat
         fab.stop()
 
 
+@pytest.mark.skipif(not reuse_port_supported(), reason="platform lacks SO_REUSEPORT")
+def test_handoff_of_the_only_replica_holds_queries_for_the_drain(tmp_path, monkeypatch):
+    """A one-replica fleet has no sibling to route around to: while its id
+    is routed around for the predecessor's drain, queries wait for the
+    drain instead of keeping a hop in flight, so the predecessor is TERMed
+    with none in flight at once, not after a hop's timeout (10 s), and
+    nothing is retried."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
+
+    _seal(tmp_path, _docs())
+    fab = _fab(tmp_path, replicas=1)
+    fab.start()
+    seen = []
+    terminate = fabric.procs.ProcessHandle.terminate
+
+    def spy(handle, *args, **kwargs):
+        if handle.pid == old_pid:
+            with fab._lock:
+                seen.append((0 in fab._restarting, fab._inflight[0]))
+        return terminate(handle, *args, **kwargs)
+
+    sink = obs.MemorySink()
+    obs.bus().attach(sink)
+    try:
+        old_pid = fab._handles[0].pid
+        monkeypatch.setattr(fabric.procs.ProcessHandle, "terminate", spy)
+        stop = threading.Event()
+        served = [0]
+
+        def closed_loop():
+            while not stop.is_set():
+                fab.query(["node", "graph"])
+                served[0] += 1
+
+        t = threading.Thread(target=closed_loop, daemon=True)
+        t.start()
+        try:
+            fab.rolling_restart(timeout=60.0)
+            n = served[0]
+            deadline = time.monotonic() + 10.0
+            while served[0] == n and time.monotonic() < deadline:
+                time.sleep(0.01)  # the held queries are served after the roll
+        finally:
+            stop.set()
+            t.join(10.0)
+        phases = {e["phase"]: e["t"] for e in sink.of_kind("fabric_handoff")}
+        assert seen == [(True, 0)]
+        assert phases["drain"] - phases["successor_ready"] < fab.cfg.request_timeout_s / 2
+        assert served[0] > n and not fab._restarting
+        audit = fab.audit()
+        assert audit["roll_retries"] == 0 and audit["rolled"] == 1
+        assert audit["dropped"] == 0 and audit["double_served"] == 0
+    finally:
+        obs.bus().detach(sink)
+        fab.stop()
+
+
 @pytest.mark.slow
 @pytest.mark.skipif(not reuse_port_supported(), reason="platform lacks SO_REUSEPORT")
 def test_handoff_rolls_under_sixteen_clients_reset_nothing(tmp_path):

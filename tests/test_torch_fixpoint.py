@@ -23,6 +23,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu import obs as jobs
 from page_rank_and_tfidf_using_apache_spark_tpu.cli import pagerank as jcli
 from page_rank_and_tfidf_using_apache_spark_tpu.io import graph as jg
 from page_rank_and_tfidf_using_apache_spark_tpu.models.pagerank import run_pagerank as jrun
+from page_rank_and_tfidf_using_apache_spark_tpu.resilience import chaos as jchaos
 from page_rank_and_tfidf_using_apache_spark_tpu.utils import config as jcfg
 from page_rank_and_tfidf_using_apache_spark_tpu.utils.metrics import MetricsRecorder as JMetrics
 from page_rank_and_tfidf_using_apache_spark_tpu_torch import ResilienceExhausted, obs
@@ -236,10 +237,13 @@ def test_records_and_spans_match_reference_names(tmp_path):
     jobs.bus().attach(jsink)
     try:
         m, jm = MetricsRecorder(), JMetrics()
-        trun(g, tcfg.PageRankConfig(**kw, checkpoint_dir=str(tmp_path / "t")), metrics=m,
-             device="cpu")
-        jrun(jg.synthetic_powerlaw(120, 600, seed=11),
-             jcfg.PageRankConfig(**kw, checkpoint_dir=str(tmp_path / "j")), metrics=jm)
+        # unfaulted runs in both packages: each package counts an env plan's
+        # calls on its own, so a GRAFT_CHAOS plan would fault different calls
+        with tchaos.inject(""), jchaos.inject(""):
+            trun(g, tcfg.PageRankConfig(**kw, checkpoint_dir=str(tmp_path / "t")), metrics=m,
+                 device="cpu")
+            jrun(jg.synthetic_powerlaw(120, 600, seed=11),
+                 jcfg.PageRankConfig(**kw, checkpoint_dir=str(tmp_path / "j")), metrics=jm)
     finally:
         obs.bus().detach(sink)
         jobs.bus().detach(jsink)

@@ -22,6 +22,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu.cli import pagerank as jcli
 from page_rank_and_tfidf_using_apache_spark_tpu.cli import tfidf as jtcli
 from page_rank_and_tfidf_using_apache_spark_tpu.obs.federation import FleetHub as JFleetHub
 from page_rank_and_tfidf_using_apache_spark_tpu.obs.metrics import MetricsHub as JMetricsHub
+from page_rank_and_tfidf_using_apache_spark_tpu.resilience import chaos as jchaos
 from page_rank_and_tfidf_using_apache_spark_tpu.utils import metrics as jmetrics
 from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.cli import pagerank as tcli
@@ -29,6 +30,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.cli import tfidf as ttcli
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.obs import manifest
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.obs.federation import FleetHub
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.obs.metrics import MetricsHub
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import metrics as tmetrics
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import profiling
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import GRAFT_ENV_KNOBS
@@ -239,22 +241,26 @@ def test_federation_scrape_matches_reference():
             raise OSError(f"replica {r} unreachable")
         return json.loads(json.dumps(hubs[r].snapshot()))
 
-    fleets = [cls(scrape_s=1.0, clock=clk, fetch=fetch, **HUB_ARGS) for cls in (FleetHub,
-                                                                                JFleetHub)]
-    for fleet in fleets:
-        for r in hubs:
-            fleet.register(r, f"http://stub/{r}")
-        assert fleet.scrape_once() == {"0": True, "1": True}
-    port, ref = (_board(f) for f in fleets)
-    assert port == ref
-    assert port["counters"]["serve.requests"]["total"] == 11
-    alive["1"] = False
-    for _ in range(4):
-        clk.t += 1.0
+    # each scrape is a guarded fed_scrape call, and each package counts an
+    # env plan's calls on its own: shadow GRAFT_CHAOS in both, so neither
+    # board takes an injected fault the other does not
+    with chaos.inject(""), jchaos.inject(""):
+        fleets = [cls(scrape_s=1.0, clock=clk, fetch=fetch, **HUB_ARGS)
+                  for cls in (FleetHub, JFleetHub)]
         for fleet in fleets:
-            assert fleet.scrape_once() == {"0": True, "1": False}
-    port, ref = (_board(f) for f in fleets)
-    assert port == ref and port["fleet"]["stale"] == ["1"]
+            for r in hubs:
+                fleet.register(r, f"http://stub/{r}")
+            assert fleet.scrape_once() == {"0": True, "1": True}
+        port, ref = (_board(f) for f in fleets)
+        assert port == ref
+        assert port["counters"]["serve.requests"]["total"] == 11
+        alive["1"] = False
+        for _ in range(4):
+            clk.t += 1.0
+            for fleet in fleets:
+                assert fleet.scrape_once() == {"0": True, "1": False}
+        port, ref = (_board(f) for f in fleets)
+        assert port == ref and port["fleet"]["stale"] == ["1"]
     assert isinstance(MetricsHub(**HUB_ARGS).snapshot()["mergeable"], dict)
 
 

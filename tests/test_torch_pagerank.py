@@ -180,7 +180,8 @@ def test_run_records_metrics_and_writes_checkpoints(tmp_path):
     res = pagerank(g, iterations=3, spmv_impl="hybrid", device="cpu")
     events = [r.get("event") for r in res.metrics.records]
     assert "put_graph" in events
-    assert res.metrics.records[-1]["iter"] == 3
+    # the last segment record, by kind: a retry record may follow it
+    assert [r for r in res.metrics.records if "iter" in r and "l1_delta" in r][-1]["iter"] == 3
     assert res.metrics.scalars == {"iterations": 3, "l1_delta": res.l1_delta}
     ck = pagerank(g, iterations=5, checkpoint_every=2, checkpoint_dir=str(tmp_path),
                   device="cpu")

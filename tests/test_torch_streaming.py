@@ -23,11 +23,13 @@ import torch
 from page_rank_and_tfidf_using_apache_spark_tpu import obs as jobs
 from page_rank_and_tfidf_using_apache_spark_tpu.models import tfidf as jm
 from page_rank_and_tfidf_using_apache_spark_tpu.ops import tfidf as jops
+from page_rank_and_tfidf_using_apache_spark_tpu.resilience import chaos as jchaos
 from page_rank_and_tfidf_using_apache_spark_tpu.utils import config as jcfg
 from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs, tfidf
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io import text as tt
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.models import tfidf as tm
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import tfidf as tops
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder
 from tests.test_torch_tfidf import check_float, ill_rows, ill_terms, oracle, within
@@ -271,10 +273,14 @@ def test_metrics_and_spans_match_reference_names(tmp_path):
     jobs.bus().attach(jsink)
     try:
         m, jmr = MetricsRecorder(), jm.MetricsRecorder()
-        with obs.run("ingesttrace", trace_dir=str(tmp_path)):
-            tm.run_tfidf_streaming(iter(chunks_of(4)), tcfg.TfidfConfig(vocab_bits=10),
-                                   metrics=m, device="cpu")
-        jm.run_tfidf_streaming(iter(chunks_of(4)), jcfg.TfidfConfig(vocab_bits=10), metrics=jmr)
+        # unfaulted runs in both packages: each package counts an env plan's
+        # calls on its own, so a GRAFT_CHAOS plan would fault different calls
+        with chaos.inject(""), jchaos.inject(""):
+            with obs.run("ingesttrace", trace_dir=str(tmp_path)):
+                tm.run_tfidf_streaming(iter(chunks_of(4)), tcfg.TfidfConfig(vocab_bits=10),
+                                       metrics=m, device="cpu")
+            jm.run_tfidf_streaming(iter(chunks_of(4)), jcfg.TfidfConfig(vocab_bits=10),
+                                   metrics=jmr)
     finally:
         obs.bus().detach(sink)
         jobs.bus().detach(jsink)

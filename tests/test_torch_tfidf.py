@@ -35,6 +35,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu.io import graph as jg
 from page_rank_and_tfidf_using_apache_spark_tpu.io import text as jt
 from page_rank_and_tfidf_using_apache_spark_tpu.models import tfidf as jm
 from page_rank_and_tfidf_using_apache_spark_tpu.ops import tfidf as jops
+from page_rank_and_tfidf_using_apache_spark_tpu.resilience import chaos as jchaos
 from page_rank_and_tfidf_using_apache_spark_tpu.utils import config as jcfg
 from page_rank_and_tfidf_using_apache_spark_tpu.utils import native as jnative
 from page_rank_and_tfidf_using_apache_spark_tpu_torch import TfidfConfig, convert, tfidf
@@ -43,6 +44,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.io import graph as tg
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io import text as tt
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.models import tfidf as tm
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import tfidf as tops
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import native
 from tests import test_tfidf_oracle as sk
@@ -402,8 +404,11 @@ def test_cli_matches_reference_cli(flags, tmp_path, capsys):
     for name, main, extra in (("port", tcli.main, ["--device", "cpu"]),
                               ("jax", jcli.main, ["--tuned-profile", "off"])):
         out = tmp_path / f"{name}.tsv"
-        assert main([str(TINY), "--lines", "--output", str(out),
-                     "--metrics-json", str(tmp_path / f"{name}.json"), *flags, *extra]) == 0
+        # unfaulted runs in both packages: each package counts an env plan's
+        # calls on its own, so a GRAFT_CHAOS plan would fault different calls
+        with chaos.inject(""), jchaos.inject(""):
+            assert main([str(TINY), "--lines", "--output", str(out),
+                         "--metrics-json", str(tmp_path / f"{name}.json"), *flags, *extra]) == 0
         cap = capsys.readouterr()
         outs[name] = read_weights(out)
         printed[name] = ([ln.split("\t") for ln in cap.out.splitlines()],
