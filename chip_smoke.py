@@ -104,7 +104,7 @@ Phases, each of which exits non-zero on failure:
 11. serving, which reaches no kernel but the prior's: (11a) the config-2
    stand-in's index (counts, BM25, a prior from ``run_pagerank``
    ``segment``, whose launches are counted) served by ``TfidfServer`` at
-   every batch cap, COO and impacted, for every ranker, 4,096 corpus
+   every batch cap, COO and impacted, for every ranker, 2,048 corpus
    queries: impacted equal to COO, every cap to cap 8, two runs equal,
    served equal to the one-shot ``score_query``, the CPU's bits, all bit
    for bit, and the float64 oracle's top-10 (scores within 2e-6, ids
@@ -156,7 +156,7 @@ Phases, each of which exits non-zero on failure:
    stand-in, pipelined, under faults at ``tfidf_chunk_sync``,
    ``ingest_h2d_put``, ``ingest_h2d_wait`` and ``tfidf_df_commit``: equal
    to batch bit for bit, and a source that dies at chunk 5 raises once,
-   unretried; (13e) phase 11b's index, 4,096 queries under
+   unretried; (13e) phase 11b's index, 2,048 queries under
    ``serve_dispatch:fail@%5;serve_pull:fail@7``: every answer equal to the
    unfaulted server's, no request failed; ``merge_once`` over 11c's four
    segments under ``segment_merge:fail@1`` equal to the unfaulted merge;
@@ -259,7 +259,7 @@ Phases, each of which exits non-zero on failure:
    seconds, each replica pid holding the card's device file and its used
    memory before and after (``nvidia-smi`` cannot map the card's processes
    to pids inside a PID namespace; its compute-apps line is printed as it
-   is); (17b) phase 11's query generator's 4,096 queries over that corpus
+   is); (17b) phase 11's query generator's 2,048 queries over that corpus
    through the router from four closed-loop clients, every answer within
    11c's bar of an in-process ``TfidfServer`` over the same segments
    (bit-equal answers counted), queries/s, p50/p99, each replica's share
@@ -275,7 +275,8 @@ Phases, each of which exits non-zero on failure:
    replicas on the card: ``cache_peek``/``cache_fill`` partitioned trip the
    breaker, which half-opens and closes once healed; under a 2 s
    ``cache_peek`` hang the p99 stays within the peek deadline of the clean
-   p99; (17d) ``rolling_restart`` with handoff under four clients: no query
+   p99, both passes timed with the cycle collector held off, as ``timeit``
+   times; (17d) ``rolling_restart`` with handoff under four clients: no query
    fails, roll retries 0, the floor at the fleet's generation, the ports
    kept, at most three replica processes on the card; a floor committed
    above the generation: a replica restarted then and the fleet answer
@@ -322,24 +323,52 @@ Phases, each of which exits non-zero on failure:
    smokes of ``..._torch/tools/ci_smokes.py`` on the card, within the
    reference's budgets; each scenario's and smoke's bars and seconds
    printed, and the kernels' launches over the phase (``segment`` above 0);
+20. the reference's last drivers on the card: (20a)
+   ``..._torch/tools/dryrun.dryrun_multichip(4)`` (4 slots of ``cuda:0``, or
+   one slot a card where four are visible): every strategy on the tiny
+   graph and the sharded TF-IDF, then the owned-scale sweep at the
+   reference's defaults (Zipf graphs of 875,000, 3,500,000 and 8,750,000
+   nodes at 5.83 edges a node, built by the sweep's generator in one
+   process started after phase 1, while the phases between run): each
+   point's float64 ``owned`` within 1e-9 L1 of one device, its float32
+   bits against one device printed, the comm-bytes exponent below 1, the
+   top scale's replicated state past half of 256 MiB and
+   ``auto_select_strategy`` -> ``owned``, each point's record
+   (build, partition and put seconds, iterations/s, the rank sum,
+   ``max_memory_allocated``) printed; (20b)
+   ``..._torch/tools/streaming_rehearsal.py`` at its defaults (1,000,000
+   documents, bigrams, a checkpoint every 32 chunks) as its own process:
+   ``n_docs``, ``n_tokens`` equal to the generator's corpus counted on the
+   host, 3 checkpoints over 123 chunks, the 1/8-scale serial and pipelined
+   runs equal bit for bit, tokens/s, ingest and finalize seconds, peak RSS
+   and the pipeline speedup printed; (20c) ``examples/torch_pagerank_example.py``,
+   ``torch_tfidf_example.py`` and ``torch_multichip_example.py`` as
+   processes on the card, each exiting 0, the multichip example's L1
+   against one device at most 1e-9 for every strategy; the kernels'
+   launches over 20a and 20b (``segment``, and ``rowsum`` under
+   ``hybrid``);
 7. one JSON line describing every kernel (with ``workload_launches``, each
-   kernel's launches in 12a-12c, 13a-13c, 14, 15b, 16, 17f-17g, 18b, 18c
-   and 19 by workload), then the result line.
+   kernel's launches in 12a-12c, 13a-13c, 14, 15b, 16, 17f-17g, 18b, 18c,
+   19 and 20 by workload), then the result line.
 
 Without a CUDA device, or without the port's package beside it, it exits
 non-zero and prints no result.  ``python3 chip_smoke.py --cards`` on a
 machine with four or more cards runs phase 16 alone with one slot a card,
 16g as one process a card over NCCL; ``python3 chip_smoke.py --fleet``
-runs phase 17 alone, ``python3 chip_smoke.py --analysis`` phase 18 and
-``python3 chip_smoke.py --ci`` phase 19.
+runs phase 17 alone, ``python3 chip_smoke.py --analysis`` phase 18,
+``python3 chip_smoke.py --ci`` phase 19 and ``python3 chip_smoke.py
+--drivers`` phase 20.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import ctypes
 import json
 import os
+import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1703,7 +1732,9 @@ def index_phase(device, docs, knobs: dict, chunk_docs: int, card_label: str) -> 
 # tfidf scores within SEGMENT_ATOL (the JAX package's bar, cosine-scale
 # scores under smooth/L2), BM25 within SEGMENT_RTOL: the host re-weighting
 # rounds its float32 formula in another order than the device's.
-SERVE_QUERIES, SERVE_CAP_QUERIES, SERVE_CPU_QUERIES, SERVE_SEED = 4096, 512, 256, 13
+# 2,048 queries keep the whole script, phase 20 included, inside its time
+# limit.
+SERVE_QUERIES, SERVE_CAP_QUERIES, SERVE_CPU_QUERIES, SERVE_SEED = 2048, 512, 256, 13
 SERVE_RTOL, PRIOR_ALPHA, SERVE_CAPS = 2e-6, 0.5, (8, 4, 2, 1)
 PRIOR_NODES, PRIOR_EDGES = 19_000, 110_000
 SEGMENTS, SEGMENT_QUERIES, SEGMENT_ATOL, SEGMENT_RTOL = 4, 512, 1e-5, 1e-5
@@ -4658,7 +4689,13 @@ def peer_pair_phase(seg_dir: str, queries: list, card_label: str) -> None:
     they are injected here, in this one): a partitioned peek trips the
     owner's breaker, which half-opens and closes once the partition heals;
     under a hung peek the non-owner's p99 stays within the peek deadline of
-    its p99 with no fault."""
+    its p99 with no fault.  The passes are timed with the cycle collector
+    held off, as ``timeit`` times: the hung pass's abandoned peeks leave
+    cycles, and a full collection of this script's heap, grown over the
+    earlier phases, is a pause of the script, not of the peek path (its
+    length here is printed)."""
+    import gc
+
     from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.obs.export import MetricsExporter
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.obs.metrics import MetricsHub
@@ -4677,8 +4714,13 @@ def peer_pair_phase(seg_dir: str, queries: list, card_label: str) -> None:
         ("POST", "/cache/peek"): r.handle_cache_peek,
         ("POST", "/cache/fill"): r.handle_cache_fill,
         ("POST", "/peers"): r.handle_peers}, ready=r.ready).start() for r in reps]
+    gc_on = gc.isenabled()
     try:
         check(all(r.ready() for r in reps), "in-process replicas not ready")
+        t0 = time.perf_counter()
+        gc.collect()
+        full_gc_ms = (time.perf_counter() - t0) * 1e3
+        gc.disable()
         for r in reps:
             r.configure_peers({i: e.port for i, e in enumerate(exporters)})
         a, b = reps
@@ -4748,8 +4790,11 @@ def peer_pair_phase(seg_dir: str, queries: list, card_label: str) -> None:
               f"half-open probe closed it ({transitions} transitions); under "
               f"cache_peek:net_hang (2 s) p99 {hang_p99:.2f} ms, max "
               f"{max(x[1] for x in hung) * 1e3:.2f} ms, deadline {deadline_s * 1e3:.0f} ms, "
-              f"peek timeouts {b._peer_stats['peek_timeouts']}")
+              f"peek timeouts {b._peer_stats['peek_timeouts']}; collector held off (a full "
+              f"collection of this script's heap: {full_gc_ms:.1f} ms)")
     finally:
+        if gc_on:
+            gc.enable()
         obs.bus().detach(sink)
         for e in exporters:
             e.stop()
@@ -5383,6 +5428,197 @@ def ci_phase(reset_counts, counts, card_label: str) -> dict:
     return launched
 
 
+# Phase 20: the reference's dry run on 4 slots with its full owned-scale
+# sweep at its own knobs' defaults, the 1,000,000-document rehearsal at the
+# tool's defaults, and the port's three examples.
+DRYRUN_SLOTS = 4
+SWEEP_KNOBS = {"BENCH_OWNED_SCALES": "1,4,10", "BENCH_OWNED_BASE_NODES": "875000",
+               "BENCH_OWNED_AVG_DEG": "5.83", "BENCH_OWNED_HBM_BYTES": str(256 << 20)}
+EXAMPLES = ("torch_pagerank_example.py", "torch_tfidf_example.py",
+            "torch_multichip_example.py")
+EXAMPLE_L1 = 1e-9
+REHEARSAL_MODULE = "page_rank_and_tfidf_using_apache_spark_tpu_torch.tools.streaming_rehearsal"
+# 20a's graphs are built by one process started ahead of the phase (the
+# host's Zipf build at 10x takes minutes; the sweep's own generator, each
+# graph pickled with its build seconds as it completes), at the lowest
+# priority, so the phases it overlaps keep their cores
+SWEEP_BUILDER = """
+import os, pickle, sys, time
+os.nice(19)
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import dryrun
+for _, n, e in dryrun.sweep_points():
+    t0 = time.perf_counter()
+    g = dryrun.sweep_graph(n, e)
+    path = os.path.join(sys.argv[1], f"{n}_{e}.pkl")
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump((g, time.perf_counter() - t0), f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(path + ".tmp", path)
+"""
+SWEEP_BUILD_DEADLINE_S = 1200.0
+
+
+class SweepGraphs:
+    """The owned-scale sweep's graphs, built in one background process
+    (``SWEEP_BUILDER``, under ``SWEEP_KNOBS``) while the earlier phases run,
+    each handed to 20a with its build seconds.  The process and its
+    directory go at exit."""
+
+    def __init__(self) -> None:
+        self.dir = tempfile.mkdtemp(prefix="sweep_graphs_")
+        self.started = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-c", SWEEP_BUILDER, self.dir], cwd=ROOT,
+                                     env={**os.environ, **SWEEP_KNOBS})
+        atexit.register(self.stop)
+
+    def graph_at(self, n: int, e: int) -> tuple:
+        """``(graph, build seconds)`` of one point, waiting for its build."""
+        path = os.path.join(self.dir, f"{n}_{e}.pkl")
+        while not os.path.exists(path):
+            done = self.proc.poll() is not None
+            check(not (done and not os.path.exists(path)),
+                  f"20a: the graph builder exited {self.proc.returncode} before n={n}")
+            check(time.perf_counter() - self.started < SWEEP_BUILD_DEADLINE_S,
+                  f"20a: n={n} not built within {SWEEP_BUILD_DEADLINE_S:g} s")
+            time.sleep(0.5)
+        with open(path, "rb") as f:
+            g, secs = pickle.load(f)
+        os.remove(path)
+        return g, secs
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def dryrun_phase(card_label: str, graphs: SweepGraphs) -> None:
+    """20a: ``tools/dryrun.dryrun_multichip(4)`` on the card (4 slots of
+    cuda:0 on one card, one slot a card on four) with the 1x/4x/10x sweep
+    over ``graphs``' builds:
+    every strategy and the sharded TF-IDF finite, each point's float64
+    ``owned`` within 1e-9 L1 of one device, the comm-bytes exponent below 1,
+    ``auto_select_strategy`` -> ``owned`` at 10x (the tool raises where one
+    does not hold); each point's record printed, float32's bits against one
+    device among it."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import chaos_scenarios as cs
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import dryrun
+
+    t0 = time.perf_counter()
+    with cs.env(**SWEEP_KNOBS):
+        try:
+            rec = dryrun.dryrun_multichip(DRYRUN_SLOTS, graph_at=graphs.graph_at)
+        except AssertionError as exc:  # a bar the dry run holds
+            raise RuntimeError(f"chip_smoke check failed: 20a: {exc}") from exc
+    sweep = rec["owned_scale"]
+    check(sweep is not None and [p["scale"] for p in sweep["points"]] == [1.0, 4.0, 10.0],
+          f"20a: the sweep ran {sweep and [p['scale'] for p in sweep['points']]}")
+    check(sweep["auto_select"] == "owned" and sweep["comm_bytes_exponent"] < 1.0,
+          f"20a: {sweep}")
+    for p in sweep["points"]:
+        print(f"20a owned-scale point ({card_label}; {rec['layout']}): {json.dumps(p)}")
+    print(f"20a dry run ({card_label}; {rec['layout']}): 7 strategies and sharded TF-IDF "
+          f"(nnz {rec['tfidf']['nnz']}) ok; comm-bytes exponent "
+          f"{sweep['comm_bytes_exponent']:.3f}, top scale replicated state "
+          f"{sweep['top_replicated_state_bytes']} B against half of "
+          f"{sweep['budget_bytes']} B, auto_select -> {sweep['auto_select']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def rehearsal_phase(card_label: str) -> None:
+    """20b: ``tools/streaming_rehearsal.py`` at its defaults (1,000,000
+    documents, bigrams, a checkpoint every 32 chunks) on the card, as its
+    own process (its peak RSS is its own) writing into a temporary
+    directory: ``n_docs`` 1,000,000, ``n_tokens`` equal to the generator's
+    corpus counted on the host, the reference's checkpoint count for the
+    chunk count, and the 1/8-scale serial and pipelined runs equal bit for
+    bit (the tool exits 1 where they are not)."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import streaming_rehearsal as sr
+
+    args = sr.build_parser().parse_args([])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rehearsal.json")
+        run = subprocess.run([sys.executable, "-m", REHEARSAL_MODULE,
+                              "--device", "cuda", "--out", out], cwd=ROOT,
+                             capture_output=True, text=True, timeout=900)
+        check(run.returncode == 0, f"20b: the rehearsal exited {run.returncode}: "
+                                   f"{run.stderr[-3000:]}")
+        with open(out) as f:
+            rec = json.load(f)
+    secs = time.perf_counter() - t0
+    want_tokens = sr.corpus_tokens(args.docs, args.docs_per_chunk, args.tokens_per_doc,
+                                   args.seed, args.ngram)
+    # the reference's rule: a checkpoint each checkpoint_every chunks while
+    # chunks remain (the end's commit writes none): 3 at 123 chunks
+    chunks = -(-args.docs // args.docs_per_chunk)
+    want_ckpts = (chunks - 1) // args.checkpoint_every
+    print(f"20b rehearsal ({card_label}): {json.dumps(rec)}")
+    check(rec["backend"] == "gpu" and rec["n_docs"] == args.docs,
+          f"20b: backend {rec['backend']}, {rec['n_docs']} documents")
+    check(rec["n_tokens"] == want_tokens,
+          f"20b: {rec['n_tokens']} tokens, the generator's corpus holds {want_tokens}")
+    check(rec["checkpoints_written"] == want_ckpts,
+          f"20b: {rec['checkpoints_written']} checkpoints over {chunks} chunks, "
+          f"wanted {want_ckpts}")
+    print(f"20b rehearsal ({card_label}): {rec['n_docs']} documents, {rec['n_tokens']} tokens "
+          f"(the host's count), {rec['tokens_per_sec']} tokens/s "
+          f"({rec['tokens_per_sec_ingest']} ingest), ingest {rec['ingest_secs']} s, finalize "
+          f"{rec['finalize_secs']} s, peak RSS {rec['peak_rss_mb']} MB, "
+          f"{rec['checkpoints_written']} checkpoints over {chunks} chunks, 1/8-scale serial "
+          f"and pipelined equal bit for bit, pipeline speedup "
+          f"{rec['pipeline_speedup_vs_serial']}; {secs:.1f} s with the process")
+
+
+def examples_phase(card_label: str) -> None:
+    """20c: the port's three examples as processes on the card, started
+    together, each exiting 0; the multichip example's L1 against one device
+    at most 1e-9 for every strategy."""
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, os.path.join(ROOT, "examples", name)],
+                                    cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)
+             for name in EXAMPLES}
+    try:
+        outs = {name: p.communicate(timeout=600) for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    for name, (out, err) in outs.items():
+        rc = procs[name].returncode
+        check(rc == 0, f"20c {name} exited {rc}: {err[-3000:]}")
+        lines = out.strip().splitlines()
+        print(f"20c {name} ({card_label}): " + " | ".join(lines))
+        if name == "torch_multichip_example.py":
+            l1 = [float(ln.rsplit(" ", 1)[1]) for ln in lines if "L1 vs single-chip" in ln]
+            check(len(l1) == 6 and max(l1) <= EXAMPLE_L1,
+                  f"20c {name}: L1 against one device {l1}, bar {EXAMPLE_L1:g}")
+        else:
+            check(len(lines) >= 4, f"20c {name}: printed {lines}")
+    print(f"20c examples: {secs:.1f} s, the three together")
+
+
+def drivers_phase(reset_counts, counts, card_label: str, graphs: SweepGraphs) -> dict:
+    """Phase 20: the reference's last drivers on the card (20a the dry run
+    and the owned-scale sweep over ``graphs``, 20b the rehearsal, 20c the
+    examples).
+    Returns the kernels' launches in this process over 20a and 20b (the
+    rehearsal reaches no kernel; the examples' processes are not counted):
+    ``segment`` under every strategy's sums, ``rowsum`` under ``hybrid``."""
+    reset_counts()
+    dryrun_phase(card_label, graphs)
+    rehearsal_phase(card_label)
+    launched = counts()
+    check(launched.get("segment", 0) > 0 and launched.get("rowsum", 0) > 0,
+          f"20: the dry run launched {launched}, no segment or no rowsum")
+    examples_phase(card_label)
+    print(f"20 drivers: kernel launches {launched}")
+    return launched
+
+
 def analysis_main() -> int:
     """``--analysis``: phase 18 alone (the kernels built first and the
     stand-in graph generated, for 18c), a result line at the end."""
@@ -5439,6 +5675,37 @@ def ci_main() -> int:
     t0 = time.perf_counter()
     launched = ci_phase(reset_counts, counts, f"{smi['device']}, {smi['power_limit']}")
     print(f"phase 19 (ci): {time.perf_counter() - t0:.1f} s; launches {launched}")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def drivers_main() -> int:
+    """``--drivers``: phase 20 alone (the kernels built first), a result line
+    at the end."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import gather_kernels as gk
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pallas_kernels as pk
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import segment_kernels as sk
+
+    def reset_counts() -> None:
+        pk.reset_launches()
+        gk.reset_launches()
+        sk.reset_launches()
+
+    def counts() -> dict:
+        return {**pk.LAUNCHES, **gk.LAUNCHES, **sk.LAUNCHES}
+
+    smi = card()
+    print(f"{smi['device']}, {smi['power_limit']}")
+    sweep_graphs = SweepGraphs()
+    t0 = time.perf_counter()
+    _build.build(force=True)
+    print(f"build: {time.perf_counter() - t0:.2f} s wall")
+    t0 = time.perf_counter()
+    launched = drivers_phase(reset_counts, counts, f"{smi['device']}, {smi['power_limit']}",
+                             sweep_graphs)
+    print(f"phase 20 (drivers): {time.perf_counter() - t0:.1f} s; launches {launched}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -5575,6 +5842,9 @@ def main() -> int:
     print(f"{smi['device']}, {smi['power_limit']}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+
+    # phase 20's sweep graphs, built by one process while phases 2-19 run
+    sweep_graphs = SweepGraphs()
 
     # 2. build every kernel from csrc/, all sources at once
     t0 = time.perf_counter()
@@ -5945,6 +6215,13 @@ def main() -> int:
     workload_launches["ci"] = ci_phase(reset_counts, counts, card_label)
     print(f"phase 19 (ci): {time.perf_counter() - t0:.1f} s")
 
+    # 20. the reference's last drivers: the dry run with the owned-scale
+    # sweep to 10x web-Google, the 1M-document rehearsal, the examples
+    t0 = time.perf_counter()
+    workload_launches["drivers"] = drivers_phase(reset_counts, counts, card_label,
+                                                 sweep_graphs)
+    print(f"phase 20 (drivers): {time.perf_counter() - t0:.1f} s")
+
     # 7. the kernels line, then the result line; launches are those of the
     # kernel's own path: cumsum's from the hybrid run (its tail's prefix
     # sum), segment's from the segment run
@@ -5970,8 +6247,9 @@ def main() -> int:
     # card's launches before each loss, and 14b's), phase 15b's (one run
     # of each layout and dtype), phase 16's (16b's float32 runs, 16c's
     # shrinking runs, 16e's runs, 16g's processes' runs), phase 17's (17f,
-    # 17g), phase 18's (18b's harness, 18c's one real step an entry) and
-    # phase 19's (19a's scenarios, 19b's smokes), by workload
+    # 17g), phase 18's (18b's harness, 18c's one real step an entry),
+    # phase 19's (19a's scenarios, 19b's smokes) and phase 20's (20a's dry
+    # run and sweep), by workload
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": n, **main_rows[name],
@@ -5988,7 +6266,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     ALONE = {"--cards": cards_main, "--fleet": fleet_main, "--analysis": analysis_main,
-             "--ci": ci_main}
+             "--ci": ci_main, "--drivers": drivers_main}
     if len(sys.argv) == 2 and sys.argv[1] in ALONE:
         if not torch.cuda.is_available():
             print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)

@@ -52,8 +52,9 @@ CLI runs them, from the repository root::
     python -m page_rank_and_tfidf_using_apache_spark_tpu_torch.tools.chaos_scenarios \\
         [--device cpu|cuda] [names...]
 
-and prints one ``OK`` line a scenario; it exits 0 when every named
-scenario (all by default) held, 1 otherwise.
+on ``cuda`` unless given ``--device cpu``, and prints one ``OK`` line a
+scenario; it exits 0 when every named scenario (all by default) held, 1
+otherwise.
 """
 
 from __future__ import annotations
@@ -129,7 +130,7 @@ def own_plans(fn):
     (a routed retry landing on the non-owner replica drives the peer
     cache's breaker, a fleet scrape is one attempt)."""
     @functools.wraps(fn)
-    def run(device="cpu") -> dict:
+    def run(device="cuda") -> dict:
         with env(GRAFT_CHAOS=""):
             return fn(device)
     return run
@@ -198,7 +199,7 @@ def _close(a, b, what: str) -> float:
 # ------------------------------------------------------------------ mesh
 
 @own_plans
-def device_lost(device="cpu") -> dict:
+def device_lost(device="cuda") -> dict:
     """``tools/chaos.sh:36-106``: slot 1 of a 2-slot mesh dies; both sharded
     runners and ``owned`` finish through the mesh shrink."""
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import synthetic_powerlaw
@@ -254,7 +255,7 @@ def device_lost(device="cpu") -> dict:
 
 
 @own_plans
-def fixpoint(device="cpu") -> dict:
+def fixpoint(device="cuda") -> dict:
     """``tools/chaos.sh:117-176``: the tolerance fixpoint (the while-loop
     branch of ``dataflow.fixpoint.iterate``) on the 2-slot mesh loses slot
     1; batched PPR loses device 0 at its delta sync and the salvage rung
@@ -303,7 +304,7 @@ def fixpoint(device="cpu") -> dict:
 
 
 @own_plans
-def ingest_h2d(device="cpu") -> dict:
+def ingest_h2d(device="cuda") -> dict:
     """``tools/chaos.sh:187-249``: a loss at the staged H2D put, on both
     ingest paths."""
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import (
@@ -357,7 +358,7 @@ def ingest_h2d(device="cpu") -> dict:
 # -------------------------------------------------------------- serving
 
 @own_plans
-def segment_swap(device="cpu") -> dict:
+def segment_swap(device="cuda") -> dict:
     """``tools/chaos.sh:259-351``: live traffic against a segmented server
     while delta segments commit and the merge compacts, under dispatch
     chaos and one merge fault; the abandoned-future audit finds every
@@ -454,7 +455,7 @@ def segment_swap(device="cpu") -> dict:
 
 
 @own_plans
-def crash_append(device="cpu") -> dict:
+def crash_append(device="cuda") -> dict:
     """``tools/chaos.sh:362-387``: SIGKILL a committing child at every write
     boundary of seal + ``commit_append``; each kill reloads to the pre-kill
     or the committed generation, never a torn set, with no orphan after
@@ -531,7 +532,7 @@ def post_raw(port: int, body: bytes):
 
 
 @own_plans
-def malformed(device="cpu") -> dict:
+def malformed(device="cuda") -> dict:
     """``tools/chaos.sh:398-492``: the protocol harness's matrix, then
     malformed bodies at a live 2-replica fleet whose router link is
     partitioned every 2nd hop and whose replica 1 SIGKILLs itself at its
@@ -584,7 +585,7 @@ def malformed(device="cpu") -> dict:
 
 
 @own_plans
-def fed_scrape(device="cpu") -> dict:
+def fed_scrape(device="cuda") -> dict:
     """``tools/chaos.sh:502-596``: the fleet board degrades to staleness,
     never to routing impact, while every scrape is severed and then hung."""
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos
@@ -668,7 +669,7 @@ def _status(port: int) -> dict:
 
 
 @own_plans
-def cache_peer(device="cpu") -> dict:
+def cache_peer(device="cuda") -> dict:
     """``tools/chaos.sh:609-729``: the sharded result cache degrades to
     local compute, never to blocking or wrong bytes.  Replica 1 boots with
     ``cache_peek`` partition and hang and ``cache_fill`` partition in its
@@ -768,8 +769,9 @@ def main(argv: "list[str] | None" = None) -> int:
     ap.add_argument("names", nargs="*",
                     help=f"scenarios to run, of {', '.join(SCENARIOS)} (default: all, "
                          "in order)")
-    ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"),
-                    help="the torch device of the runs and the replicas (default cpu)")
+    ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"),
+                    help="the torch device of the runs and the replicas (default cuda; "
+                         "cpu runs them on the host)")
     args = ap.parse_args(argv)
     unknown = sorted(set(args.names) - set(SCENARIOS))
     if unknown:

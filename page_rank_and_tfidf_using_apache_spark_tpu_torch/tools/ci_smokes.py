@@ -47,8 +47,9 @@ and raises when a bar or its budget does not hold.  The CLI runs them, from the 
     python -m page_rank_and_tfidf_using_apache_spark_tpu_torch.tools.ci_smokes \\
         [--device cpu|cuda] [names...]
 
-and prints one ``OK`` line a smoke; it exits 0 when every named smoke (all
-by default) held, 1 otherwise.
+on ``cuda`` unless given ``--device cpu``, and prints one ``OK`` line a
+smoke; it exits 0 when every named smoke (all by default) held, 1
+otherwise.
 """
 
 from __future__ import annotations
@@ -120,7 +121,7 @@ def smoke_index(d: str, device, docs=SMOKE_DOCS, vocab_bits: int = 9) -> None:
 
 
 @own_plans
-def autotune(device="cpu") -> dict:
+def autotune(device="cuda") -> dict:
     """``tools/ci.sh:48-97``: the cost model that prunes the tuner's grid
     discards at least 30% of it before anything is measured, no group is
     pruned to zero, and the committed gpu profile parses and round-trips
@@ -158,7 +159,7 @@ def autotune(device="cpu") -> dict:
 
 
 @own_plans
-def crash(device="cpu") -> dict:
+def crash(device="cuda") -> dict:
     """``tools/ci.sh:167-173``: SIGKILL at 3 of ``commit_append``'s write
     boundaries; each reloads a consistent generation with no orphan.  The
     harness's workers touch no device."""
@@ -178,7 +179,7 @@ def crash(device="cpu") -> dict:
 
 
 @own_plans
-def drain(device="cpu") -> dict:
+def drain(device="cuda") -> dict:
     """``tools/ci.sh:228-412``: a 1-replica fleet rolls by socket handoff
     while SIGKILL lands on the predecessor before its drain, on it right
     after the swap, and on the healthy successor; after each exactly one
@@ -309,7 +310,7 @@ def drain(device="cpu") -> dict:
 
 
 @own_plans
-def traced(device="cpu") -> dict:
+def traced(device="cuda") -> dict:
     """``tools/ci.sh:448-487``: a traced 6-document streaming run of the
     port's ``cli.tfidf`` in 3 chunks leaves a trace and a manifest that
     ``tools/trace_report.py`` turns into a per-phase breakdown, a complete
@@ -349,7 +350,7 @@ def traced(device="cpu") -> dict:
 
 
 @own_plans
-def soak(device="cpu") -> dict:
+def soak(device="cuda") -> dict:
     """``tools/ci.sh:489-520``: a bounded soak (streaming ingest, index
     rebuilds and hot swaps, mixed closed-loop traffic, one injected device
     loss) under ``*:fail@%5``: an SLO record with a served p99 and a time
@@ -383,7 +384,7 @@ def soak(device="cpu") -> dict:
 
 
 @own_plans
-def fabric_smoke(device="cpu") -> dict:
+def fabric_smoke(device="cuda") -> dict:
     """``tools/ci.sh:522-603``: an N-replica fleet mmap-loads one sealed
     segment, replica 0 is SIGKILLed mid-traffic, the router's sibling
     retry and the supervisor's respawn deliver every request once, and the
@@ -432,7 +433,7 @@ def fabric_smoke(device="cpu") -> dict:
 
 
 @own_plans
-def federation(device="cpu") -> dict:
+def federation(device="cuda") -> dict:
     """``tools/ci.sh:605-696``: a 1-replica fleet with the router's
     ``FleetHub``: one scrape, the router's own ``/snapshot.json`` merges
     the counters exactly, one forced scale-up through the autoscaler's
@@ -487,7 +488,7 @@ def federation(device="cpu") -> dict:
 
 
 @own_plans
-def segment(device="cpu") -> dict:
+def segment(device="cuda") -> dict:
     """``tools/ci.sh:698-761``: seal a streamed segment, serve it by
     impacted scoring, commit a second one after the server started and
     hot-swap it, merge the set to one segment, all under ``*:fail@%5``."""
@@ -543,7 +544,7 @@ def segment(device="cpu") -> dict:
 
 
 @own_plans
-def owned(device="cpu") -> dict:
+def owned(device="cuda") -> dict:
     """``tools/ci.sh:763-811``: a seeded Zipf graph through the owned
     strategy on 4 slots for a fixed 40 iterations under ``*:fail@%5``,
     float64 within 1e-9 (L1) of one device, with a nonzero comm
@@ -598,8 +599,9 @@ def main(argv: "list[str] | None" = None) -> int:
         prog="ci_smokes", description="run the CI gate's smokes on the port; one OK line each")
     ap.add_argument("names", nargs="*",
                     help=f"smokes to run, of {', '.join(SMOKES)} (default: all, in order)")
-    ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"),
-                    help="the torch device of the runs and the replicas (default cpu)")
+    ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"),
+                    help="the torch device of the runs and the replicas (default cuda; "
+                         "cpu runs them on the host)")
     args = ap.parse_args(argv)
     unknown = sorted(set(args.names) - set(SMOKES))
     if unknown:

@@ -5,11 +5,12 @@ by case.
 process forks a CUDA context), each of which joins the group through
 ``parallel.init_distributed()`` from ``MASTER_ADDR``, ``MASTER_PORT``,
 ``WORLD_SIZE`` and ``RANK``, builds the case's mesh (``slots`` a process
-of ``device``), runs every case through the public entry points and
-reports.  Every process reports a SHA-256 digest of each result array;
-process 0 reports the arrays too.  One deadline bounds the whole group: a
-process that hangs, raises or dies fails the call, and every process still
-running at the deadline is killed.
+of ``device``, ``cuda:0`` unless the caller passes ``"cpu"``), runs every
+case through the public entry points and reports.  Every process reports
+a SHA-256 digest of each result array; process 0 reports the arrays too.
+One deadline bounds the whole group: a process that hangs, raises or dies
+fails the call, and every process still running at the deadline is
+killed.
 
 :func:`run_case` is the same case in this process over any mesh, so a
 caller holds the processes' results to the one-process mesh of the same
@@ -275,7 +276,7 @@ def _process_main(rank: int, world: int, cases: list, data: dict, device: str,
         reports.put((rank, "error", traceback.format_exc()[-6000:]))
 
 
-def spawn(cases: list, data: dict, *, processes: int, device: str = "cpu",
+def spawn(cases: list, data: dict, *, processes: int, device: str = "cuda:0",
           backend: str | None = None, timeout_s: float = 120.0,
           env: list | None = None, may_die: tuple = ()) -> list:
     """Run ``cases`` over ``processes`` spawned processes; returns each

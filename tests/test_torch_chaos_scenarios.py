@@ -265,7 +265,7 @@ def test_cli_runs_named_scenarios_and_refuses_unknown_ones(capsys):
     out = capsys.readouterr().out.splitlines()
     assert len(out) == 1 and out[0].startswith("OK ingest_h2d (")
     with pytest.raises(SystemExit):
-        cs.main(["no_such_scenario"])
+        cs.main(["--device", "cpu", "no_such_scenario"])
     assert "unknown scenarios ['no_such_scenario']" in capsys.readouterr().err
     assert list(cs.SCENARIOS) == ["device_lost", "fixpoint", "ingest_h2d", "segment_swap",
                                   "crash_append", "malformed", "fed_scrape", "cache_peer"]

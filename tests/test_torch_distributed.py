@@ -93,7 +93,7 @@ def group(request, tmp_path_factory):
     ``(P, cases, each process's results)``."""
     world = request.param
     cases = _cases(world, tmp_path_factory.mktemp(f"mesh{world}"))
-    outs = mp.spawn(cases, _data(), processes=world, timeout_s=DEADLINE_S)
+    outs = mp.spawn(cases, _data(), processes=world, device="cpu", timeout_s=DEADLINE_S)
     return world, {c["name"]: c for c in cases}, outs
 
 
@@ -186,7 +186,8 @@ def test_a_killed_process_ends_its_peer_with_an_error(tmp_path):
     checkpoint 5, well inside the deadline."""
     case = dict(name="peer", kind="loss", strategy="nodes", slots=1, cfg=F32, stop_at=10,
                 every=5, checkpoint_dir=str(tmp_path / "peer"))
-    outs = mp.spawn([case], _data(), processes=2, timeout_s=60.0, may_die=(1,),
+    outs = mp.spawn([case], _data(), processes=2, device="cpu", timeout_s=60.0,
+                    may_die=(1,),
                     env=[{}, {"GRAFT_CHAOS": "pagerank_step:proc_kill@3"}])
     assert outs[1] is None
     info = outs[0]["peer"]["info"]

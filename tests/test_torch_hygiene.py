@@ -9,6 +9,8 @@ where there is no CUDA.
 """
 
 import ast
+import importlib.util
+import inspect
 import pathlib
 import subprocess
 import sys
@@ -31,10 +33,16 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.tfidf import (
     run_tfidf,
     run_tfidf_streaming,
 )
+from page_rank_and_tfidf_using_apache_spark_tpu_torch import tools
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import (
     autotune,
+    chaos_scenarios,
+    ci_smokes,
+    dryrun,
     gather_micro,
+    mesh_processes,
     spmv_breakdown,
+    streaming_rehearsal,
     xla_cost_micro,
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import native
@@ -48,7 +56,8 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import resolv
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "page_rank_and_tfidf_using_apache_spark_tpu_torch"
 FORBIDDEN = frozenset({"jax", "jaxlib", "page_rank_and_tfidf_using_apache_spark_tpu"})
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*_example.py"))
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 TINY = str(ROOT / "tests" / "fixtures" / "tiny.txt")
 
 
@@ -295,6 +304,63 @@ def test_default_device_is_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device(None) == torch.device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+    # the chaos gate's scenarios and the CI smokes: their functions and
+    # their CLIs without --device
+    gates = [*chaos_scenarios.SCENARIOS.values(), *ci_smokes.SMOKES.values()]
+    assert {inspect.signature(fn).parameters["device"].default for fn in gates} == {"cuda"}
+    seen = []
+
+    def fake(device):
+        seen.append(device)
+        return {"line": "ok", "seconds": 0.0, "budget_s": None}
+
+    monkeypatch.setitem(chaos_scenarios.SCENARIOS, "fixpoint", fake)
+    monkeypatch.setitem(ci_smokes.SMOKES, "owned", fake)
+    assert chaos_scenarios.main(["fixpoint"]) == 0 and ci_smokes.main(["owned"]) == 0
+    assert seen == ["cuda", "cuda"]
+    # the spawned mesh processes
+    assert inspect.signature(mesh_processes.spawn).parameters["device"].default == "cuda:0"
+    # the dry run and the rehearsal without --device
+    monkeypatch.setattr(tools, "device_stamp", lambda d: {"device": str(d), "power_limit": None})
+    monkeypatch.setattr(dryrun, "dryrun_multichip",
+                        lambda n, device=None: seen.append(device) or {})
+    monkeypatch.setattr(streaming_rehearsal, "rehearse",
+                        lambda args, device: seen.append(device) or {})
+    assert dryrun.main(["4"]) == 0 and streaming_rehearsal.main([]) == 0
+    assert seen[2:] == [torch.device("cuda")] * 2
+
+
+def _example(path: pathlib.Path):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("entry", ["dryrun_multichip", "dryrun_cli", "rehearsal_cli",
+                                   *(p.stem for p in EXAMPLES)])
+def test_drivers_raise_without_cuda(entry, monkeypatch):
+    """With no CUDA and no ``--device``, the dry run, the rehearsal and the
+    port's examples raise rather than running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "dryrun_multichip":
+            dryrun.dryrun_multichip(4)
+        elif entry == "dryrun_cli":
+            dryrun.main(["4"])
+        elif entry == "rehearsal_cli":
+            streaming_rehearsal.main(["--docs", "16"])
+        else:
+            _example(ROOT / "examples" / f"{entry}.py").main([])
+
+
+def test_scan_covers_the_drivers():
+    """The dry run, the rehearsal and the port's three examples are among
+    the files the scan reads."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {f"{PORT.name}/tools/dryrun.py", f"{PORT.name}/tools/streaming_rehearsal.py"} <= scanned
+    assert {f"examples/torch_{m}_example.py" for m in ("pagerank", "tfidf", "multichip")} \
+        <= scanned
 
 
 TOOLS = {"gather_micro": gather_micro, "spmv_breakdown": spmv_breakdown,
