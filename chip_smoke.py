@@ -37,7 +37,11 @@ Phases, each of which exits non-zero on failure:
    equal, two calls equal, then timed at the main path's shapes against
    its plain float64 ``index_add_`` and ``torch.segment_reduce``, and at the
    ``hybrid`` head's and ``sort_shuffle``'s shapes with their bounds (each
-   call site also timed without a plan); the plans' tile sizes and
+   call site also timed without a plan); its widened entry (float32 in,
+   float64 out, the ``owned`` head's partials) at the main path's shape
+   and at the ``owned`` head's of 16b's 4-slot partition, bit for bit
+   equal to its plain version, its rows rounded to float32 equal to the
+   float32 entry's, timed beside it; the plans' tile sizes and
    scratch against the kernels'; and, once, the launch floor of the
    timing protocol;
 3b. the gather kernel of the SpMV cost probe against its plain version,
@@ -230,12 +234,17 @@ Phases, each of which exits non-zero on failure:
    strategy at 4 slots under ``segment`` (``owned`` at 2 too) and
    ``cumsum`` under ``edges`` and ``nodes``: float64 within 1e-9 L1 of the
    single-device float64 run, float32 within L1 1e-3 of it, two float32
-   runs equal bit for bit, ``segment.cu`` launched at least D x 20 times
+   runs equal bit for bit, float32 ``owned`` (4 and 2 slots), ``nodes``
+   and ``nodes_balanced`` under ``segment`` equal bit for bit to the
+   one-device float32 ``segment`` run (the other strategies' differing
+   entries printed), ``segment.cu`` launched at least D x 20 times
    (``cumsum.cu`` under ``cumsum``, ``rowsum.cu`` at least 20 under
    ``hybrid``), iterations/s, partition and put seconds; (16c) ``owned``
    and ``edges`` at 4 slots, a checkpoint every 5, slot 1 lost at the step
    and slot 2 at the rerun: degraded ``mesh_shrink`` 4 -> 2 then
-   ``single_device`` 2 -> 1, float64 within 1e-9 L1 of the unbroken run;
+   ``single_device`` 2 -> 1, float64 within 1e-9 L1 of the unbroken run,
+   and ``owned`` in float32 under the same plan equal bit for bit to the
+   unbroken float32 runs;
    (16d) ``run_tfidf_sharded`` over config 2 at 4 slots against
    ``run_tfidf_streaming``: COO, counts and DF equal, weights within 2e-6,
    whether the bits are equal; (16e) PPR (B = 8), HITS and components at
@@ -330,12 +339,12 @@ Phases, each of which exits non-zero on failure:
    reference's defaults (Zipf graphs of 875,000, 3,500,000 and 8,750,000
    nodes at 5.83 edges a node, built by the sweep's generator in one
    process started after phase 1, while the phases between run): each
-   point's float64 ``owned`` within 1e-9 L1 of one device, its float32
-   bits against one device printed, the comm-bytes exponent below 1, the
+   point's float32 ``owned`` equal to one device bit for bit and its
+   float64 within 1e-9 L1, the comm-bytes exponent below 1, the
    top scale's replicated state past half of 256 MiB and
    ``auto_select_strategy`` -> ``owned``, each point's record
    (build, partition and put seconds, iterations/s, the rank sum,
-   ``max_memory_allocated``) printed; (20b)
+   ``max_memory_allocated``, the float64 head psum's bytes) printed; (20b)
    ``..._torch/tools/streaming_rehearsal.py`` at its defaults (1,000,000
    documents, bigrams, a checkpoint every 32 chunks) as its own process:
    ``n_docs``, ``n_tokens`` equal to the generator's corpus counted on the
@@ -595,6 +604,67 @@ def measure_segment(sk, src, ptr, w, label: str) -> dict:
           f"bound {b:.4f} ms ({by}); vs plain max abs diff {err:.3g} ({worst:.3g} of 1 ulp), "
           f"largest relative error vs float64 {rel:.3g}")
     return row
+
+
+def measure_widened(sk, values, ptr, n: int, label: str, *, src=None, ew=None) -> dict:
+    """segment.cu's float32-in, float64-out entry (``out_dtype=
+    torch.float64``, the ``owned`` head's partials) on one input: two calls
+    through ``ptr``'s plan bit for bit equal, equal bit for bit to its plain
+    version (the float64 ``index_add_`` of the float32 products, not
+    rounded: these sums of uniform-rank values are exact in float64, so no
+    order changes them), and its rows rounded to float32 equal to the
+    float32 entry's, which rounds the same accumulator once.  Timed beside
+    the float32 entry; its byte bound: the inputs read once and the
+    float64 rows written once."""
+    plan = sk.segment_plan(ptr)
+    kw = dict(src=src, edge_weight=ew)
+    got = sk.segment_sum_kernel(values, ptr, n, plan=plan, out_dtype=torch.float64, **kw)
+    again = sk.segment_sum_kernel(values, ptr, n, plan=plan, out_dtype=torch.float64, **kw)
+    want = sk.segment_sum_plain(values, ptr, n, out_dtype=torch.float64, **kw)
+    narrow = sk.segment_sum_kernel(values, ptr, n, plan=plan, **kw)
+    torch.cuda.synchronize()
+    check(got.shape == (n,) and got.dtype == torch.float64, f"widened segment {label}: "
+                                                            f"shape/dtype {got.dtype}")
+    check(torch.equal(got, again), f"widened segment {label}: two calls differ")
+    differ = int((got != want).sum())
+    err = float((got - want).abs().max()) if n else 0.0
+    check(differ == 0, f"widened segment {label}: {differ} of {n} rows differ in bits from "
+                       f"plain (max abs diff {err:.3g})")
+    check(torch.equal(got.float(), narrow), f"widened segment {label}: its rows rounded to "
+                                            "float32 differ from the float32 entry's")
+    inputs = sum(t.nbytes for t in (values, ptr, src, ew) if t is not None)
+    b, by = bound_ms(inputs + got.nbytes, src.shape[0] if src is not None else values.shape[0],
+                     torch.float64)
+    row = {"ms": time_ms(lambda: sk.segment_sum_kernel(values, ptr, n, plan=plan,
+                                                       out_dtype=torch.float64, **kw)),
+           "f32_out_ms": time_ms(lambda: sk.segment_sum_kernel(values, ptr, n, plan=plan, **kw)),
+           "plain_ms": time_ms(lambda: sk.segment_sum_plain(values, ptr, n,
+                                                            out_dtype=torch.float64, **kw)),
+           "bound_ms": b, "bound_by": by, "max_abs_err": err, "bits_differ": differ}
+    print(f"segment widened (float32 in, float64 out) {label}: kernel {row['ms']:.4f} ms, the "
+          f"float32-out entry {row['f32_out_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"bound {b:.5f} ms ({by}); {differ} rows differ in bits from plain, rows rounded to "
+          "float32 equal to the float32 entry's, two calls equal")
+    return row
+
+
+def owned_head_inputs(graph, weighted: torch.Tensor, rng) -> tuple:
+    """Slot 0's head partial call of ``owned`` over 16b's 4-slot partition
+    of ``graph``, as ``owned_step`` makes it: its lookup vector's length
+    (``[local slice | boundary table | head | 0]``), drawn from the main
+    path's uniform-rank values, then the slot's ``hsrc``, ``hw`` and
+    ``hptr`` on the card."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel import mesh as pmesh
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel import pagerank_sharded as ps
+
+    sg = ps.partition_graph(graph, SHARD_SLOTS, strategy="owned")
+    sh = sg.owned
+    a = ps.device_put_sharded_graph(sg, pmesh.make_mesh(SHARD_SLOTS,
+                                                        devices=["cuda:0"] * SHARD_SLOTS))[0]
+    size = sh.block + SHARD_SLOTS * sh.b_pad + sh.h_pad
+    pick = torch.from_numpy(rng.integers(0, weighted.shape[0], size)).to("cuda")
+    lookup = torch.cat([weighted[pick], weighted.new_zeros(1)])
+    return lookup, a.hptr, sh.h_pad + 2, a.hsrc, a.hw
 
 
 def measure_cumsum(pk, x: torch.Tensor, label: str) -> dict:
@@ -4068,21 +4138,33 @@ def sharded_run(graph, cfg, strategy: str, d: int, reset_counts, counts):
     return res, counts()
 
 
+# The strategies whose fixed-count float32 runs under segment have one
+# device's bits at every slot count (their split sums in float64, rounded
+# once); the others add whole float32 partial vectors across the slots.
+ONE_DEVICE_BITS = ("owned", "nodes", "nodes_balanced")
+
+
 def sharded_pagerank_phase(graph, reset_counts, counts, card_label: str,
                            kept: dict) -> dict:
     """16b: every strategy at 4 slots under segment (owned also at 2), and
     cumsum under edges and nodes: float64 within 1e-9 L1 of the
     single-device float64 run, float32 within L1 1e-3 of float64, two
-    float32 runs equal bit for bit, the launches (segment >= D x 20, rowsum
-    >= 20 under hybrid, cumsum >= D x 20 under cumsum), iterations/s,
-    partition and put seconds.  Returns the launches of the float32 runs;
-    ``kept[(strategy, d, impl, dtype)]`` gets each run's ranks and
-    iterations/s, which 16g holds the mesh across processes to."""
+    float32 runs equal bit for bit, float32 ``owned``, ``nodes`` and
+    ``nodes_balanced`` under segment equal bit for bit to the one-device
+    float32 segment run (the other runs' differing entries printed), the
+    launches (segment >= D x 20, rowsum >= 20 under hybrid, cumsum >= D x
+    20 under cumsum), iterations/s, partition and put seconds.  Returns the
+    launches of the float32 runs; ``kept[(strategy, d, impl, dtype)]`` gets
+    each run's ranks and iterations/s, which 16g holds the mesh across
+    processes to, and ``kept["one device", "float32"]`` the one-device
+    float32 ranks."""
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import PageRankConfig
 
     base = dict(iterations=ITERS, dangling="redistribute", init="uniform")
     ref = run_pagerank(graph, PageRankConfig(**base, dtype="float64"), device="cuda").ranks
+    one32 = run_pagerank(graph, PageRankConfig(**base, dtype="float32"), device="cuda").ranks
+    kept["one device", "float32"] = one32
     runs = ([(s, SHARD_SLOTS, "segment") for s in SHARD_STRATEGIES]
             + [("owned", 2, "segment"), ("edges", SHARD_SLOTS, "cumsum"),
                ("nodes", SHARD_SLOTS, "cumsum")])
@@ -4100,6 +4182,7 @@ def sharded_pagerank_phase(graph, reset_counts, counts, card_label: str,
         l1_64 = float(np.abs(r64.ranks - ref).sum())
         l1_32 = float(np.abs(r32.ranks.astype(np.float64) - ref).sum())
         differ = bits_differ(r32.ranks, again.ranks)
+        from_one = bits_differ(r32.ranks, one32)
         part = next(r for r in r32.metrics.records if r.get("event") == "partition")
         rate = r32.metrics.records[-1]["iters_per_sec"]
         where = (f"{d} cards" if len(set(SLOT_DEVICES[:d])) == d
@@ -4109,13 +4192,17 @@ def sharded_pagerank_phase(graph, reset_counts, counts, card_label: str,
               f"{part['put_secs']:.3f} s, pad_frac {part['pad_frac']}, "
               f"comm_bytes_per_step {part['comm_bytes_per_step']}; float64 L1 {l1_64:.3g} vs one "
               f"device, float32 L1 {l1_32:.3g}; {differ} entries differ over two float32 runs; "
-              f"launches {launched}")
+              f"float32 {from_one} of {graph.n_nodes} entries differ in bits from the "
+              f"one-device segment run; launches {launched}")
         check(r64.iterations == r32.iterations == ITERS, f"{label}: iterations")
         check(bool(np.isfinite(r32.ranks).all()) and r32.ranks.shape == (graph.n_nodes,),
               f"{label}: ranks not finite or wrong shape")
         check(l1_64 <= 1e-9, f"{label}: float64 L1 {l1_64} from the single-device run > 1e-9")
         check(l1_32 <= 1e-3, f"{label}: float32 L1 {l1_32} from float64 > 1e-3")
         check(differ == 0, f"{label}: two runs differ in {differ} entries")
+        if impl == "segment" and strategy in ONE_DEVICE_BITS:
+            check(from_one == 0, f"{label}: float32 {from_one} entries differ in bits from the "
+                                 "one-device segment run")
         if impl == "segment":
             check(launched["segment"] >= d * ITERS, f"{label}: segment launched "
                                                      f"{launched['segment']} times")
@@ -4128,11 +4215,13 @@ def sharded_pagerank_phase(graph, reset_counts, counts, card_label: str,
     return total
 
 
-def sharded_shrink_phase(graph, reset_counts, counts) -> dict:
+def sharded_shrink_phase(graph, reset_counts, counts, kept: dict) -> dict:
     """16c: owned and edges at 4 slots, float64, a checkpoint every 5, under
     slot 1 lost at the step and slot 2 at the rerun: one degraded event a
     shrink with the reference's ladder and counts (4 -> 2 -> 1), ranks
-    within 1e-9 L1 of the unbroken run.  Returns the launches."""
+    within 1e-9 L1 of the unbroken run; then owned in float32 under the
+    same plan, bit for bit equal to the unbroken float32 runs (16b's owned
+    at 4 slots and the one-device run).  Returns the launches."""
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel import run_pagerank_sharded
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos, elastic
@@ -4142,11 +4231,13 @@ def sharded_shrink_phase(graph, reset_counts, counts) -> dict:
     base = dict(iterations=ITERS, dangling="redistribute", init="uniform", dtype="float64")
     ref = run_pagerank(graph, PageRankConfig(**base), device="cuda").ranks
     total: dict = {}
-    for strategy in ("owned", "edges"):
+    runs = [("owned", "float64"), ("edges", "float64"), ("owned", "float32")]
+    for strategy, dtype in runs:
         elastic.reset_health()
         m = MetricsRecorder()
         with tempfile.TemporaryDirectory() as tmp:
-            cfg = PageRankConfig(**base, checkpoint_every=5, checkpoint_dir=tmp)
+            cfg = PageRankConfig(**{**base, "dtype": dtype}, checkpoint_every=5,
+                                 checkpoint_dir=tmp)
             reset_counts()
             t0 = time.perf_counter()
             with chaos.inject(SHRINK_PLAN):
@@ -4158,14 +4249,22 @@ def sharded_shrink_phase(graph, reset_counts, counts) -> dict:
         ladder = [(r["ladder"], r["devices_old"], r["devices_new"])
                   for r in m.records if r.get("event") == "degraded"]
         parts = [r["devices"] for r in m.records if r.get("event") == "partition"]
-        l1 = float(np.abs(res.ranks - ref).sum())
-        print(f"16c {strategy} under {SHRINK_PLAN}: degraded {ladder}, partitions over {parts} "
-              f"slots, {res.iterations} iterations in {secs:.2f} s, float64 L1 {l1:.3g} from "
-              "the unbroken single-device run")
-        check(ladder == SHRINK_LADDER, f"16c {strategy}: ladder {ladder}, wanted {SHRINK_LADDER}")
-        check(parts == [4, 2, 1], f"16c {strategy}: partitions {parts}")
-        check(res.iterations == ITERS and l1 <= 1e-9, f"16c {strategy}: L1 {l1}, "
-                                                      f"{res.iterations} iterations")
+        label = f"16c {strategy} {dtype}"
+        if dtype == "float32":
+            one = bits_differ(res.ranks, kept["one device", "float32"])
+            unbroken = bits_differ(res.ranks, kept[strategy, SHARD_SLOTS, "segment", dtype][0])
+            held = (f"{unbroken} entries differ in bits from the unbroken {SHARD_SLOTS}-slot "
+                    f"run, {one} from the one-device run")
+            ok = unbroken == one == 0
+        else:
+            l1 = float(np.abs(res.ranks - ref).sum())
+            held = f"float64 L1 {l1:.3g} from the unbroken single-device run"
+            ok = l1 <= 1e-9
+        print(f"{label} under {SHRINK_PLAN}: degraded {ladder}, partitions over {parts} "
+              f"slots, {res.iterations} iterations in {secs:.2f} s, {held}")
+        check(ladder == SHRINK_LADDER, f"{label}: ladder {ladder}, wanted {SHRINK_LADDER}")
+        check(parts == [4, 2, 1], f"{label}: partitions {parts}")
+        check(res.iterations == ITERS and ok, f"{label}: {held}, {res.iterations} iterations")
     return total
 
 
@@ -4316,7 +4415,7 @@ def sharded_phase(graph, stream: dict, reset_counts, counts, card_label: str) ->
     collectives_phase()
     launches["sharded"] = sharded_pagerank_phase(graph, reset_counts, counts, card_label, kept)
     print(f"phase 16b: {time.perf_counter() - t0:.1f} s")
-    launches["shrink"] = sharded_shrink_phase(graph, reset_counts, counts)
+    launches["shrink"] = sharded_shrink_phase(graph, reset_counts, counts, kept)
     sharded_tfidf_phase(stream, card_label)
     launches["sharded_workloads"] = sharded_workloads_phase(graph, reset_counts, counts,
                                                             card_label)
@@ -5496,11 +5595,11 @@ def dryrun_phase(card_label: str, graphs: SweepGraphs) -> None:
     """20a: ``tools/dryrun.dryrun_multichip(4)`` on the card (4 slots of
     cuda:0 on one card, one slot a card on four) with the 1x/4x/10x sweep
     over ``graphs``' builds:
-    every strategy and the sharded TF-IDF finite, each point's float64
-    ``owned`` within 1e-9 L1 of one device, the comm-bytes exponent below 1,
-    ``auto_select_strategy`` -> ``owned`` at 10x (the tool raises where one
-    does not hold); each point's record printed, float32's bits against one
-    device among it."""
+    every strategy and the sharded TF-IDF finite, each point's float32
+    ``owned`` equal to one device bit for bit and its float64 within 1e-9
+    L1, the comm-bytes exponent below 1, ``auto_select_strategy`` ->
+    ``owned`` at 10x (the tool raises where one does not hold); each
+    point's record printed, with the bytes its float64 head psum moves."""
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import chaos_scenarios as cs
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import dryrun
 
@@ -5928,6 +6027,15 @@ def main() -> int:
           "its limit: " + ", ".join(f"{str(d)[6:]} {r:.3g}" for d, r in most.items()))
     main_rows["segment"] = measure_segment(sk, src, indptr, weighted,
                                            f"main path (gather) E={src.shape[0]} N={graph.n_nodes}")
+    # the widened entry (float32 in, float64 out): at the main path's shape,
+    # and at the owned head's of 16b's 4-slot partition (slot 0)
+    widened = {"main path": measure_widened(sk, weighted, indptr, graph.n_nodes,
+                                            f"main path (gather) E={src.shape[0]}", src=src)}
+    lookup, hptr, h_rows, hsrc, hw = owned_head_inputs(graph, weighted, rng)
+    widened["owned head"] = measure_widened(
+        sk, lookup, hptr, h_rows, f"owned head, slot 0 of {SHARD_SLOTS} (gather weighted) "
+                                  f"E={hsrc.shape[0]} rows={h_rows}", src=hsrc, ew=hw)
+    main_rows["segment"]["widened"] = widened
     head_ptr = torch.from_numpy(ops.segment_pointers(hl.head_row_node,
                                                      hl.head_ids.shape[0])).to("cuda")
     head_sums = pk.rowsum_kernel(head_rows)

@@ -4,8 +4,11 @@
 // and 'spark_exact') or x[e] (the value loader: the 'hybrid' head's row
 // sums over head_row_node, 'sort_shuffle''s bucket sums over bucket_node).
 // Float input is summed in double and rounded to float once a row; double
-// input stays double.  The gather loader takes the product w[src[e]]*ew[e]
-// in the input type before widening, as the plain version does.
+// input stays double.  The widened entries (segment_*_f32_f64) take float
+// input and write each row's double sum without that rounding, for a caller
+// that adds rows summed on several devices and rounds once after.  The
+// gather loader takes the product w[src[e]]*ew[e] in the input type before
+// widening, as the plain version does.
 //
 // Replaces: jax.ops.segment_sum(..., indices_are_sorted=True) at
 //   page_rank_and_tfidf_using_apache_spark_tpu/ops/pagerank.py:378 (segment),
@@ -17,7 +20,8 @@
 // Bound on the H100: bytes.  For the main path, float32, unweighted: src 4E,
 // ptr 4(N+1), w 4N and out 4N: 24.7 MB, 7.4 us at 3.35 TB/s (E = 3,563,796,
 // N = 872,513).  The gathers of w hit the 3.5 MB table in L2.  There is
-// about one addition per 4 bytes, so the limit is bytes in flight.
+// about one addition per 4 bytes, so the limit is bytes in flight.  A
+// widened entry writes 8 bytes a row where the float entry writes 4.
 //
 // Design:
 //   1. Merge path (Merrill and Garland, SC'16): the n row ends and the E
@@ -167,14 +171,15 @@ __device__ KeyVal block_segmented_scan(KeyVal kv, KeyVal* last) {
   return out;
 }
 
-template <typename T>
+// T is the input's type, O the output's: T, or double for float input.
+template <typename T, typename O>
 struct Args {
   const int* src;     // gather loader: [E] indices into w; null for the value loader
   const T* w;         // gather loader: the table; value loader: the E values
   const T* ew;        // gather loader: optional [E] edge weights
   const int* ptr;     // [n + 1]
   const int* coords;  // [tiles + 1]: row ends before each tile's first item
-  T* out;             // [n]
+  O* out;             // [n]
   plan::CallState* cs;
   Carry* carry;  // [tiles]
   int n;
@@ -191,9 +196,9 @@ struct TileMeta {
   int in_lead;       // src[y0] or x[y0] is element in_lead of the staged span
 };
 
-template <typename T, bool kGather>
+template <typename T, typename O, bool kGather>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-segment_tiles(Args<T> a) {
+segment_tiles(Args<T, O> a) {
   using In = typename std::conditional<kGather, int, T>::type;
   // a float gathered from a staged src takes its index's place
   constexpr bool kInPlace = sizeof(T) == sizeof(In);
@@ -288,7 +293,7 @@ segment_tiles(Args<T> a) {
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-    if (lane == 0) a.out[r] = static_cast<T>(part + own);
+    if (lane == 0) a.out[r] = static_cast<O>(part + own);
   };
 
   if (tid == 0) {
@@ -356,7 +361,7 @@ segment_tiles(Args<T> a) {
         ++y;
       } else {
         if (ended) {
-          a.out[x] = static_cast<T>(acc);
+          a.out[x] = static_cast<O>(acc);
         } else {
           first = acc;
           ended = true;
@@ -373,7 +378,7 @@ segment_tiles(Args<T> a) {
         s_first_key = first_row;
         s_first_val = v;
       } else {
-        a.out[first_row] = static_cast<T>(v);
+        a.out[first_row] = static_cast<O>(v);
       }
     }
     __syncthreads();
@@ -423,13 +428,13 @@ inline long long state_len(long long tiles) {
          tiles * static_cast<long long>(sizeof(Carry));
 }
 
-template <typename T, bool kGather>
-int segment_launch(Args<T> a, void* state, long long state_bytes, cudaStream_t stream) {
+template <typename T, typename O, bool kGather>
+int segment_launch(Args<T, O> a, void* state, long long state_bytes, cudaStream_t stream) {
   if (a.e < 0 || a.n < 0 || a.n >= INT_MAX || a.e >= INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a.n == 0) return 0;
-  if (a.e == 0) return static_cast<int>(cudaMemsetAsync(a.out, 0, a.n * sizeof(T), stream));
+  if (a.e == 0) return static_cast<int>(cudaMemsetAsync(a.out, 0, a.n * sizeof(O), stream));
   const long long tiles = tiles_for(a.n, a.e);
   if (state_bytes < state_len(tiles)) return static_cast<int>(cudaErrorInvalidValue);
   a.tiles = static_cast<int>(tiles);
@@ -438,7 +443,7 @@ int segment_launch(Args<T> a, void* state, long long state_bytes, cudaStream_t s
   using In = typename std::conditional<kGather, int, T>::type;
   const int smem = 16 + kEndBytes + in_bytes<In>() +
                    (sizeof(T) != sizeof(In) ? kBlockItems * static_cast<int>(sizeof(T)) : 0);
-  auto kernel = segment_tiles<T, kGather>;
+  auto kernel = segment_tiles<T, O, kGather>;
   // one wave of resident blocks, measured once per device
   static int resident[kMaxDevices];
   int dev = 0;
@@ -461,6 +466,26 @@ int segment_launch(Args<T> a, void* state, long long state_bytes, cudaStream_t s
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, typename O>
+int gather(const void* src, const void* w, const void* ew, const void* ptr, const void* coords,
+           void* out, void* state, long long state_bytes, long long n, long long e,
+           void* stream) {
+  Args<T, O> a{static_cast<const int*>(src), static_cast<const T*>(w),
+               static_cast<const T*>(ew), static_cast<const int*>(ptr),
+               static_cast<const int*>(coords), static_cast<O*>(out), nullptr, nullptr,
+               static_cast<int>(n), e, 0};
+  return segment_launch<T, O, true>(a, state, state_bytes, static_cast<cudaStream_t>(stream));
+}
+
+template <typename T, typename O>
+int values(const void* x, const void* ptr, const void* coords, void* out, void* state,
+           long long state_bytes, long long n, long long e, void* stream) {
+  Args<T, O> a{nullptr, static_cast<const T*>(x), nullptr, static_cast<const int*>(ptr),
+               static_cast<const int*>(coords), static_cast<O*>(out), nullptr, nullptr,
+               static_cast<int>(n), e, 0};
+  return segment_launch<T, O, false>(a, state, state_bytes, static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 extern "C" {
@@ -480,40 +505,38 @@ int segment_block_items() { return kBlockItems; }
 int segment_gather_f32(const void* src, const void* w, const void* ew, const void* ptr,
                        const void* coords, void* out, void* state, long long state_bytes,
                        long long n, long long e, void* stream) {
-  Args<float> a{static_cast<const int*>(src), static_cast<const float*>(w),
-                static_cast<const float*>(ew), static_cast<const int*>(ptr),
-                static_cast<const int*>(coords), static_cast<float*>(out), nullptr, nullptr,
-                static_cast<int>(n), e, 0};
-  return segment_launch<float, true>(a, state, state_bytes, static_cast<cudaStream_t>(stream));
+  return gather<float, float>(src, w, ew, ptr, coords, out, state, state_bytes, n, e, stream);
 }
 
 int segment_gather_f64(const void* src, const void* w, const void* ew, const void* ptr,
                        const void* coords, void* out, void* state, long long state_bytes,
                        long long n, long long e, void* stream) {
-  Args<double> a{static_cast<const int*>(src), static_cast<const double*>(w),
-                 static_cast<const double*>(ew), static_cast<const int*>(ptr),
-                 static_cast<const int*>(coords), static_cast<double*>(out), nullptr, nullptr,
-                 static_cast<int>(n), e, 0};
-  return segment_launch<double, true>(a, state, state_bytes, static_cast<cudaStream_t>(stream));
+  return gather<double, double>(src, w, ew, ptr, coords, out, state, state_bytes, n, e, stream);
+}
+
+// Float input, each row's double sum written as it is: out is double [n].
+int segment_gather_f32_f64(const void* src, const void* w, const void* ew, const void* ptr,
+                           const void* coords, void* out, void* state, long long state_bytes,
+                           long long n, long long e, void* stream) {
+  return gather<float, double>(src, w, ew, ptr, coords, out, state, state_bytes, n, e, stream);
 }
 
 int segment_values_f32(const void* x, const void* ptr, const void* coords, void* out,
                        void* state, long long state_bytes, long long n, long long e,
                        void* stream) {
-  Args<float> a{nullptr, static_cast<const float*>(x), nullptr, static_cast<const int*>(ptr),
-                static_cast<const int*>(coords), static_cast<float*>(out), nullptr, nullptr,
-                static_cast<int>(n), e, 0};
-  return segment_launch<float, false>(a, state, state_bytes, static_cast<cudaStream_t>(stream));
+  return values<float, float>(x, ptr, coords, out, state, state_bytes, n, e, stream);
 }
 
 int segment_values_f64(const void* x, const void* ptr, const void* coords, void* out,
                        void* state, long long state_bytes, long long n, long long e,
                        void* stream) {
-  Args<double> a{nullptr, static_cast<const double*>(x), nullptr, static_cast<const int*>(ptr),
-                 static_cast<const int*>(coords), static_cast<double*>(out), nullptr, nullptr,
-                 static_cast<int>(n), e, 0};
-  return segment_launch<double, false>(a, state, state_bytes,
-                                       static_cast<cudaStream_t>(stream));
+  return values<double, double>(x, ptr, coords, out, state, state_bytes, n, e, stream);
+}
+
+int segment_values_f32_f64(const void* x, const void* ptr, const void* coords, void* out,
+                           void* state, long long state_bytes, long long n, long long e,
+                           void* stream) {
+  return values<float, double>(x, ptr, coords, out, state, state_bytes, n, e, stream);
 }
 
 const char* segment_error_string(int code) {

@@ -57,6 +57,8 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "segment_gather_f64": (_I, [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P]),
         "segment_values_f32": (_I, [_P, _P, _P, _P, _P, _LL, _LL, _LL, _P]),
         "segment_values_f64": (_I, [_P, _P, _P, _P, _P, _LL, _LL, _LL, _P]),
+        "segment_gather_f32_f64": (_I, [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P]),
+        "segment_values_f32_f64": (_I, [_P, _P, _P, _P, _P, _LL, _LL, _LL, _P]),
         "segment_error_string": (ctypes.c_char_p, [_I]),
     },
     "gather": {

@@ -13,6 +13,12 @@ the ``hybrid`` head's row reduction on ``csrc/rowsum.cu``
 Each of those kernels adds in an order fixed by the shapes, so two runs of
 any impl but ``bcoo`` give the same bits on the card.
 
+The dangling mass is a float64 sum (:func:`dangling_mass`) rounded to the
+run's dtype once, as ``segment.cu`` sums each row.  The sharded strategies
+``owned``, ``nodes`` and ``nodes_balanced`` (``parallel/pagerank_sharded.py``)
+add their slots' shares of these sums in float64 too, and so give a
+float32 run the bits of this one-device ``segment`` run.
+
 Index tensors stay int32 on the device, as in the JAX package; PyTorch's
 indexing and ``index_select`` take them as they are.
 
@@ -83,7 +89,10 @@ class DeviceGraph(NamedTuple):
     src: torch.Tensor  # int32 [E], edge sources, dst-sorted order
     dst: torch.Tensor  # int32 [E], non-decreasing
     inv_outdeg: torch.Tensor  # f[N], 1/out_degree (1/out_strength weighted), 0 at dangling
-    dangling: torch.Tensor  # f[N], 1.0 where out_degree == 0
+    # f64[N], 1.0 where out_degree == 0, in float64 whatever the run's
+    # dtype: its product with the ranks is the float64 vector the dangling
+    # mass is summed over, with no cast of its own (:func:`dangling_mass`)
+    dangling: torch.Tensor
     has_outlinks: torch.Tensor  # f[N], 1.0 where out_degree > 0
     indptr: torch.Tensor | None = None  # int32 [N+1], CSR row pointers into dst
     hybrid: HybridLayout | None = None  # spmv_impl='hybrid' static layout
@@ -301,7 +310,7 @@ def put_graph(
         dst=put(graph.dst if keep_edge_arrays else empty),
         # weighted graphs normalize by out-strength, unweighted by out-degree
         inv_outdeg=put(graph.inv_out_strength(dtype)),
-        dangling=put(graph.out_degree == 0, dtype),
+        dangling=put(graph.out_degree == 0, "float64"),
         has_outlinks=put(graph.out_degree > 0, dtype),
         indptr=put(empty if indptr is None else indptr, "int32"),
         hybrid=hybrid,
@@ -502,6 +511,22 @@ def spmv(dg: DeviceGraph, weighted: torch.Tensor, n: int, impl: str) -> torch.Te
     raise ValueError(f"unknown spmv impl {impl!r}")
 
 
+def dangling_mass(ranks: torch.Tensor, dangling: torch.Tensor) -> torch.Tensor:  # graftlint: disable=implicit-promotion (ROADMAP Queue 3, float64 sums by design: the dangling mass is a float64 sum rounded once)
+    """``Σ ranks·dangling`` over the last axis (a 0-d tensor for one rank
+    vector, ``[B]`` for ``B`` rows) as a float64 sum, for the caller to
+    round to the ranks' dtype once.
+
+    The terms are ranks, around ``1/n`` or ``1``: in float64 their sum is
+    exact (or within one float64 ulp), so rounding it once gives the same
+    bits however the terms are split, over slots or a reduction's tree.
+    A float32 sum rounds at every addition, and one changed rounding of
+    this scalar, which is added to every entry, moves nearly every entry.
+    ``dangling`` is the 0/1 mask; in float64, as ``put_graph`` and the
+    sharded strategies' slots keep it, the product comes out in float64 in
+    one kernel and the sum needs no cast."""
+    return torch.sum(ranks * dangling, dim=-1, dtype=torch.float64)
+
+
 def pagerank_step(
     ranks: torch.Tensor,
     dg: DeviceGraph,
@@ -519,13 +544,15 @@ def pagerank_step(
     ``1.0`` under init=UNIFORM.  The restart distribution ``e`` sums to 1;
     both the restart and the redistributed dangling mass are spread
     according to it, so under dangling=redistribute ``sum(ranks) ==
-    total_mass`` holds every step.
+    total_mass`` holds every step.  The mass is a float64 0-d tensor: in
+    its product with ``e`` it is rounded to ``e``'s dtype first (type
+    promotion keeps the dimensioned operand's dtype), the one rounding,
+    with no kernel of its own.
     """
     weighted = ranks * dg.inv_outdeg
     contribs = spmv(dg, weighted, n, impl)
     if dangling is DanglingMode.REDISTRIBUTE:
-        dangling_mass = torch.sum(ranks * dg.dangling)
-        contribs = contribs + dangling_mass * e
+        contribs = contribs + dangling_mass(ranks, dg.dangling) * e
     base = (1.0 - damping) * total_mass * e
     return base + damping * contribs
 
@@ -546,12 +573,13 @@ def pagerank_step_batch(
     package maps the step over the rows with ``vmap``; here the SpMV runs
     row by row through :func:`spmv`, so the impl's 1-D kernel and the
     graph's plans serve every row (B launches a step), and the dangling
-    mass is a per-row sum."""
+    mass is a per-row float64 sum rounded once, so a row keeps the bits of
+    a one-query run."""
     weighted = ranks * dg.inv_outdeg
     contribs = torch.stack([spmv(dg, weighted[b], n, impl) for b in range(ranks.shape[0])])
     if dangling is DanglingMode.REDISTRIBUTE:
-        dangling_mass = torch.sum(ranks * dg.dangling, dim=-1, keepdim=True)
-        contribs = contribs + dangling_mass * e
+        mass = dangling_mass(ranks, dg.dangling).to(ranks.dtype)
+        contribs = contribs + mass.unsqueeze(-1) * e
     base = (1.0 - damping) * total_mass * e
     return base + damping * contribs
 

@@ -11,11 +11,14 @@ pointers ``put_graph`` builds over ``head_row_node`` and ``bucket_node``.
 On the card it is ``csrc/segment.cu``, built for ``sm_90a`` on first use
 (``ops/_build.py``): a merge-path split over rows and values, so a hub's
 segment spans many tiles, with every partial sum added in an order fixed
-by the shapes, in one launch a call.  Two calls give the same bits, which
-the float64 ``index_add_`` of :func:`segment_sum_plain` does not promise on
-CUDA.  The split is a :class:`SegmentPlan`, built once per pointer array
-(``put_graph`` builds one for each of its three) and passed to every call.
-On the CPU the wrapper runs :func:`segment_sum_plain` and ignores the plan.
+by the shapes, in one launch a call.  A float32 call may ask for its rows
+in float64 (``out_dtype``): the kernel's float64 row sums, not rounded,
+for a caller that adds rows summed on several slots and rounds once.  Two
+calls give the same bits, which the float64 ``index_add_`` of
+:func:`segment_sum_plain` does not promise on CUDA.  The split is a
+:class:`SegmentPlan`, built once per pointer array (``put_graph`` builds
+one for each of its three) and passed to every call.  On the CPU the
+wrapper runs :func:`segment_sum_plain` and ignores the plan.
 
 ``LAUNCHES`` counts kernel launches, so a run can show that it went
 through the kernel.  Under the static analyzer's trace (fake tensors on a
@@ -156,6 +159,17 @@ def _check_segment(values, ptr, n: int, src, edge_weight, plan) -> int:
     return e
 
 
+def _out_dtype(values: torch.Tensor, out_dtype: torch.dtype | None) -> torch.dtype:
+    """The rows' dtype: the values', or float64 where float32 values ask
+    for it."""
+    if out_dtype is None or out_dtype == values.dtype:
+        return values.dtype
+    if values.dtype == torch.float32 and out_dtype == torch.float64:
+        return out_dtype
+    raise TypeError(f"segment_sum widens only float32 to float64, got {values.dtype} "
+                    f"to {out_dtype}")
+
+
 def segment_sum_plain(
     values: torch.Tensor,
     ptr: torch.Tensor,
@@ -163,9 +177,12 @@ def segment_sum_plain(
     *,
     src: torch.Tensor | None = None,
     edge_weight: torch.Tensor | None = None,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """:func:`segment_sum_kernel` in plain PyTorch: the per-value segment
-    ids from ``ptr``, then one ``index_add_``, accumulated in float64.
+    ids from ``ptr``, then one ``index_add_``, accumulated in float64 and
+    rounded to ``out_dtype`` (default: the values' dtype) once.  The
+    product with ``edge_weight`` is taken in the values' dtype first.
     ``index_add_`` adds one value at a time into its segment, and a
     power-law hub's segment holds a large share of all edges at web-Google
     scale: a float32 running sum over it loses the accuracy the segment impl
@@ -178,7 +195,7 @@ def segment_sum_plain(
                                   output_size=per.shape[0])
     acc = torch.float64 if per.dtype == torch.float32 else per.dtype
     out = torch.zeros(n, dtype=acc, device=per.device)
-    return out.index_add_(0, ids, per.to(acc)).to(per.dtype)
+    return out.index_add_(0, ids, per.to(acc)).to(_out_dtype(per, out_dtype))
 
 
 def segment_sum_kernel(
@@ -189,11 +206,13 @@ def segment_sum_kernel(
     src: torch.Tensor | None = None,
     edge_weight: torch.Tensor | None = None,
     plan: SegmentPlan | None = None,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """``out[r] = Σ_{e in [ptr[r], ptr[r+1])} v[e]`` for ``r < n``, with
     ``v = values`` or, given ``src``, ``v[e] = values[src[e]] (·
     edge_weight[e])``, the product taken in ``values``' type.  float32 sums
-    in float64 and rounds once a row; float64 stays float64.
+    in float64 and rounds once a row, or, given ``out_dtype=torch.float64``,
+    returns the float64 row sums as they are; float64 stays float64.
     ``csrc/segment.cu`` on CUDA (one kernel a call, given ``ptr``'s plan),
     and :func:`segment_sum_plain` on the CPU.  With no values it returns
     zeros.
@@ -211,26 +230,33 @@ def segment_sum_kernel(
         without one on the card builds one, which reads ``ptr`` back to the
         host and allocates: it stays right and costs more.  The CPU
         ignores it.
+      out_dtype: the rows' dtype: the values' (default), or float64 for
+        float32 values.
     """
     e = _check_segment(values, ptr, n, src, edge_weight, plan)
+    out_dtype = _out_dtype(values, out_dtype)
     if values.device.type == "cpu":
-        return segment_sum_plain(values, ptr, n, src=src, edge_weight=edge_weight)
+        return segment_sum_plain(values, ptr, n, src=src, edge_weight=edge_weight,
+                                 out_dtype=out_dtype)
     if traced.is_fake(values):
-        return _segment_op()(values, ptr, n, src, edge_weight) if n and e else values.new_zeros(n)
-    out = torch.empty(n, dtype=values.dtype, device=values.device)
+        if not (n and e):
+            return values.new_zeros(n, dtype=out_dtype)
+        return _segment_op()(values, ptr, n, src, edge_weight, out_dtype)
+    out = torch.empty(n, dtype=out_dtype, device=values.device)
     lib = _build.library("segment")  # it returns at once for n = 0, zeros out for E = 0
     if plan is None:
         plan = segment_plan(ptr)
-    f32 = values.dtype == torch.float32
+    types = {(torch.float32, torch.float32): "f32", (torch.float64, torch.float64): "f64",
+             (torch.float32, torch.float64): "f32_f64"}[values.dtype, out_dtype]
     coords, state = plan.coords.data_ptr(), plan.state.data_ptr()
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream().cuda_stream
         if src is None:
-            launch = lib.segment_values_f32 if f32 else lib.segment_values_f64
+            launch = getattr(lib, f"segment_values_{types}")
             rc = launch(values.data_ptr(), ptr.data_ptr(), coords, out.data_ptr(), state,
                         plan.state.numel(), n, e, stream)
         else:
-            launch = lib.segment_gather_f32 if f32 else lib.segment_gather_f64
+            launch = getattr(lib, f"segment_gather_{types}")
             ew = None if edge_weight is None else edge_weight.data_ptr()
             rc = launch(src.data_ptr(), values.data_ptr(), ew, ptr.data_ptr(), coords,
                         out.data_ptr(), state, plan.state.numel(), n, e, stream)
@@ -240,15 +266,17 @@ def segment_sum_kernel(
     return out
 
 
-def _segment_impl(values, ptr, n, src, edge_weight):
-    return segment_sum_kernel(values, ptr, n, src=src, edge_weight=edge_weight)
+def _segment_impl(values, ptr, n, src, edge_weight, out_dtype=None):
+    return segment_sum_kernel(values, ptr, n, src=src, edge_weight=edge_weight,
+                              out_dtype=out_dtype)
 
 
-def _segment_fake(values, ptr, n, src, edge_weight):
-    return values.new_empty(n)
+def _segment_fake(values, ptr, n, src, edge_weight, out_dtype=None):
+    return values.new_empty(n, dtype=out_dtype)
 
 
 def _segment_op():
     return traced.kernel_op(
-        "segment", "(Tensor values, Tensor ptr, int n, Tensor? src, Tensor? edge_weight) -> Tensor",
+        "segment", "(Tensor values, Tensor ptr, int n, Tensor? src, Tensor? edge_weight, "
+                   "ScalarType? out_dtype=None) -> Tensor",
         _segment_impl, _segment_fake)

@@ -42,6 +42,17 @@ nodes and writes only those nodes, where the reference scatter-adds every
 row, its padding rows' 0.0 into node 0 included.  Partition arrays stay
 int32.
 
+Every sum whose terms are split over slots, or that decides the dangling
+mass added to every entry, is taken in float64 and rounded to the run's
+dtype once (``ops.pagerank.dangling_mass``; ``owned``'s head partials come
+out of ``segment.cu`` in float64).  So a fixed-count float32 run of
+``owned``, ``nodes`` or ``nodes_balanced``, whose rows each sum on one
+slot or in that float64 psum, has the bits of a one-device
+``run_pagerank`` under ``segment`` at every slot count, and across an
+elastic shrink.  ``edges``, ``hybrid``, ``src`` and ``src_ring`` still add
+whole float32 partial vectors over the slots (float64 would double the
+bytes of their exchange), so their float32 bits depend on the slot count.
+
 The per-slot memory budget of ``auto`` is half of each slot's share of
 its device's memory (``torch.cuda.get_device_properties().total_memory``,
 or the host's physical memory for a ``cpu`` slot), where the reference
@@ -600,6 +611,8 @@ class SlotArrays(NamedTuple):
     ptr: torch.Tensor | None = None  # int32 [S+1]
     plan: sk.SegmentPlan | None = None  # segment.cu's plan of ptr
     inv: torch.Tensor | None = None  # f [n_pad] replicated, [block] sharded
+    # f64, inv's shape: the 0/1 dangling mask in float64 whatever the run's
+    # dtype, so ops.pagerank.dangling_mass needs no cast
     dang: torch.Tensor | None = None
     head_src: torch.Tensor | None = None  # int32 [k, W]: the slot's real rows
     head_ptr: torch.Tensor | None = None  # int32 [runs+1] over the rows' head nodes
@@ -615,7 +628,7 @@ class SlotArrays(NamedTuple):
     hplan: sk.SegmentPlan | None = None
     out_idx: torch.Tensor | None = None  # owned: int32 [b_pad]
     inv_h: torch.Tensor | None = None  # owned: f [h_pad] replicated
-    dang_h: torch.Tensor | None = None
+    dang_h: torch.Tensor | None = None  # owned: f64 [h_pad] replicated
 
 
 def _put(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -652,8 +665,9 @@ def device_put_sharded_graph(sg: ShardedGraph, mesh: Mesh) -> list[SlotArrays]:
                 hptr=_put(hptr[i], dev), hplan=sk.segment_plan(hptr[i], device=dev),
                 out_idx=_put(shard.out_idx[i], dev),
                 inv=_put(shard.inv_tail[i * block:(i + 1) * block], dev),
-                dang=_put(shard.dang_tail[i * block:(i + 1) * block], dev),
-                inv_h=_put(shard.inv_head, dev), dang_h=_put(shard.dang_head, dev),
+                dang=_put(shard.dang_tail[i * block:(i + 1) * block].astype(np.float64), dev),
+                inv_h=_put(shard.inv_head, dev),
+                dang_h=_put(shard.dang_head.astype(np.float64), dev),
             ))
         return out
     if sg.local_indptr.shape[1] == 1:
@@ -671,8 +685,8 @@ def device_put_sharded_graph(sg: ShardedGraph, mesh: Mesh) -> list[SlotArrays]:
             ptr=_put(ptr, dev), plan=sk.segment_plan(ptr, device=dev),
             inv=_put(sg.inv_outdeg if replicated_state
                      else sg.inv_outdeg[i * block:(i + 1) * block], dev),
-            dang=_put(sg.dangling if replicated_state
-                      else sg.dangling[i * block:(i + 1) * block], dev),
+            dang=_put((sg.dangling if replicated_state
+                       else sg.dangling[i * block:(i + 1) * block]).astype(np.float64), dev),
         )
         if sg.strategy == "hybrid":
             k = int(sg.head_rows[i])
@@ -718,12 +732,17 @@ def make_sharded_runner(sg: ShardedGraph, cfg: PageRankConfig, mesh: Mesh):
     if sg.strategy == "owned":
         # per step and slot: the boundary butterfly and ONE [h_pad+2] psum,
         # whose two spare entries carry the dangling mass and the PREVIOUS
-        # step's local delta (so the convergence gauge lags one step)
+        # step's local delta (so the convergence gauge lags one step).  The
+        # buffer is float64: each slot's head partials as segment.cu's
+        # float64 row sums and its dangling mass as a float64 sum, added
+        # over the slots in slot order and rounded to the run's dtype once
+        # after the psum, as one device rounds each row and the mass once:
+        # a float32 run gets one device's bits at every slot count
         shard = sg.owned
         h_pad, d_ax = shard.h_pad, shard.d
         inv_d = 1.0 / d_ax  # d is a power of two: exact in binary fp
 
-        def owned_step(carry, dev, e):
+        def owned_step(carry, dev, e):  # graftlint: disable=implicit-promotion (ROADMAP Queue 3, float64 sums by design: the head partials and the dangling mass cross the slots in float64)
             tails, heads, dslots, _gd = carry
             e_t, e_h = e
             wts = [t * a.inv for t, a in zip(tails, dev)]
@@ -736,28 +755,30 @@ def make_sharded_runner(sg: ShardedGraph, cfg: PageRankConfig, mesh: Mesh):
                 tail_contribs.append(sk.segment_sum_kernel(
                     lookup, a.tptr, block, src=a.tsrc, edge_weight=a.tw, plan=a.tplan))
                 buf = sk.segment_sum_kernel(
-                    lookup, a.hptr, h_pad + 2, src=a.hsrc, edge_weight=a.hw, plan=a.hplan)
+                    lookup, a.hptr, h_pad + 2, src=a.hsrc, edge_weight=a.hw, plan=a.hplan,
+                    out_dtype=torch.float64)
                 if redistribute:
                     # the head is replicated: each slot adds 1/d of it so the
                     # psum restores one copy (d pow2: the scale is exact)
-                    buf[h_pad] += (torch.sum(tails[i] * a.dang)
-                                   + torch.sum(heads[i] * a.dang_h) * inv_d)
+                    buf[h_pad] += (ops.dangling_mass(tails[i], a.dang)
+                                   + ops.dangling_mass(heads[i], a.dang_h) * inv_d)
                 buf[h_pad + 1] += dslots[i][0]
                 bufs.append(buf)
             bufs = coll.psum(bufs, mesh=mesh)  # THE one psum of the step
             new = ([], [], [], [])
             for i in range(len(dev)):
-                head_contrib = bufs[i][:h_pad]
+                total = bufs[i].to(tails[i].dtype)  # the one rounding
+                head_contrib = total[:h_pad]
                 tail_contrib = tail_contribs[i]
                 if redistribute:
-                    dmass = bufs[i][h_pad]
+                    dmass = total[h_pad]
                     tail_contrib = tail_contrib + dmass * e_t[i]
                     head_contrib = head_contrib + dmass * e_h[i]
                 new_tail = (1.0 - damping) * total_mass * e_t[i] + damping * tail_contrib
                 new_head = (1.0 - damping) * total_mass * e_h[i] + damping * head_contrib
                 new_dslot = (torch.sum(torch.abs(new_tail - tails[i]))
                              + torch.sum(torch.abs(new_head - heads[i])) * inv_d)[None]
-                for lst, v in zip(new, (new_tail, new_head, new_dslot, bufs[i][h_pad + 1])):
+                for lst, v in zip(new, (new_tail, new_head, new_dslot, total[h_pad + 1])):
                     lst.append(v)
             return new
 
@@ -782,11 +803,12 @@ def make_sharded_runner(sg: ShardedGraph, cfg: PageRankConfig, mesh: Mesh):
         return ops.cumsum_diff_spmv(per_edge, a.ptr, cumsum_fn=ops.cumsum_blocked)
 
     def finish(contribs, e, dmass):
-        """Each slot's new ranks from its combined contributions."""
+        """Each slot's new ranks from its combined contributions, its
+        float64 dangling mass rounded to the run's dtype once."""
         out = []
         for i, c in enumerate(contribs):
             if redistribute:
-                c = c + dmass[i] * e[i]
+                c = c + dmass[i].to(c.dtype) * e[i]
             out.append((1.0 - damping) * total_mass * e[i] + damping * c)
         return out
 
@@ -815,7 +837,7 @@ def make_sharded_runner(sg: ShardedGraph, cfg: PageRankConfig, mesh: Mesh):
 
         def step(ranks, dev, e):
             contribs = coll.psum([partial_of(r, a) for r, a in zip(ranks, dev)], mesh=mesh)
-            dmass = ([torch.sum(r * a.dang) for r, a in zip(ranks, dev)]
+            dmass = ([ops.dangling_mass(r, a.dang) for r, a in zip(ranks, dev)]
                      if redistribute else None)
             return finish(contribs, e, dmass)
 
@@ -827,11 +849,11 @@ def make_sharded_runner(sg: ShardedGraph, cfg: PageRankConfig, mesh: Mesh):
         exchange = (coll.ring_reduce_scatter if sg.strategy == "src_ring"
                     else coll.reduce_scatter)
 
-        def step(ranks, dev, e):
+        def step(ranks, dev, e):  # graftlint: disable=implicit-promotion (ROADMAP Queue 3, float64 sums by design: the dangling mass crosses the slots in float64)
             contribs = exchange([local_reduce(r * a.inv, a, n_pad)
                                  for r, a in zip(ranks, dev)], mesh=mesh)
-            dmass = (coll.psum([torch.sum(r * a.dang) for r, a in zip(ranks, dev)], mesh=mesh)
-                     if redistribute else None)
+            dmass = (coll.psum([ops.dangling_mass(r, a.dang) for r, a in zip(ranks, dev)],
+                               mesh=mesh) if redistribute else None)
             return finish(contribs, e, dmass)
 
         def local_delta(new, old):
@@ -839,12 +861,12 @@ def make_sharded_runner(sg: ShardedGraph, cfg: PageRankConfig, mesh: Mesh):
                              mesh=mesh)[0]
     else:
         # node strategies: all_gather the weighted rank blocks, reduce into
-        # the slot's block, psum only the dangling-mass scalar
-        def step(ranks, dev, e):
+        # the slot's block, psum only the float64 dangling-mass scalar
+        def step(ranks, dev, e):  # graftlint: disable=implicit-promotion (ROADMAP Queue 3, float64 sums by design: the dangling mass crosses the slots in float64)
             full = coll.all_gather([r * a.inv for r, a in zip(ranks, dev)], mesh=mesh)
             contribs = [local_reduce(w, a, block) for w, a in zip(full, dev)]
-            dmass = (coll.psum([torch.sum(r * a.dang) for r, a in zip(ranks, dev)], mesh=mesh)
-                     if redistribute else None)
+            dmass = (coll.psum([ops.dangling_mass(r, a.dang) for r, a in zip(ranks, dev)],
+                               mesh=mesh) if redistribute else None)
             return finish(contribs, e, dmass)
 
         def local_delta(new, old):
@@ -880,9 +902,15 @@ class _ShardedExec:
         with Timer() as t_put:
             self.dev = device_put_sharded_graph(self.sg, mesh)
         item = np.dtype(cfg.dtype).itemsize
+        owned_extra = {}
         if self.sg.strategy == "owned":
             sh = self.sg.owned
             entries = ob.comm_entries_per_step(self.d, sh.b_pad, sh.h_pad)
+            # the reference's model counts the head psum's ring-allreduce
+            # entries in the run's item size; the [h_pad+2] buffer travels
+            # in float64 (owned_step), which these bytes count
+            owned_extra["head_psum_bytes_per_step"] = (
+                2 * (sh.h_pad + 2) * (self.d - 1) // self.d * 8)
         else:
             entries = _comm_entries(
                 self.sg.strategy, self.d, self.sg.n_pad, self.sg.block
@@ -897,7 +925,7 @@ class _ShardedExec:
             ),
             pad_frac=round(self.sg.pad_frac, 4), secs=t_part.elapsed,
             put_secs=t_put.elapsed, comm_bytes_per_step=self.comm_bytes_per_step,
-            processes=mesh.processes, backend=mesh.backend,
+            processes=mesh.processes, backend=mesh.backend, **owned_extra,
         )
         self._cfg = cfg
         self._metrics = metrics

@@ -23,14 +23,16 @@ D-shard layout on one card, as ``chip_smoke.py`` phase 16 builds it.  The
 reference forces the CPU for its dry run; the port runs where it is told.
 
 Each scale point is also held to one device: the ``owned`` ranks beside a
-one-device ``run_pagerank`` of the same graph and config, in float32 (the
-entries whose bits differ, and the L1) and in float64, where the L1 must
-stay within ``F64_L1`` (the sharded paths' bar against one device).
-Float32 bits are not held: ``owned`` adds the head's per-slot partial sums
-and the dangling mass's per-slot sums across the slots, in an order one
-device does not share (the reference's ``owned`` differs from its one
-device the same way).  Each point's record carries its graph build,
-partition and put seconds, iterations/s, the rank sum and
+one-device ``run_pagerank`` of the same graph and config, in float32, where
+no entry's bits may differ (``owned`` adds the head's per-slot partial sums
+and the dangling mass across the slots in float64 and rounds once, as one
+device rounds each row and the mass), and in float64, where the L1 must
+stay within ``F64_L1`` (the sharded paths' bar against one device).  The
+reference's ``owned`` does not hold float32 bits: it adds float32 partials
+across its devices.  Each point's record carries its graph build,
+partition and put seconds, iterations/s, the rank sum, the bytes the
+float64 head psum moves a step beside the reference's
+``comm_bytes_per_step`` model, and
 ``torch.cuda.max_memory_allocated`` over the float32 ``owned`` run (and
 what the card held before it) beside ``replicated_state_bytes``.  The host's Zipf build dominates the sweep's
 time; a caller may build the points' graphs ahead (:func:`sweep_points`,
@@ -210,10 +212,9 @@ def owned_scale_sweep(mesh, n_devices: int, graph_at=built_here) -> dict | None:
         l1_32 = float(np.abs(res.ranks.astype(np.float64) - one).sum())
         r64 = run_pagerank_sharded(g, cfg64, mesh=mesh, strategy="owned").ranks
         l1_64 = float(np.abs(r64 - run_pagerank(g, cfg64, device=one_device).ranks).sum())
-        check(l1_64 <= F64_L1, f"owned-scale {s:g}x: float64 L1 {l1_64} from one device "
-                               f"> {F64_L1:g}")
         rec = {"scale": s, "n": n, "e": e,
                "comm_bytes_per_step": int(part["comm_bytes_per_step"]),
+               "head_psum_bytes_per_step": int(part["head_psum_bytes_per_step"]),
                "build_secs": build_secs, "partition_secs": part["secs"],
                "put_secs": part["put_secs"], "iters_per_sec": rate, "rank_sum": total,
                "max_memory_allocated": peak, "memory_allocated_before": before,
@@ -222,10 +223,16 @@ def owned_scale_sweep(mesh, n_devices: int, graph_at=built_here) -> dict | None:
                "f64_l1_vs_one_device": l1_64}
         print(f"owned-scale {s:g}x held to one device ({one_device}): float32 {differ} of {n} "
               f"entries differ in bits, L1 {l1_32:.3g}; float64 L1 {l1_64:.3g} "
-              f"(bar {F64_L1:g}); build {build_secs:.2f} s, partition {part['secs']:.2f} s, "
+              f"(bar {F64_L1:g}); the float64 head psum moves "
+              f"{rec['head_psum_bytes_per_step']} B a step; "
+              f"build {build_secs:.2f} s, partition {part['secs']:.2f} s, "
               f"put {part['put_secs']:.2f} s, {rate:.2f} iterations/s, "
               f"max_memory_allocated {peak} B ({before} B held before the run) beside "
               f"replicated_state_bytes {rec['replicated_state_bytes']} B")
+        check(differ == 0, f"owned-scale {s:g}x: float32 {differ} of {n} entries differ in "
+                           "bits from one device")
+        check(l1_64 <= F64_L1, f"owned-scale {s:g}x: float64 L1 {l1_64} from one device "
+                               f"> {F64_L1:g}")
         records.append(rec)
         top = g
     if len(records) < 2:

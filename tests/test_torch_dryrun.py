@@ -121,16 +121,28 @@ def test_sweep_verdict_matches_the_references(both):
 
 
 def test_sweep_holds_owned_to_one_device(both):
-    """Each point's float64 owned within 1e-9 L1 of one device; float32's
-    differing bits and L1 are recorded."""
+    """Each point's float64 owned within 1e-9 L1 of one device, and its
+    float32 owned equal to one device bit for bit."""
     _, port, _ = both
     for p in port["owned_scale"]["points"]:
         assert p["f64_l1_vs_one_device"] <= dryrun.F64_L1
-        assert 0 <= p["f32_entries_differ_from_one_device"] <= p["n"]
+        assert p["f32_entries_differ_from_one_device"] == 0
         assert p["f32_l1_vs_one_device"] <= 1e-6
         # CPU slots: no card memory
         assert p["max_memory_allocated"] is None and p["memory_allocated_before"] is None
         assert p["partition_secs"] >= 0 and p["iters_per_sec"] > 0
+
+
+def test_sweep_records_the_float64_head_psum_bytes(both):
+    """Beside the reference's model, each point records what the owned
+    step's float64 [h_pad+2] head psum moves a step: the model's
+    ring-allreduce entries at 8 bytes each."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel import pagerank_sharded as tps
+
+    d, port, _ = both
+    for p in port["owned_scale"]["points"]:
+        sh = tps.partition_graph(dryrun.sweep_graph(p["n"], p["e"]), d, strategy="owned").owned
+        assert p["head_psum_bytes_per_step"] == 2 * (sh.h_pad + 2) * (d - 1) // d * 8 > 0
 
 
 def test_exponent_assertion_fires_on_a_4x_sweep():

@@ -14,7 +14,11 @@
 - owned PageRank: slot-count invariance against the single-device run and
   the reference within 1e-12, the lagged delta under ``tol``, drop with
   init one, personalization, checkpoint and resume, its refusals, a
-  weighted graph, and the 4 -> 2 -> 1 shrink with the reference's records.
+  weighted graph, and the 4 -> 2 -> 1 shrink with the reference's records;
+- float32 owned bit for bit equal to a one-device run at D = 1, 2, 4, 8
+  and across the 4 -> 2 -> 1 shrink (its head partials and dangling mass
+  summed in float64 and rounded once), and the widened segmented sum
+  under it: the float64 sum of the float32 products.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.partition import 
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io import graph as tg
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.models.pagerank import run_pagerank
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import boundary as ob
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import segment_kernels as sk
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel import mesh as pmesh
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.parallel import pagerank_sharded as tps
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos, elastic
@@ -362,3 +367,123 @@ def test_owned_loss_at_result_pull(tmp_path):
     deg = [r for r in m.records if r.get("event") == "degraded"]
     assert [(d["ladder"], d["site"]) for d in deg] == [("single_device", "pagerank_result_pull")]
     assert np.abs(res.ranks - base).sum() <= 1e-9
+
+
+# ----------------------------------- float32 owned: one device's bits at every D
+
+F32_FIXED = dict(iterations=20, **F32)
+SHRINK_PLAN = "pagerank_step:device_lost@dev:1;pagerank_elastic_rerun:device_lost@dev:2"
+
+
+def _zipf_graphs() -> dict:
+    """Zipf graphs with Zipf sources, so many nodes are dangling, and a hub
+    head that ``owned`` replicates, whose rows the slots split: unweighted,
+    and weighted.  With the float32 head partials and dangling mass the
+    slots used to add, a third to a half of their entries differed from one
+    device after 20 iterations; with the float32 head partials alone, some
+    entries at D = 2, 4 and 8 on one graph or the other."""
+    g0 = tg.synthetic_zipf(4000, 40000, seed=9, src_exponent=1.2)
+    w = np.random.default_rng(3).random(g0.n_edges) + 0.1
+    return {"unweighted": tg.synthetic_zipf(8000, 80000, seed=7, src_exponent=1.2),
+            "weighted": tg.from_edges(g0.src, g0.dst, weight=w)}
+
+
+@pytest.fixture(scope="module")
+def f32_graphs():
+    """Each graph and its one-device float32 ranks under ``segment``."""
+    return {k: (g, run_pagerank(g, tcfg.PageRankConfig(**F32_FIXED), device="cpu").ranks)
+            for k, g in _zipf_graphs().items()}
+
+
+def _bits_differ(a: np.ndarray, b: np.ndarray) -> int:
+    return int(np.count_nonzero(a.view(np.uint32) != b.view(np.uint32)))
+
+
+@pytest.mark.parametrize("kind", ["unweighted", "weighted"])
+def test_f32_graphs_have_dangling_nodes_and_a_head(f32_graphs, kind):
+    g, one = f32_graphs[kind]
+    assert (g.out_degree == 0).sum() > g.n_nodes // 10
+    assert tps.partition_graph(g, 4, strategy="owned").owned.h > 0
+    assert one.dtype == np.float32 and np.isfinite(one).all()
+
+
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+@pytest.mark.parametrize("kind", ["unweighted", "weighted"])
+def test_float32_owned_has_one_devices_bits(f32_graphs, kind, d):
+    """A fixed-count float32 owned run equals one-device ``run_pagerank``
+    bit for bit at every slot count."""
+    g, one = f32_graphs[kind]
+    res = tps.run_pagerank_sharded(g, tcfg.PageRankConfig(**F32_FIXED), mesh=cpu_mesh(d),
+                                   strategy="owned")
+    assert res.ranks.dtype == np.float32 and res.iterations == 20
+    assert res.ranks.tobytes() == one.tobytes(), _bits_differ(res.ranks, one)
+
+
+@pytest.mark.parametrize("kind", ["unweighted", "weighted"])
+def test_float32_owned_shrink_keeps_the_unbroken_bits(f32_graphs, kind, tmp_path):
+    """Under ``test_owned_shrink_ladder_4_2_1``'s plan a float32 owned run
+    walks 4 -> 2 -> 1 slots and ends with the unbroken run's bits, which
+    are one device's."""
+    g, _ = f32_graphs[kind]
+    kw = dict(iterations=8, **F32)
+    one = run_pagerank(g, tcfg.PageRankConfig(**kw), device="cpu").ranks
+    unbroken = tps.run_pagerank_sharded(g, tcfg.PageRankConfig(**kw), mesh=cpu_mesh(4),
+                                        strategy="owned").ranks
+    m = MetricsRecorder()
+    with chaos.inject(SHRINK_PLAN):
+        res = tps.run_pagerank_sharded(
+            g, tcfg.PageRankConfig(checkpoint_every=4, checkpoint_dir=str(tmp_path / "ck"), **kw),
+            mesh=cpu_mesh(4), strategy="owned", metrics=m)
+    assert [r["devices"] for r in m.records if r.get("event") == "partition"] == [4, 2, 1]
+    assert res.iterations == 8
+    assert res.ranks.tobytes() == unbroken.tobytes() == one.tobytes(), \
+        (_bits_differ(res.ranks, unbroken), _bits_differ(unbroken, one))
+
+
+def _csr(rng, n: int, e: int) -> torch.Tensor:
+    dst = np.sort(rng.integers(0, n, e))
+    return torch.from_numpy(np.searchsorted(dst, np.arange(n + 1)).astype(np.int32))
+
+
+@pytest.mark.parametrize("loader", ["values", "gather", "gather weighted"])
+def test_widened_segment_sum_is_the_float64_sum_of_float32_products(loader):
+    """``out_dtype=torch.float64`` on float32 values gives each row's
+    float64 sum of the float32 values or products, not rounded: the float32
+    rows are those sums rounded once.  The product with the edge weight is
+    a float32 product, as one device takes it; a float64 one is another
+    number."""
+    rng = np.random.default_rng(12)
+    n, e, table = 60, 900, 300
+    ptr = _csr(rng, n, e)
+    w = torch.from_numpy(rng.random(e if loader == "values" else table).astype(np.float32))
+    src = (None if loader == "values"
+           else torch.from_numpy(rng.integers(0, table, e).astype(np.int32)))
+    ew = (torch.from_numpy((rng.random(e) + 0.5).astype(np.float32))
+          if loader == "gather weighted" else None)
+    got = sk.segment_sum_plain(w, ptr, n, src=src, edge_weight=ew, out_dtype=torch.float64)
+    per = w if src is None else w[src]
+    if ew is not None:
+        per = per * ew  # float32 products
+    ids = torch.repeat_interleave(torch.arange(n), ptr.diff().long())
+    want = torch.zeros(n, dtype=torch.float64).index_add_(0, ids, per.double())
+    assert got.dtype == torch.float64 and torch.equal(got, want)
+    assert torch.equal(sk.segment_sum_kernel(w, ptr, n, src=src, edge_weight=ew,
+                                             out_dtype=torch.float64), got)
+    assert torch.equal(sk.segment_sum_plain(w, ptr, n, src=src, edge_weight=ew),
+                       want.float())
+    if ew is not None:
+        wide = torch.zeros(n, dtype=torch.float64).index_add_(
+            0, ids, w.double()[src] * ew.double())
+        assert not torch.equal(wide, want)
+
+
+def test_widening_takes_only_float32_to_float64():
+    rng = np.random.default_rng(1)
+    ptr = _csr(rng, 4, 16)
+    x32 = torch.from_numpy(rng.random(16).astype(np.float32))
+    assert sk.segment_sum_kernel(x32, ptr, 4, out_dtype=torch.float32).dtype == torch.float32
+    assert sk.segment_sum_kernel(x32.double(), ptr, 4,
+                                 out_dtype=torch.float64).dtype == torch.float64
+    for values, out in ((x32.double(), torch.float32), (x32, torch.float16)):
+        with pytest.raises(TypeError, match="widens only float32 to float64"):
+            sk.segment_sum_kernel(values, ptr, 4, out_dtype=out)

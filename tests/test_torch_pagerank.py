@@ -6,11 +6,13 @@ agree to 1e-12 of the total rank mass (the prefix-sum impls' float64
 accuracy class, ``ops/pagerank.py`` spmv_cumsum).
 """
 
+import math
 import pathlib
 
 import networkx as nx
 import numpy as np
 import pytest
+import torch
 
 from page_rank_and_tfidf_using_apache_spark_tpu.cli import pagerank as jcli
 from page_rank_and_tfidf_using_apache_spark_tpu.io import graph as jg
@@ -161,6 +163,32 @@ def test_tolerance_early_stop_matches_jax():
     assert got.l1_delta <= 1e-10
     assert abs(got.l1_delta - want.l1_delta) <= TOL
     assert np.abs(got.ranks - want.ranks).max() <= TOL
+
+
+def test_dangling_mass_is_a_float64_sum_rounded_once():
+    """``dangling_mass`` sums ranks at the dangling nodes in float64 (exact
+    for ranks around 1/n), over the last axis; ``put_graph`` keeps the
+    mask in float64, and the step adds that mass rounded to float32 once."""
+    g = tg.synthetic_zipf(3000, 9000, seed=2, src_exponent=1.2)
+    n = g.n_nodes
+    dg = tops.put_graph(g, "float32", device="cpu")
+    assert dg.dangling.dtype == torch.float64 and dg.inv_outdeg.dtype == torch.float32
+    rng = np.random.default_rng(0)
+    ranks = torch.from_numpy(((0.5 + rng.random((3, n))) / n).astype(np.float32))
+    mask = g.out_degree == 0
+    assert mask.sum() > n // 10
+    exact = [math.fsum(r[mask].astype(np.float64)) for r in ranks.numpy()]
+    mass = tops.dangling_mass(ranks, dg.dangling)
+    assert mass.dtype == torch.float64 and mass.tolist() == exact
+    one = tops.dangling_mass(ranks[0], dg.dangling)
+    assert one.shape == () and one.item() == exact[0]
+    assert torch.equal(tops.dangling_mass(ranks, dg.dangling.float()), mass)
+    e = torch.full((n,), 1.0 / n, dtype=torch.float32)
+    got = tops.pagerank_step(ranks[0], dg, e, n=n, damping=0.85,
+                             dangling=tops.DanglingMode.REDISTRIBUTE, total_mass=1.0)
+    contribs = tops.spmv(dg, ranks[0] * dg.inv_outdeg, n, "segment")
+    want = (1.0 - 0.85) * 1.0 * e + 0.85 * (contribs + mass[0].to(torch.float32) * e)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
 
 
 def test_zero_iterations_and_empty_graph():

@@ -15,6 +15,8 @@ one process (``make_mesh(d, devices=["cpu"] * d)``).  Held here:
   the reference's in float64 and within 1e-9 L1 of the single-device run;
   dangling drop with init one, personalization, ``tol``, checkpoint and
   resume, ``auto`` and the refusals;
+- float32 ``nodes`` and ``nodes_balanced`` at D = 2 and 4 bit for bit equal
+  to the single-device run (their float64 dangling-mass psum);
 - ``auto_select_strategy``'s choice equal to the reference's at a given
   ``hbm_bytes``;
 - the elastic mesh shrink: the same ``chaos`` plan through both packages
@@ -383,6 +385,39 @@ def test_weighted_sharded_matches_single(graphs):
         res = tps.run_pagerank_sharded(g, tcfg.PageRankConfig(iterations=20, **F64),
                                        mesh=cpu_mesh(4), strategy=strategy)
         assert np.abs(res.ranks - base).sum() <= 1e-9, strategy
+
+
+# ------------------------------------- float32 bits of the node strategies
+
+F32_FIXED = dict(iterations=20, dangling="redistribute", init="uniform", dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def f32_graphs():
+    """Zipf graphs with many dangling nodes (Zipf sources), unweighted and
+    weighted, each with its one-device float32 ranks under ``segment``."""
+    g0 = tg.synthetic_zipf(4000, 40000, seed=9, src_exponent=1.2)
+    w = np.random.default_rng(3).random(g0.n_edges) + 0.1
+    graphs = {"unweighted": tg.synthetic_zipf(8000, 80000, seed=7, src_exponent=1.2),
+              "weighted": tg.from_edges(g0.src, g0.dst, weight=w)}
+    return {k: (g, run_pagerank(g, tcfg.PageRankConfig(**F32_FIXED), device="cpu").ranks)
+            for k, g in graphs.items()}
+
+
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("strategy", ["nodes", "nodes_balanced"])
+@pytest.mark.parametrize("kind", ["unweighted", "weighted"])
+def test_float32_node_strategies_have_one_devices_bits(f32_graphs, kind, strategy, d):
+    """Each row sums whole on its slot, and the dangling mass crosses the
+    slots in float64 and rounds once: a fixed-count float32 run equals one
+    device bit for bit."""
+    g, one = f32_graphs[kind]
+    assert (g.out_degree == 0).sum() > g.n_nodes // 10
+    res = tps.run_pagerank_sharded(g, tcfg.PageRankConfig(**F32_FIXED), mesh=cpu_mesh(d),
+                                   strategy=strategy)
+    assert res.ranks.dtype == np.float32
+    differ = int(np.count_nonzero(res.ranks.view(np.uint32) != one.view(np.uint32)))
+    assert res.ranks.tobytes() == one.tobytes(), differ
 
 
 # --------------------------------------------------------- elastic shrink

@@ -578,6 +578,19 @@ def test_each_kernel_traces_as_one_op(name):
     assert torch.equal(got, plain(*args))
 
 
+def test_widened_segment_traces_as_one_op_of_its_dtype():
+    """The owned head's float32-in, float64-out call traces as one
+    ``segment`` op whose result is float64, as it runs."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import segment_kernels as sk
+
+    trace = tr.trace_variant(
+        lambda v, p, s: sk.segment_sum_kernel(v, p, 4, src=s, out_dtype=torch.float64),
+        (tr.spec((8,), torch.float32), tr.spec((5,), torch.int32), tr.spec((16,), torch.int32)))
+    assert [n.target for n in trace.nodes] == ["graft_torch.segment.default"]
+    assert [(tuple(shape), dtype) for shape, dtype, _ in trace.nodes[0].outputs] == \
+        [((4,), torch.float64)]
+
+
 # ------------------------------------------------------------ CLI plumbing
 
 

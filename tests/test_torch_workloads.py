@@ -152,6 +152,21 @@ def test_ppr_rows_equal_single_query_runs(impl):
         assert np.abs(res.ranks[qi] - one.ranks).max() <= TOL
 
 
+@pytest.mark.parametrize("impl", ["segment", "hybrid"])
+def test_float32_ppr_rows_have_single_query_bits(impl):
+    """In float32 too a row of the batch is the single-query run bit for
+    bit: both add the float64 dangling mass rounded once."""
+    _, g = graphs()
+    cfg = tcfg.PageRankConfig(iterations=25, dangling="redistribute", init="uniform",
+                              dtype="float32", spmv_impl=impl, head_row_width=8)
+    qs = queries_of(g)
+    res = tppr.run_ppr_batch(g, cfg, qs, device="cpu")
+    for qi, q in enumerate(qs):
+        one = run_pagerank(g, dataclasses.replace(cfg, personalize=tuple(q)), device="cpu")
+        assert res.ranks[qi].dtype == np.float32
+        assert res.ranks[qi].tobytes() == one.ranks.tobytes(), qi
+
+
 def test_ppr_matches_networkx_personalization():
     _, g = graphs(150, 700, seed=11)
     G = nx_digraph(g)
