@@ -1,0 +1,7 @@
+"""Personalized queries answered by the window's calls, a second of the window."""
+
+from portbench import layers
+
+
+def read(ctx):
+    return layers.rate(ctx, "queries")
