@@ -1118,9 +1118,10 @@ def check_cli_trace(trace_dir: str, profile_dir: str) -> None:
     check(len(traces) == 1, f"CLI trace dir holds {traces}")
     rep = trace_report.report(traces[0])
     man = rep["manifest"]
-    check("pagerank.result_pull" in rep["breakdown"] and man["status"] == "ok"
-          and man["backend"] == "cuda",
-          f"CLI trace: phases {sorted(rep['breakdown'])}, manifest {man}")
+    check("pagerank.call" in rep["breakdown"] and "pagerank.result_pull" in rep["spans"]
+          and man["status"] == "ok" and man["backend"] == "cuda",
+          f"CLI trace: top-level {sorted(rep['breakdown'])}, spans {sorted(rep['spans'])}, "
+          f"manifest {man}")
     profiles = glob.glob(os.path.join(profile_dir, "*.pt.trace.json"))
     check(len(profiles) == 1, f"CLI profile dir holds {profiles}")
     with open(profiles[0]) as f:
@@ -2634,7 +2635,7 @@ def hits_phase(graph, reset_counts, counts, card_label: str) -> dict:
         add_counts(total, launched)
         rates, differ = [], 0
         for res in [first] + [run_hits(graph, cfg, device="cuda") for _ in range(WORKLOAD_RUNS - 1)]:
-            rates.append(res.metrics.records[-1]["iters_per_sec"])
+            rates.append(last_segment(res.metrics)["iters_per_sec"])
             differ = max(differ, bits_differ(res.hubs, first.hubs),
                          bits_differ(res.authorities, first.authorities))
         want = {k: 0 for k in launched}
@@ -3220,6 +3221,11 @@ def resumed_on_cpu(run, cfg, src_dir: str, at_iter: int, tmp: str, label: str):
     start = [r["start_iter"] for r in res.metrics.records if r.get("event") == "resume"]
     check(start == ([at_iter] if at_iter else []), f"{label}: the CPU run resumed at {start}")
     return res
+
+
+def last_segment(metrics) -> dict:
+    """The run's last segment record (a ``result_pull`` record follows it)."""
+    return next(r for r in reversed(metrics.records) if "iters_per_sec" in r)
 
 
 def cpu_rate(metrics) -> str:
@@ -4019,7 +4025,7 @@ def tuned_ab_phase(graph, docs, prof, out, index, card_label: str) -> None:
     rates = {name: {"D": [], "P": []} for name in cfgs}
     for side in TUNE_AB_ORDER:
         res = run_pagerank(graph, cfgs["pagerank"][side], device="cuda")
-        rates["pagerank"][side].append(res.metrics.records[-1]["iters_per_sec"])
+        rates["pagerank"][side].append(last_segment(res.metrics)["iters_per_sec"])
         t0 = time.perf_counter()
         s = tm.run_tfidf_streaming(iter(chunks), cfgs["stream"][side], device="cuda")
         secs = time.perf_counter() - t0
@@ -6107,12 +6113,12 @@ def main() -> int:
               f"{impl}: the run built plans {built}, one graph's put_graph builds {per_graph}")
         ranks = res.ranks
         ranks_by_impl[impl] = ranks
-        step = res.metrics.records[-1]
+        step = last_segment(res.metrics)
         put = next(r for r in res.metrics.records if r.get("event") == "put_graph")
         total = float(ranks.sum(dtype=np.float64))
         l1 = float(np.abs(ranks.astype(np.float64) - ref).sum())
         rates = [step["iters_per_sec"]] + [
-            run_pagerank(graph, cfg, device="cuda").metrics.records[-1]["iters_per_sec"]
+            last_segment(run_pagerank(graph, cfg, device="cuda").metrics)["iters_per_sec"]
             for _ in range(4)]
         print(f"main path {impl}: {np.median(rates):.2f} iterations/s median of 5 runs "
               f"(min {min(rates):.2f}, max {max(rates):.2f}; counted run "

@@ -103,7 +103,8 @@ def run_components(
         cfg, metrics, site_prefix="cc",
         init_state=lambda: np.arange(n, dtype=np.int32),
         make_runner=lambda seg_cfg: make_components_runner(n, seg_cfg),
-        build_operands=lambda on: (ops.put_graph(graph, "float32", device=on),),
+        build_operands=lambda on, stats: (ops.put_graph(graph, "float32", device=on,
+                                                        stats=stats),),
         call=lambda runner, ops_t, ld: runner(ops_t[0], ld),
         device=dev, resume=resume,
     )

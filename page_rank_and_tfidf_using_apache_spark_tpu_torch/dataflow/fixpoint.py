@@ -42,7 +42,11 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import elastic
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import executor as rx
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import checkpoint as ckpt
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import resolve_device
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import (
+    h2d,
+    put_stats,
+    resolve_device,
+)
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder, Timer
 
 
@@ -447,7 +451,7 @@ def run_single_chip_fixpoint(
     site_prefix: str,
     init_state: Callable[[], np.ndarray],
     make_runner: Callable,
-    build_operands: Callable[[torch.device], tuple],
+    build_operands: Callable[[torch.device, dict | None], tuple],
     call: Callable,
     device: str | torch.device | None = None,
     resume: bool = False,
@@ -459,34 +463,48 @@ def run_single_chip_fixpoint(
       with ``resume`` the newest checkpoint under ``cfg.checkpoint_dir``
       replaces it (:func:`resume_state`) and the run starts at its
       iteration;
-    - ``build_operands(device)`` builds the non-carry operands (graph
-      layout, teleport matrix, ...) on ``device`` from host state: once on
-      the run's device, and again on the CPU inside the salvage, so a
-      recovery never reads a lost device's memory (torch has no default
-      device to switch, so the device is passed);
+    - ``build_operands(device, stats)`` builds the non-carry operands
+      (graph layout, teleport matrix, ...) on ``device`` from host state:
+      once on the run's device, with ``stats`` a ``utils.device.put_stats``
+      dict that its copies and plan builds fill, and again on the CPU
+      inside the salvage, with ``stats`` None, so a recovery never reads a
+      lost device's memory (torch has no default device to switch, so the
+      device is passed);
     - ``call(runner, operands, carry)`` runs the runner in the workload's
       argument order and returns ``(carry, iters, delta)`` with the delta
       a 0-d tensor.
 
-    The carry goes up with ``torch.from_numpy(...).to(device)`` and comes
-    back through ``rx.device_get``, so it keeps its dtype both ways.  Spans,
-    each around the guarded site of the same name (``{site_prefix}_...``):
+    The carry goes up through ``utils.device.h2d`` and comes back through
+    ``rx.device_get``, so it keeps its dtype both ways.  Spans, each around
+    the guarded site of the same name (``{site_prefix}_...``):
     ``{site_prefix}.delta_sync``, ``{site_prefix}.ckpt_pull``,
     ``{site_prefix}.result_pull``, those of :func:`run_segments`, and the
-    salvage's ``{site_prefix}.cpu_salvage``.  Runs on ``cuda`` unless
-    ``device`` says otherwise.
+    salvage's ``{site_prefix}.cpu_salvage``; besides, ``{site_prefix}.prep``
+    (``init_state()`` and the carry's upload; ``resume`` is outside it, and
+    a resumed carry is uploaded again) and ``{site_prefix}.put_graph``
+    (``build_operands``).  The ``put_graph`` record carries the put's
+    seconds (``preprocess_secs``), its copies' and plans' (``put_stats``)
+    and the prep's (``prep_secs``); a ``result_pull`` record the pull's
+    ``secs`` and ``bytes``.  Runs on ``cuda`` unless ``device`` says
+    otherwise.
 
     Returns ``(state_np, iterations, last_delta)``.
     """
     dev = resolve_device(device)
     cpu = torch.device("cpu")
-    state0 = init_state()
+    with Timer() as t_prep, obs.span(f"{site_prefix}.prep"):
+        state0 = init_state()
+        state_dev = h2d(state0, dev)
     state_dtype = state0.dtype
-    start_iter = resume_state(cfg, metrics, state0) if resume else 0
-    with Timer() as t_put:
-        operands = build_operands(dev)
-    metrics.record(event="put_graph", preprocess_secs=t_put.elapsed)
-    state_dev = torch.from_numpy(state0).to(dev)
+    start_iter = 0
+    if resume:
+        start_iter = resume_state(cfg, metrics, state0)
+        state_dev = h2d(state0, dev)  # the checkpoint's state
+    stats = put_stats()
+    with Timer() as t_put, obs.span(f"{site_prefix}.put_graph"):
+        operands = build_operands(dev, stats)
+    metrics.record(event="put_graph", preprocess_secs=t_put.elapsed, **stats,
+                   prep_secs=t_prep.elapsed)
 
     def make_invoke(ops_tuple):
         def invoke(runner, rd):
@@ -508,7 +526,7 @@ def run_single_chip_fixpoint(
             )
 
     def cpu_salvage_exec(rerun_cfg, state_np):
-        cpu_ops = build_operands(cpu)
+        cpu_ops = build_operands(cpu, None)
         rd_cpu = torch.from_numpy(np.asarray(state_np).astype(state_dtype))
         runner = make_runner(rerun_cfg)
         rd2, iters, delta = call(runner, cpu_ops, rd_cpu)
@@ -526,7 +544,7 @@ def run_single_chip_fixpoint(
         ),
         site_prefix=site_prefix,
     )
-    with obs.span(f"{site_prefix}.result_pull"):
+    with Timer() as t_pull, obs.span(f"{site_prefix}.result_pull"):
         state_np = rx.device_get(
             state_dev, site=f"{site_prefix}_result_pull", metrics=metrics,
             checkpoint_dir=cfg.checkpoint_dir,
@@ -536,4 +554,5 @@ def run_single_chip_fixpoint(
                 get_done=lambda: done,
             ))],
         )
+    metrics.record(event="result_pull", secs=t_pull.elapsed, bytes=state_np.nbytes)
     return state_np, done, last_delta

@@ -36,7 +36,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import Graph
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pagerank as ops
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import segment_kernels as sk
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import HitsConfig
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import resolve_device
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import h2d, resolve_device
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder
 
 
@@ -50,20 +50,22 @@ class HitsGraph(NamedTuple):
     rev_plan: sk.SegmentPlan  # the segment kernel's plan of rev_ptr
 
 
-def put_hits_graph(graph: Graph, dtype: str, device: str | torch.device) -> HitsGraph:
+def put_hits_graph(graph: Graph, dtype: str, device: str | torch.device,
+                   stats: dict | None = None) -> HitsGraph:
     """``ops.put_graph`` plus the src-sorted layout of the reverse pass.
     The argsort is stable, so a source's edges keep their dst order: the
-    order in which the JAX package's scatter adds them."""
+    order in which the JAX package's scatter adds them.  ``stats`` is
+    ``ops.put_graph``'s, and takes the reverse layout's copies and plan
+    too."""
     order = np.argsort(graph.src, kind="stable")
     rev_ptr = ops.segment_pointers(graph.src[order], graph.n_nodes)
     weighted = graph.weight is not None
     return HitsGraph(
-        fwd=ops.put_graph(graph, dtype, device=device),
-        rev_ptr=torch.from_numpy(rev_ptr).to(device),
-        rev_dst=torch.from_numpy(graph.dst[order].astype(np.int32)).to(device),
-        rev_w=(torch.from_numpy(graph.weight[order].astype(dtype)).to(device)
-               if weighted else None),
-        rev_plan=sk.segment_plan(rev_ptr, device=device),
+        fwd=ops.put_graph(graph, dtype, device=device, stats=stats),
+        rev_ptr=h2d(rev_ptr, device, stats),
+        rev_dst=h2d(graph.dst[order].astype(np.int32), device, stats),
+        rev_w=h2d(graph.weight[order].astype(dtype), device, stats) if weighted else None,
+        rev_plan=sk.segment_plan(rev_ptr, device=device, stats=stats),
     )
 
 
@@ -126,7 +128,7 @@ def run_hits(
         cfg, metrics, site_prefix="hits",
         init_state=lambda: np.full((2, n), 1.0 / n, cfg.dtype),
         make_runner=lambda seg_cfg: make_hits_runner(n, seg_cfg),
-        build_operands=lambda on: (put_hits_graph(graph, cfg.dtype, on),),
+        build_operands=lambda on, stats: (put_hits_graph(graph, cfg.dtype, on, stats),),
         call=lambda runner, ops_t, hd: runner(ops_t[0], hd),
         device=dev, resume=resume,
     )

@@ -20,6 +20,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow import fixpoint as dflow
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import Graph
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.models import driver
@@ -29,8 +30,8 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
     PageRankConfig,
     RankInit,
 )
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import resolve_device
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import h2d, resolve_device
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder, Timer
 
 
 def make_ppr_batch_runner(n: int, cfg: PageRankConfig):
@@ -93,7 +94,13 @@ def run_ppr_batch(
 
     ``cfg.personalize`` must stay None: the per-query sets arrive in
     ``queries`` (original node ids).  The checkpoint payload is the
-    ``[B, n]`` rank matrix; ``resume=True`` starts from the newest one."""
+    ``[B, n]`` rank matrix; ``resume=True`` starts from the newest one.
+
+    The call is a ``ppr.call`` span (attributes ``nodes``, ``edges``,
+    ``queries``) over a ``ppr.prep`` span of ``restart_batch``, whose
+    seconds the ``ppr_batch`` record carries as ``prep_secs``, and the
+    fixpoint driver's spans; the restart matrix goes up inside
+    ``ppr.put_graph``."""
     dev = resolve_device(device)
     if cfg.personalize is not None:
         raise ValueError("run_ppr_batch takes queries=, not cfg.personalize")
@@ -103,18 +110,20 @@ def run_ppr_batch(
         raise ValueError("need at least one personalization query")
     metrics = metrics or MetricsRecorder()
     n = graph.n_nodes
-    e_host = restart_batch(graph, cfg, queries)
     b = len(queries)
-    metrics.record(event="ppr_batch", queries=b, nodes=n)
+    with obs.span("ppr.call", nodes=n, edges=graph.n_edges, queries=b):
+        with Timer() as t_prep, obs.span("ppr.prep"):
+            e_host = restart_batch(graph, cfg, queries)
+        metrics.record(event="ppr_batch", queries=b, nodes=n, prep_secs=t_prep.elapsed)
 
-    ranks_np, done, last_delta = dflow.run_single_chip_fixpoint(
-        cfg, metrics, site_prefix="ppr",
-        init_state=lambda: np.broadcast_to(ops.init_ranks(n, cfg), (b, n)).copy(),
-        make_runner=lambda seg_cfg: make_ppr_batch_runner(n, seg_cfg),
-        build_operands=lambda on: (put_graph_for(graph, cfg, on),
-                                   torch.from_numpy(e_host).to(on)),
-        call=lambda runner, ops_t, rd: runner(ops_t[0], rd, ops_t[1]),
-        device=dev, resume=resume,
-    )
+        ranks_np, done, last_delta = dflow.run_single_chip_fixpoint(
+            cfg, metrics, site_prefix="ppr",
+            init_state=lambda: np.broadcast_to(ops.init_ranks(n, cfg), (b, n)).copy(),
+            make_runner=lambda seg_cfg: make_ppr_batch_runner(n, seg_cfg),
+            build_operands=lambda on, stats: (put_graph_for(graph, cfg, on, stats),
+                                              h2d(e_host, on, stats)),
+            call=lambda runner, ops_t, rd: runner(ops_t[0], rd, ops_t[1]),
+            device=dev, resume=resume,
+        )
     return PprBatchResult(ranks=ranks_np, iterations=done,
                           l1_delta=last_delta, metrics=metrics)

@@ -24,6 +24,14 @@ package's names: ``pagerank.delta_sync`` (where ``tol`` makes the loop read
 its delta, the loop's own syncs are not spanned: the last one is),
 ``pagerank.ckpt_pull`` and ``pagerank.result_pull``, with
 ``pagerank.segment`` and ``pagerank.checkpoint`` from the segment loop.
+The port spans the rest of a call too: the whole call (``pagerank.call``,
+every other span's ancestor), the put (``pagerank.put_graph``, with a
+``device.h2d`` span a copy and ``ops.segment_plan``/``ops.spmv_plan``
+inside) and the restart vector and initial ranks with their uploads
+(``pagerank.prep``; a resumed run's ranks go up again outside it).  The
+``put_graph`` record carries their seconds (``preprocess_secs``,
+``h2d_secs``, ``h2d_bytes``, ``plan_secs``, ``prep_secs``), and a
+``result_pull`` record the pull's ``secs`` and ``bytes``.
 """
 
 from __future__ import annotations
@@ -41,15 +49,21 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.models import driver
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pagerank as ops
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import executor as rx
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import PageRankConfig
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import resolve_device
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import (
+    h2d,
+    put_stats,
+    resolve_device,
+)
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder, Timer
 
 
 def put_graph_for(graph: Graph, cfg: PageRankConfig,
-                  device: str | torch.device = "cuda") -> ops.DeviceGraph:
+                  device: str | torch.device = "cuda",
+                  stats: dict | None = None) -> ops.DeviceGraph:
     """``ops.put_graph`` with whatever static layout ``cfg.spmv_impl``
     needs, built from the config's layout knobs.  Layout impls never read
-    the raw edge arrays, so their device copy is skipped."""
+    the raw edge arrays, so their device copy is skipped.  ``stats`` is
+    ``ops.put_graph``'s."""
     layout = ops.layout_for_impl(cfg.spmv_impl)
     return ops.put_graph(
         graph, cfg.dtype,
@@ -59,6 +73,7 @@ def put_graph_for(graph: Graph, cfg: PageRankConfig,
         bucket_width=cfg.shuffle_bucket_width,
         keep_edge_arrays=layout is None,
         device=device,
+        stats=stats,
     )
 
 
@@ -81,23 +96,35 @@ def run_pagerank(
     """Run PageRank per ``cfg`` on one device: ``cuda`` unless ``device``
     says otherwise (``device="cpu"`` runs the kernels' plain versions).
     ``resume=True`` starts from the newest checkpoint under
-    ``cfg.checkpoint_dir``."""
+    ``cfg.checkpoint_dir``.  The whole call is a ``pagerank.call`` span
+    (attributes ``nodes``, ``edges``), the parent of every phase's span."""
     dev = resolve_device(device)
     metrics = metrics or MetricsRecorder()
+    with obs.span("pagerank.call", nodes=graph.n_nodes, edges=graph.n_edges):
+        return _run_pagerank(graph, cfg, metrics, resume, dev)
+
+
+def _run_pagerank(graph: Graph, cfg: PageRankConfig, metrics: MetricsRecorder,
+                  resume: bool, dev: torch.device) -> PageRankResult:
     n = graph.n_nodes
     if n == 0:
         return PageRankResult(np.zeros(0, cfg.dtype), 0, 0.0, metrics)
     cfg = driver.resolve_personalize(graph, cfg)
 
     # The one-time host layout build is amortized over the whole run.
-    with Timer() as t_put:
-        dg = put_graph_for(graph, cfg, dev)
+    stats = put_stats()
+    with Timer() as t_put, obs.span("pagerank.put_graph"):
+        dg = put_graph_for(graph, cfg, dev, stats)
+    with Timer() as t_prep, obs.span("pagerank.prep"):
+        e = h2d(ops.restart_vector(n, cfg), dev)
+        ranks = ops.init_ranks(n, cfg)
+        ranks_dev = h2d(ranks, dev)
     metrics.record(event="put_graph", spmv_impl=cfg.spmv_impl,
-                   preprocess_secs=t_put.elapsed)
-    e = torch.from_numpy(ops.restart_vector(n, cfg)).to(dev)
-    ranks = ops.init_ranks(n, cfg)
-    start_iter = driver.resume_from_checkpoint(cfg, metrics, ranks, n=n) if resume else 0
-    ranks_dev = torch.from_numpy(ranks).to(dev)
+                   preprocess_secs=t_put.elapsed, **stats, prep_secs=t_prep.elapsed)
+    start_iter = 0
+    if resume:
+        start_iter = driver.resume_from_checkpoint(cfg, metrics, ranks, n=n)
+        ranks_dev = h2d(ranks, dev)  # the checkpoint's ranks
 
     make = ops.make_spark_exact_runner if cfg.spark_exact else ops.make_pagerank_runner
     # without tol the loop runs with no host sync and this read waits for
@@ -149,7 +176,7 @@ def run_pagerank(
             make_runner=lambda c: make(n, c), extract_np=extract_np,
         ),
     )
-    with obs.span("pagerank.result_pull"):
+    with Timer() as t_pull, obs.span("pagerank.result_pull"):
         ranks_np = rx.device_get(
             ranks_dev, site="pagerank_result_pull", metrics=metrics,
             checkpoint_dir=cfg.checkpoint_dir,
@@ -159,6 +186,7 @@ def run_pagerank(
                 get_done=lambda: done,
             ))],
         )
+    metrics.record(event="result_pull", secs=t_pull.elapsed, bytes=ranks_np.nbytes)
     return PageRankResult(
         ranks=ranks_np, iterations=done, l1_delta=last_delta, metrics=metrics,
     )

@@ -22,9 +22,11 @@ Design points:
   enters a ``torch.profiler.record_function`` of the same name, so host
   phases line up with the card's kernels in a ``torch.profiler`` trace
   (``utils/profiling.trace``).  The bridge never *imports* torch
-  (``"torch" in sys.modules`` gates it), and outside a profiler the range
-  costs next to nothing.  Processes that only read traces do so through
-  the stdlib-only ``tools/trace_report.py``.
+  (``"torch" in sys.modules`` gates it; once torch is loaded the lookup is
+  cached on the tracer), and it enters the range only while a profiler
+  records (``torch.autograd._profiler_enabled()``), so a span outside a
+  profiler costs no ``record_function``.  Processes that only read traces
+  do so through the stdlib-only ``tools/trace_report.py``.
 
 Counterpart of the JAX package's ``obs/trace.py``, whose bridge opens a
 ``jax.profiler.TraceAnnotation`` instead.
@@ -54,12 +56,30 @@ class SpanTracer:
         self._bus = bus
         self._lock = threading.Lock()
         self._next_id = 1
+        # (profiler_enabled, record_function) once torch is loaded
+        self._bridge: tuple | None = None
 
     def _new_id(self) -> int:
         with self._lock:
             sid = self._next_id
             self._next_id += 1
         return sid
+
+    def _profiler_range(self, name: str):
+        """A ``torch.profiler.record_function(name)`` while a profiler
+        records, else None."""
+        if self._bridge is None:
+            if "torch" not in sys.modules:  # annotate, never import
+                return None
+            try:
+                import torch
+
+                self._bridge = (torch.autograd._profiler_enabled,
+                                torch.profiler.record_function)
+            except Exception:  # noqa: BLE001 — the bridge is best-effort
+                return None
+        enabled, record_function = self._bridge
+        return record_function(name) if enabled() else None
 
     def current(self) -> int | None:
         """Span id of the innermost open span in this context (None at the
@@ -79,11 +99,10 @@ class SpanTracer:
         token = _current_span.set(sid)
         status = "ok"
         with contextlib.ExitStack() as bridge:
-            if "torch" in sys.modules:  # annotate, never import
+            profiler_range = self._profiler_range(name)
+            if profiler_range is not None:
                 try:
-                    from torch.profiler import record_function
-
-                    bridge.enter_context(record_function(name))
+                    bridge.enter_context(profiler_range)
                 except Exception:  # noqa: BLE001 — the bridge is best-effort
                     pass
             try:

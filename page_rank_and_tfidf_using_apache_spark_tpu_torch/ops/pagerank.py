@@ -47,6 +47,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
     PageRankConfig,
     RankInit,
 )
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import h2d
 
 
 class HybridLayout(NamedTuple):
@@ -252,6 +253,7 @@ def put_graph(
     bucket_width: int = TUNABLE_DEFAULTS["shuffle_bucket_width"],
     keep_edge_arrays: bool = True,
     device: str | torch.device = "cuda",
+    stats: dict | None = None,
 ) -> DeviceGraph:
     """Host Graph → tensors on ``device`` (one host→device copy per array).
 
@@ -262,12 +264,18 @@ def put_graph(
     never read.  The layouts' CSR pointers over ``head_row_node`` and
     ``bucket_node``, which the segmented-sum kernel reads, are built here,
     once per graph, and so are the kernels' plans of all three pointer
-    arrays."""
+    arrays.
+
+    Each copy is a ``device.h2d`` span (``utils.device.h2d``), each plan
+    build an ``ops.segment_plan`` or ``ops.spmv_plan`` span; with
+    ``stats`` (a dict) the copies' seconds and bytes are summed into its
+    ``h2d_secs`` and ``h2d_bytes`` and the plans' seconds into its
+    ``plan_secs``."""
     if not keep_edge_arrays and layout is None:
         raise ValueError("keep_edge_arrays=False requires a static layout")
 
     def put(a: np.ndarray, cast: str | None = None) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a if cast is None else a.astype(cast))).to(device)
+        return h2d(np.ascontiguousarray(a if cast is None else a.astype(cast)), device, stats)
 
     empty = np.zeros(0, np.int32)
     weighted = graph.weight is not None
@@ -288,7 +296,7 @@ def put_graph(
             head_w=put(hl.head_w, dtype) if hl.head_w is not None else None,
             tail_w=put(hl.tail_w, dtype) if hl.tail_w is not None else None,
             head_row_ptr=put(head_ptr),
-            head_row_plan=sk.segment_plan(head_ptr, device=device),
+            head_row_plan=sk.segment_plan(head_ptr, device=device, stats=stats),
         )
     elif layout == "sort_shuffle":
         bucket_src, bucket_node, bucket_w = build_shuffle_layout(
@@ -300,7 +308,7 @@ def put_graph(
             bucket_node=put(bucket_node),
             bucket_w=put(bucket_w, dtype) if bucket_w is not None else None,
             bucket_ptr=put(bucket_ptr),
-            bucket_plan=sk.segment_plan(bucket_ptr, device=device),
+            bucket_plan=sk.segment_plan(bucket_ptr, device=device, stats=stats),
         )
     elif layout is not None:
         raise ValueError(f"unknown graph layout {layout!r}")
@@ -317,8 +325,9 @@ def put_graph(
         shuffle=shuffle,
         edge_weight=(put(graph.weight, dtype)
                      if weighted and keep_edge_arrays else None),
-        segment_plan=None if indptr is None else sk.segment_plan(indptr, device=device),
-        spmv_plan=None if indptr is None else pk.spmv_plan(indptr, device=device),
+        segment_plan=(None if indptr is None
+                      else sk.segment_plan(indptr, device=device, stats=stats)),
+        spmv_plan=None if indptr is None else pk.spmv_plan(indptr, device=device, stats=stats),
     )
 
 

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import _build, traced
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import timed_span
 
 # Kernel launches per wrapper since the last reset_launches().
 LAUNCHES: dict[str, int] = {"cumsum": 0, "rowsum": 0, "spmv": 0}
@@ -169,20 +170,24 @@ def spmv_rows(indptr, tile: int = TILE) -> np.ndarray:
     return rows
 
 
-def spmv_plan(indptr, *, device: str | torch.device | None = None) -> SpmvPlan:
+def spmv_plan(indptr, *, device: str | torch.device | None = None,
+              stats: dict | None = None) -> SpmvPlan:
     """The :class:`SpmvPlan` of the CSR pointers ``indptr`` (a numpy array
     or an int32 tensor), on ``device`` (default: the tensor's, else the
-    CPU).  A tensor on the card is read back to the host once."""
+    CPU).  A tensor on the card is read back to the host once.  The build,
+    its copies included, is an ``ops.spmv_plan`` span; with ``stats`` its
+    seconds are added to ``stats["plan_secs"]``."""
     if device is None:
         device = indptr.device if isinstance(indptr, torch.Tensor) else "cpu"
-    host = indptr.cpu().numpy() if isinstance(indptr, torch.Tensor) else np.asarray(indptr)
-    rows = spmv_rows(host)
-    PLANS_BUILT["spmv"] += 1
-    return SpmvPlan(
-        n=host.shape[0] - 1, e=int(host[-1]),
-        rows=torch.from_numpy(rows.astype(np.int32)).to(device),
-        state=torch.zeros(_STATE_BYTES + _SLOTS_BYTES * (rows.shape[0] - 1), dtype=torch.uint8,
-                          device=device))
+    with timed_span("ops.spmv_plan", stats, "plan_secs"):
+        host = indptr.cpu().numpy() if isinstance(indptr, torch.Tensor) else np.asarray(indptr)
+        rows = spmv_rows(host)
+        PLANS_BUILT["spmv"] += 1
+        return SpmvPlan(
+            n=host.shape[0] - 1, e=int(host[-1]),
+            rows=torch.from_numpy(rows.astype(np.int32)).to(device),
+            state=torch.zeros(_STATE_BYTES + _SLOTS_BYTES * (rows.shape[0] - 1),
+                              dtype=torch.uint8, device=device))
 
 
 def _check_spmv(src, indptr, w, n: int, edge_weight, plan) -> None:

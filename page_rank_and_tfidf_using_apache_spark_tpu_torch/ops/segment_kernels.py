@@ -35,6 +35,7 @@ import torch
 
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import _build, traced
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops.pallas_kernels import _check, _raise_on
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import timed_span
 
 # Kernel launches per wrapper since the last reset_launches().
 LAUNCHES: dict[str, int] = {"segment": 0}
@@ -95,20 +96,24 @@ def segment_coords(ptr, block_items: int = BLOCK_ITEMS) -> np.ndarray:
     return np.searchsorted(ptr[1:] + np.arange(1, n + 1), d, side="right")
 
 
-def segment_plan(ptr, *, device: str | torch.device | None = None) -> SegmentPlan:
+def segment_plan(ptr, *, device: str | torch.device | None = None,
+                 stats: dict | None = None) -> SegmentPlan:
     """The :class:`SegmentPlan` of the CSR pointers ``ptr`` (a numpy array
     or an int32 tensor), on ``device`` (default: the tensor's, else the
-    CPU).  A tensor on the card is read back to the host once."""
+    CPU).  A tensor on the card is read back to the host once.  The build,
+    its copies included, is an ``ops.segment_plan`` span; with ``stats``
+    its seconds are added to ``stats["plan_secs"]``."""
     if device is None:
         device = ptr.device if isinstance(ptr, torch.Tensor) else "cpu"
-    host = ptr.cpu().numpy() if isinstance(ptr, torch.Tensor) else np.asarray(ptr)
-    n, e = host.shape[0] - 1, int(host[-1])
-    coords = segment_coords(host)
-    PLANS_BUILT["segment"] += 1
-    return SegmentPlan(
-        n=n, e=e, coords=torch.from_numpy(coords.astype(np.int32)).to(device),
-        state=torch.zeros(_STATE_BYTES + _SLOT_BYTES * segment_tiles(n, e), dtype=torch.uint8,
-                          device=device))
+    with timed_span("ops.segment_plan", stats, "plan_secs"):
+        host = ptr.cpu().numpy() if isinstance(ptr, torch.Tensor) else np.asarray(ptr)
+        n, e = host.shape[0] - 1, int(host[-1])
+        coords = segment_coords(host)
+        PLANS_BUILT["segment"] += 1
+        return SegmentPlan(
+            n=n, e=e, coords=torch.from_numpy(coords.astype(np.int32)).to(device),
+            state=torch.zeros(_STATE_BYTES + _SLOT_BYTES * segment_tiles(n, e),
+                              dtype=torch.uint8, device=device))
 
 
 def _check_index(t, name: str) -> None:

@@ -5,11 +5,14 @@ in memory, published on the obs event bus as a ``kind="metric"`` event (so
 a traced run's JSONL file carries the record stream beside its spans),
 logged to stderr as one JSON line, and dumpable as JSON.  The stderr log
 level follows the ``GRAFT_LOG_LEVEL`` env knob (default INFO; declared in
-``utils/config.GRAFT_ENV_KNOBS``).
+``utils/config.GRAFT_ENV_KNOBS``); above INFO a record is not serialised.
+``timed_span`` times an obs span with the :class:`Timer` that a record
+reads, and sums it into a stats dict.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -17,7 +20,7 @@ import os
 import sys
 import threading
 import time
-from typing import Any
+from typing import Any, Iterator
 
 from page_rank_and_tfidf_using_apache_spark_tpu_torch import obs
 
@@ -61,7 +64,8 @@ class MetricsRecorder:
         with self._lock:
             self.records.append(kwargs)
         obs.emit("metric", **kwargs)
-        logger.info("%s", json.dumps(kwargs, default=float))
+        if logger.isEnabledFor(logging.INFO):
+            logger.info("%s", json.dumps(kwargs, default=float))
 
     def scalar(self, name: str, value: Any) -> None:
         with self._lock:
@@ -106,3 +110,14 @@ class Timer:
 def timed() -> Timer:
     """A fresh :class:`Timer` (``with timed() as t: ...; t.elapsed``)."""
     return Timer()
+
+
+@contextlib.contextmanager
+def timed_span(name: str, stats: dict | None, key: str, /,
+               **attrs: Any) -> Iterator[Timer]:
+    """``with Timer() as t, obs.span(name, **attrs)``, yielding ``t``; on a
+    normal exit, with ``stats``, adds ``t.elapsed`` to ``stats[key]``."""
+    with Timer() as t, obs.span(name, **attrs):
+        yield t
+    if stats is not None:
+        stats[key] = stats.get(key, 0.0) + t.elapsed

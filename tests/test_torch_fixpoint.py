@@ -36,6 +36,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos as
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import checkpoint as ckpt
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import config as tcfg
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import MetricsRecorder
+from tests.port_telemetry import PORT_ONLY_SPANS, reference_view
 
 TINY = str(pathlib.Path(__file__).resolve().parent / "fixtures" / "tiny.txt")
 BASE = dict(iterations=12, dangling="redistribute", init="uniform", head_row_width=8)
@@ -247,14 +248,23 @@ def test_records_and_spans_match_reference_names(tmp_path):
     finally:
         obs.bus().detach(sink)
         jobs.bus().detach(jsink)
-    assert [sorted(r) for r in m.records] == [sorted(r) for r in jm.records]
+    # the reference's records, keys and order, once the port's own
+    # fields and its result_pull record are taken away
+    assert [sorted(r) for r in reference_view(m.records)] == [sorted(r) for r in jm.records]
     assert [r.get("event") for r in m.records] == [
-        "put_graph", None, "checkpoint", None, "checkpoint", None]
+        "put_graph", None, "checkpoint", None, "checkpoint", None, "result_pull"]
+    assert sorted(m.records[0]) == sorted(["event", "spmv_impl", "preprocess_secs", "h2d_secs",
+                                           "h2d_bytes", "plan_secs", "prep_secs"])
+    assert sorted(m.records[-1]) == ["bytes", "event", "secs"]
     spans = {e["name"] for e in sink.of_kind("span_end")}
     jspans = {e["name"] for e in jsink.of_kind("span_end")}
     want = {"pagerank.segment", "pagerank.checkpoint", "pagerank.ckpt_pull",
             "pagerank.result_pull"}
-    assert want <= spans and spans <= jspans
+    assert want <= spans and spans - set(PORT_ONLY_SPANS) <= jspans
+    assert spans & set(PORT_ONLY_SPANS) == {
+        "pagerank.call", "pagerank.prep", "pagerank.put_graph", "device.h2d",
+        "ops.segment_plan", "ops.spmv_plan"}
+    assert not jspans & set(PORT_ONLY_SPANS)
     assert len([e for e in sink.of_kind("span_end") if e["name"] == "pagerank.segment"]) == 3
 
 

@@ -34,6 +34,7 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.resilience import chaos
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import metrics as tmetrics
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils import profiling
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import GRAFT_ENV_KNOBS
+from tests.port_telemetry import PORT_ONLY_EVENTS, PORT_ONLY_SPANS
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REF = ROOT / "page_rank_and_tfidf_using_apache_spark_tpu"
@@ -148,6 +149,52 @@ def test_span_reaches_the_torch_profiler():
         with obs.span("bridge.probe"):
             torch.ones(4).sum()
     assert "bridge.probe" in {e.key for e in prof.key_averages()}
+
+
+def test_span_outside_a_profiler_enters_no_record_function(monkeypatch):
+    """The bridge is free when off: with no profiler running a span makes
+    no ``record_function``; under one it makes one, of its name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    made = []
+    real = torch.profiler.record_function
+
+    class Counting(real):
+        def __init__(self, name, args=None):
+            made.append(name)
+            super().__init__(name, args)
+
+    monkeypatch.setattr(torch.profiler, "record_function", Counting)
+    tracer = obs.SpanTracer(obs.EventBus())  # looks the bridge up afresh
+    with tracer.span("bridge.off"):
+        torch.ones(4).sum()
+    assert made == []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tracer.span("bridge.on"):
+            torch.ones(4).sum()
+    with tracer.span("bridge.off_again"):
+        pass
+    assert made == ["bridge.on"]
+    assert "bridge.on" in {e.key for e in prof.key_averages()}
+
+
+def test_a_record_is_serialised_for_the_log_only_at_info(monkeypatch):
+    dumped = []
+    real_dumps = tmetrics.json.dumps
+    monkeypatch.setattr(tmetrics.json, "dumps",
+                        lambda *a, **k: dumped.append(a[0]) or real_dumps(*a, **k))
+    level = tmetrics.logger.level
+    m = tmetrics.MetricsRecorder()
+    try:
+        tmetrics.logger.setLevel(logging.WARNING)
+        m.record(event="quiet", secs=1.0)
+        assert dumped == []
+        tmetrics.logger.setLevel(logging.INFO)
+        m.record(event="logged", secs=2.0)
+        assert dumped == [{"event": "logged", "secs": 2.0}]
+    finally:
+        tmetrics.logger.setLevel(level)
+    assert [r["event"] for r in m.records] == ["quiet", "logged"]
 
 
 def test_metrics_recorder_forwards_to_the_bus(sink):
@@ -280,8 +327,9 @@ def _events(trace_dir: pathlib.Path, name: str) -> list:
 def test_pagerank_cli_trace_matches_reference(tol, tmp_path):
     """The port's traced run and the JAX CLI's on tiny.txt: the port's
     spans are the reference's phases it has, result_pull and the segment
-    loop's segment always and delta_sync with a tolerance, and both metric
-    streams name the same events."""
+    loop's segment always and delta_sync with a tolerance, plus its own
+    spans of the call's other phases; both metric streams name the same
+    events, plus the port's result_pull."""
     args = [TINY, "20", "--dangling", "redistribute", "--init", "uniform", "--dtype",
             "float64", "--tol", str(tol)]
     assert tcli.main([*args, "--device", "cpu", "--output", str(tmp_path / "t.tsv"),
@@ -291,14 +339,19 @@ def test_pagerank_cli_trace_matches_reference(tol, tmp_path):
     port, ref = _trace(tmp_path / "port", "pagerank"), _trace(tmp_path / "ref", "pagerank")
     want = {"pagerank.result_pull", "pagerank.segment"} | (
         {"pagerank.delta_sync"} if tol else set())
-    assert set(port["spans"]) == want and want <= set(ref["spans"])
+    port_only = {"pagerank.call", "pagerank.prep", "pagerank.put_graph", "device.h2d",
+                 "ops.segment_plan", "ops.spmv_plan"}
+    assert port_only <= set(PORT_ONLY_SPANS) and not port_only & set(ref["spans"])
+    assert set(port["spans"]) == want | port_only and want <= set(ref["spans"])
     assert port["complete"] and port["status"] == "ok" and not port["incomplete_phases"]
     assert port["manifest"]["name"] == "pagerank" and port["manifest"]["status"] == "ok"
     assert port["manifest"]["backend"] == "cpu"
     metric_events = [[e["event"] for e in _events(tmp_path / d, "pagerank")
                       if e["kind"] == "metric" and "event" in e] for d in ("port", "ref")]
-    assert metric_events[0] == ["load", "put_graph"]
-    assert set(metric_events[0]) <= set(metric_events[1])
+    assert metric_events[0] == ["load", "put_graph", "result_pull"]
+    assert [e for e in metric_events[0] if e not in PORT_ONLY_EVENTS] == ["load", "put_graph"]
+    assert set(metric_events[0]) - set(PORT_ONLY_EVENTS) <= set(metric_events[1])
+    assert not set(PORT_ONLY_EVENTS) & set(metric_events[1])
     kinds = {e["kind"] for e in _events(tmp_path / "port", "pagerank")}
     assert kinds == {"run_start", "span_begin", "span_end", "metric", "run_end"}
     assert (tmp_path / "t.tsv").read_text().splitlines()[0].split("\t")[0] == \
