@@ -48,12 +48,23 @@ Phases, each of which exits non-zero on failure:
    bit for bit, in every mode of the probe at its default shapes (timed
    beside the L2 loop alone), at edge shapes, and on both sides of each
    width limit of the staged route;
+3c. the put's derivation (``csrc/put.cu``: ``spmv_rows``, ``expand_dst``,
+   ``segment_coords``, ``node_vectors``) at the main path's graph and the
+   300-node graph, each wrapper on the card bit for bit equal to its plain
+   version on the same inputs and to the numpy builder the CPU put runs,
+   ``node_vectors`` from the out-degree and from a float64 out-strength in
+   float32 and float64; each timed at the main path's shapes against its
+   plain version, one library call where one computes the same
+   (``torch.searchsorted``, ``torch.repeat_interleave``) and its byte
+   bound;
 4. the main path, ``run_pagerank`` at web-Google scale (875K nodes, 5.1M
    edges, 20 iterations), through the ``segment``, ``pallas`` and
    ``hybrid`` SpMV impls, checked against an f64 run and counting kernel
    launches (``segment`` launches the segment kernel, ``hybrid`` the
-   ``cumsum`` and segment kernels, 20 times or more each) and the plans
-   built (one a pointer array, at ``put_graph``: a run builds what one
+   ``cumsum`` and segment kernels, 20 times or more each; the put of each
+   run ``node_vectors`` and ``segment_coords`` once, of ``segment`` and
+   ``pallas`` also ``spmv_rows`` and ``expand_dst`` once) and the
+   plans built (one a pointer array, at ``put_graph``: a run builds what one
    ``put_graph`` builds); every impl is also held against a dense f64
    power iteration on a small graph; the ``pallas`` loop's profile must
    show no index widening, ``cat`` or index kernel, the ``segment`` loop's
@@ -358,7 +369,8 @@ Phases, each of which exits non-zero on failure:
    ``hybrid``);
 7. one JSON line describing every kernel (with ``workload_launches``, each
    kernel's launches in 12a-12c, 13a-13c, 14, 15b, 16, 17f-17g, 18b, 18c,
-   19 and 20 by workload), then the result line.
+   19 and 20 by workload; for the put's kernels, whose launches only 4b
+   counts, null), then the result line.
 
 Without a CUDA device, or without the port's package beside it, it exits
 non-zero and prints no result.  ``python3 chip_smoke.py --cards`` on a
@@ -604,6 +616,112 @@ def measure_segment(sk, src, ptr, w, label: str) -> dict:
           f"bound {b:.4f} ms ({by}); vs plain max abs diff {err:.3g} ({worst:.3g} of 1 ulp), "
           f"largest relative error vs float64 {rel:.3g}")
     return row
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same dtype, shape and bits (float -0.0 and 0.0 told apart)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        bits = torch.int64 if a.dtype == torch.float64 else torch.int32
+        a, b = a.view(bits), b.view(bits)
+    return torch.equal(a, b)
+
+
+def check_put(pt, pk, sk, graph, label: str) -> dict:
+    """``csrc/put.cu``'s wrappers on the card from what the card's put
+    copies of ``graph`` (``src``, the int64 pointers narrowed as the put
+    narrows them, the out-degree; a float64 out-strength beside it), each
+    bit for bit equal to its plain version on the same inputs and to the
+    numpy builder the CPU put runs.  Returns the inputs, for timing."""
+    n, e = graph.n_nodes, graph.n_edges
+    ip = graph.csr_indptr()
+    ptr = torch.from_numpy(ip).to("cuda").to(torch.int32)
+    deg = torch.from_numpy(graph.out_degree).to("cuda")
+    rng = np.random.default_rng(SEED)
+    strength = torch.from_numpy(graph.out_degree * (rng.random(n) * 3 + 0.5)).to("cuda")
+    tiles = sk.segment_tiles(n, e)
+    rows = pt.spmv_rows_kernel(ptr, e, pk.TILE)
+    got = {
+        "spmv_rows": (rows, pt.spmv_rows_plain(ptr, e, pk.TILE),
+                      pk.spmv_rows(ip).astype(np.int32)),
+        "expand_dst": (pt.expand_dst_kernel(ptr, e, rows, pk.TILE), pt.expand_dst_plain(ptr, e),
+                       graph.dst),
+        "segment_coords": (pt.segment_coords_kernel(ptr, e, tiles, sk.BLOCK_ITEMS),
+                           pt.segment_coords_plain(ptr, e, tiles, sk.BLOCK_ITEMS),
+                           sk.segment_coords(ip).astype(np.int32)),
+    }
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        host = graph.inv_out_strength(name)
+        for norm_label, norm in (("out-degree", deg), ("float64 out-strength", strength)):
+            kern = pt.node_vectors_kernel(norm, dtype)
+            plain = pt.node_vectors_plain(norm, dtype)
+            for part, k, q in zip(("inv_outdeg", "dangling", "has_outlinks"), kern, plain):
+                check(same_bits(k, q), f"put {label}: node_vectors {norm_label} {name} "
+                                       f"{part} differs from plain")
+            if norm is deg:
+                got[f"node_vectors {name}"] = (kern[0], plain[0], host)
+    for what, (kern, plain, host) in got.items():
+        check(same_bits(kern, plain), f"put {label}: {what} differs from its plain version")
+        check(same_bits(kern, torch.from_numpy(np.ascontiguousarray(host)).to("cuda")),
+              f"put {label}: {what} differs from the numpy builder")
+    print(f"put {label} (n={n}, E={e}): spmv_rows, expand_dst, segment_coords and "
+          f"node_vectors (out-degree and float64 out-strength, float32 and float64) equal "
+          f"their plain versions and the numpy builders bit for bit")
+    return {"ptr": ptr, "deg": deg, "rows": rows, "tiles": tiles}
+
+
+def measure_put(pt, pk, sk, graph, inputs: dict) -> dict:
+    """``csrc/put.cu``'s kernels at the main path's graph, one row each:
+    the kernel against its plain version, one library call where one
+    computes the same thing (given what that call needs, built before
+    timing) and its byte bound.  A plan's bound is its output written
+    once; ``expand_dst`` writes ``dst`` and reads the pointers and the
+    plan once; ``node_vectors`` reads the out-degree and writes its three
+    float32 / float64 vectors."""
+    n, e = graph.n_nodes, graph.n_edges
+    ptr, deg, rows, tiles = inputs["ptr"], inputs["deg"], inputs["rows"], inputs["tiles"]
+    tiles_v = rows.shape[0] - 1
+    starts = torch.arange(1, tiles_v, dtype=torch.int32, device="cuda") * pk.TILE
+    keys = ptr[1:].to(torch.int64) + torch.arange(1, n + 1, dtype=torch.int64, device="cuda")
+    d = torch.clamp(torch.arange(tiles + 1, dtype=torch.int64, device="cuda") * sk.BLOCK_ITEMS,
+                    max=n + e)
+    node_ids = torch.arange(n, dtype=torch.int32, device="cuda")
+    counts = ptr.diff()
+    work = {
+        "spmv_rows": (lambda: pt.spmv_rows_kernel(ptr, e, pk.TILE),
+                      lambda: pt.spmv_rows_plain(ptr, e, pk.TILE),
+                      lambda: torch.searchsorted(ptr, starts, right=True, out_int32=True),
+                      "torch.searchsorted", 4 * (tiles_v + 1)),
+        "expand_dst": (lambda: pt.expand_dst_kernel(ptr, e, rows, pk.TILE),
+                       lambda: pt.expand_dst_plain(ptr, e),
+                       lambda: torch.repeat_interleave(node_ids, counts, output_size=e),
+                       "torch.repeat_interleave", 4 * e + 4 * (n + 1) + 4 * (tiles_v + 1)),
+        "segment_coords": (lambda: pt.segment_coords_kernel(ptr, e, tiles, sk.BLOCK_ITEMS),
+                           lambda: pt.segment_coords_plain(ptr, e, tiles, sk.BLOCK_ITEMS),
+                           lambda: torch.searchsorted(keys, d, right=True, out_int32=True),
+                           "torch.searchsorted", 4 * (tiles + 1)),
+        # no one library call gives the three vectors
+        "node_vectors": (lambda: pt.node_vectors_kernel(deg, torch.float32),
+                         lambda: pt.node_vectors_plain(deg, torch.float32), None, None, 20 * n),
+    }
+    check(same_bits(work["expand_dst"][2](), work["expand_dst"][0]())
+          and same_bits(work["segment_coords"][2](), work["segment_coords"][0]())
+          and same_bits(work["spmv_rows"][2](), rows[1:tiles_v]),
+          "put: a library call differs from the kernel it is timed beside")
+    out = {}
+    for name, (kern, plain, library, library_name, nbytes) in work.items():
+        b, by = bound_ms(nbytes)
+        row = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+               "library_ms": time_ms(library) if library is not None else None,
+               "bound_ms": b, "bound_by": by, "max_abs_err": 0.0}  # equal bit for bit
+        lib = (f"library ({library_name}) {row['library_ms']:.4f} ms"
+               if library is not None else "no library call gives it")
+        print(f"put {name} main path (n={n}, E={e}): kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, {lib}, bound {b:.4f} ms ({by}), equal")
+        out[name] = row
+    return out
 
 
 def measure_widened(sk, values, ptr, n: int, label: str, *, src=None, ew=None) -> dict:
@@ -5906,6 +6024,7 @@ def main() -> int:
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import gather_kernels as gk
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pagerank as ops
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pallas_kernels as pk
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import put_kernels as pt
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import segment_kernels as sk
     from page_rank_and_tfidf_using_apache_spark_tpu_torch.tools import (
         gather_micro,
@@ -6081,6 +6200,12 @@ def main() -> int:
     main_rows["gather"] = gather_rows["lane_w109184"]
     sweep_gather_routes(gk, gather_micro, rng)
 
+    # 3c. the put's derivation against its plain versions and the host
+    # builders, at the 300-node graph and the main path's, timed there
+    check_put(pt, pk, sk, small, "power-law 300 nodes")
+    main_rows.update(measure_put(pt, pk, sk, graph,
+                                 check_put(pt, pk, sk, graph, "main path")))
+
     no_degrade("3")
 
     # 4a. every impl against a dense f64 power iteration on a small graph
@@ -6106,8 +6231,9 @@ def main() -> int:
         per_graph = plans()
         run_pagerank(graph, cfg, device="cuda")  # warm-up, not counted
         reset_counts()
+        pt.reset_launches()
         res = run_pagerank(graph, cfg, device="cuda")
-        launched = counts()
+        launched = {**counts(), **pt.LAUNCHES}
         built = plans()
         check(built == per_graph and sum(built.values()) <= 3,
               f"{impl}: the run built plans {built}, one graph's put_graph builds {per_graph}")
@@ -6141,6 +6267,15 @@ def main() -> int:
     check(launches["hybrid"]["cumsum"] >= ITERS and launches["hybrid"]["segment"] >= ITERS,
           f"hybrid run launched cumsum {launches['hybrid']['cumsum']} and segment "
           f"{launches['hybrid']['segment']} times")
+    # one put a run: its node vectors, and where it keeps the edge arrays
+    # (segment, pallas) its dst and both plans, each derived once on the
+    # card; hybrid's the segment plan of its head's pointers
+    for impl in MAIN_IMPLS:
+        put = {k: launches[impl][k] for k in pt.LAUNCHES}
+        want = dict.fromkeys(pt.LAUNCHES, 1)
+        if impl == "hybrid":
+            want.update(spmv_rows=0, expand_dst=0)
+        check(put == want, f"{impl} run's put launched {put}, wanted {want}")
 
     # 4c. where the loop's time goes: device time by kernel, and the share
     # of the unprofiled loop wall time the device was busy
@@ -6355,6 +6490,16 @@ def main() -> int:
                     "page_rank_and_tfidf_using_apache_spark_tpu/ops/pagerank.py:378",
                     launches["segment"]["segment"]),
     }
+    # the put's kernels replace host builders, not a TPU kernel: the JAX
+    # package's put (dst, inv_out_strength) and the port's plan builders
+    put_cu = "page_rank_and_tfidf_using_apache_spark_tpu_torch/csrc/put.cu"
+    put_meta = {
+        "spmv_rows": "page_rank_and_tfidf_using_apache_spark_tpu_torch/ops/pallas_kernels.py:158",
+        "expand_dst": "page_rank_and_tfidf_using_apache_spark_tpu/ops/pagerank.py:281",
+        "segment_coords":
+            "page_rank_and_tfidf_using_apache_spark_tpu_torch/ops/segment_kernels.py:87",
+        "node_vectors": "page_rank_and_tfidf_using_apache_spark_tpu/ops/pagerank.py:278",
+    }
     # workload_launches: each kernel's launches in phase 12's counted runs
     # (12a's resumed runs, 12b's API runs, 12c's first runs), phase 13's
     # (13a's and 13b's faulted runs, 13c's resumed run), phase 14's (the
@@ -6369,6 +6514,10 @@ def main() -> int:
          "launches": n, **main_rows[name],
          "workload_launches": {w: c.get(name, 0) for w, c in workload_launches.items()}}
         for name, (src, replaces, n) in meta.items()
+    ] + [
+        {"name": name, "route": "cuda", "source": put_cu, "replaces": replaces,
+         "launches": launches["segment"][name], **main_rows[name], "workload_launches": None}
+        for name, replaces in put_meta.items()
     ]
     print(f"total: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(json.dumps({"kernels": kernels}))

@@ -80,6 +80,10 @@ KERNEL_WRAPPERS = frozenset({
     "rowsum_kernel",
     "spmv_pallas",
     "take_along_rows_kernel",
+    "spmv_rows_kernel",
+    "expand_dst_kernel",
+    "segment_coords_kernel",
+    "node_vectors_kernel",
 })
 
 # torch.* calls that only query or configure the host side — they return

@@ -30,8 +30,10 @@ every other span's ancestor), the put (``pagerank.put_graph``, with a
 inside) and the restart vector and initial ranks with their uploads
 (``pagerank.prep``; a resumed run's ranks go up again outside it).  The
 ``put_graph`` record carries their seconds (``preprocess_secs``,
-``h2d_secs``, ``h2d_bytes``, ``plan_secs``, ``prep_secs``), and a
-``result_pull`` record the pull's ``secs`` and ``bytes``.
+``h2d_secs``, ``h2d_bytes``, ``plan_secs``, ``prep_secs``) and where the
+put built its derived fields and plans (``derived_on``: ``"card"`` on a
+CUDA device, else ``"host"``), and a ``result_pull`` record the pull's
+``secs`` and ``bytes``.
 """
 
 from __future__ import annotations

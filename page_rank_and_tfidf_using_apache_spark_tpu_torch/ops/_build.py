@@ -66,6 +66,16 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "gather_table_limit": (_I, []),
         "gather_error_string": (ctypes.c_char_p, [_I]),
     },
+    "put": {
+        "put_spmv_rows": (_I, [_P, _P, _LL, _LL, _LL, _P]),
+        "put_expand_dst": (_I, [_P, _P, _P, _LL, _LL, _P]),
+        "put_segment_coords": (_I, [_P, _P, _LL, _LL, _LL, _LL, _P]),
+        "put_node_vectors_i32_f32": (_I, [_P, _P, _P, _P, _LL, _P]),
+        "put_node_vectors_i32_f64": (_I, [_P, _P, _P, _P, _LL, _P]),
+        "put_node_vectors_f64_f32": (_I, [_P, _P, _P, _P, _LL, _P]),
+        "put_node_vectors_f64_f64": (_I, [_P, _P, _P, _P, _LL, _P]),
+        "put_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _lock = threading.Lock()

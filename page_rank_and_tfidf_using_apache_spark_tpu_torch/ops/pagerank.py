@@ -5,6 +5,8 @@ sparse matvec plus an axpy — ``contribs = Aᵀ · (ranks / outdeg)``;
 ``ranks' = base + d·(contribs [+ dangling])`` — over destination-sorted
 edges.  The static layouts (``plan_hybrid_head``, ``build_hybrid_layout``,
 ``build_shuffle_layout``) are host numpy code copied from the JAX package;
+:func:`put_graph` on the card copies the host graph's own arrays and
+derives the rest there (``ops/put_kernels.py``, ``csrc/put.cu``);
 the seven SpMV impls run on the hand-written kernels of ``csrc/``: every
 segmented sum on ``csrc/segment.cu`` (``ops/segment_kernels.py``), every
 prefix sum on ``csrc/cumsum.cu``, the ``pallas`` SpMV on ``csrc/spmv.cu`` and
@@ -40,6 +42,7 @@ import torch
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.dataflow.fixpoint import iterate
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.io.graph import Graph
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import pallas_kernels as pk
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import put_kernels as pt
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import segment_kernels as sk
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
     TUNABLE_DEFAULTS,
@@ -48,6 +51,19 @@ from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.config import (
     RankInit,
 )
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.device import h2d
+
+# Puts since the last reset_launches(), by where their derived fields and
+# plans were built: "card" (a CUDA device) or "host".
+DERIVED_ON: dict[str, int] = {"card": 0, "host": 0}
+
+
+def reset_launches() -> None:
+    """Zeroes ``DERIVED_ON`` with the kernel modules' launch and plan
+    counts."""
+    for module in (sk, pk, pt):
+        module.reset_launches()
+    for k in DERIVED_ON:
+        DERIVED_ON[k] = 0
 
 
 class HybridLayout(NamedTuple):
@@ -255,28 +271,43 @@ def put_graph(
     device: str | torch.device = "cuda",
     stats: dict | None = None,
 ) -> DeviceGraph:
-    """Host Graph → tensors on ``device`` (one host→device copy per array).
+    """Host Graph → tensors on ``device``.
+
+    On a CUDA device the put copies only what the host graph holds: the
+    edge sources, the cached int64 CSR pointers and the node normaliser
+    (the int32 out-degree, or the cached float64 out-strength of a weighted
+    graph), then a weighted graph's edge weights; ``dst``, the int32 pointers,
+    ``inv_outdeg``, ``dangling``, ``has_outlinks`` and both kernel plans
+    are derived on the card (``ops/put_kernels.py``), after the last copy,
+    on the current stream, bit-equal to the numpy builders.  Anywhere else
+    (the CPU) each field is built on the host and copied: those builders
+    are the plain versions the card's are held to.  ``DERIVED_ON`` counts
+    the puts by where their fields were built.
 
     ``layout`` additionally builds the static SpMV layout an impl needs:
-    ``"hybrid"`` or ``"sort_shuffle"`` (see :func:`layout_for_impl`).
-    ``keep_edge_arrays=False`` uploads zero-length ``src``/``dst``/``indptr``
-    placeholders instead of the raw edge arrays, which the layout impls
-    never read.  The layouts' CSR pointers over ``head_row_node`` and
-    ``bucket_node``, which the segmented-sum kernel reads, are built here,
-    once per graph, and so are the kernels' plans of all three pointer
-    arrays.
+    ``"hybrid"`` or ``"sort_shuffle"`` (see :func:`layout_for_impl`), on
+    the host.  ``keep_edge_arrays=False`` uploads zero-length
+    ``src``/``dst``/``indptr`` placeholders instead of the raw edge arrays,
+    which the layout impls never read.  The layouts' CSR pointers over
+    ``head_row_node`` and ``bucket_node``, which the segmented-sum kernel
+    reads, are built here, once per graph, and so are the kernels' plans
+    of all three pointer arrays (from the pointers on ``device``).
 
     Each copy is a ``device.h2d`` span (``utils.device.h2d``), each plan
     build an ``ops.segment_plan`` or ``ops.spmv_plan`` span; with
     ``stats`` (a dict) the copies' seconds and bytes are summed into its
-    ``h2d_secs`` and ``h2d_bytes`` and the plans' seconds into its
-    ``plan_secs``."""
+    ``h2d_secs`` and ``h2d_bytes``, the plans' seconds into its
+    ``plan_secs``, and ``derived_on`` is ``"card"`` or ``"host"``."""
     if not keep_edge_arrays and layout is None:
         raise ValueError("keep_edge_arrays=False requires a static layout")
 
     def put(a: np.ndarray, cast: str | None = None) -> torch.Tensor:
         return h2d(np.ascontiguousarray(a if cast is None else a.astype(cast)), device, stats)
 
+    on_card = torch.device(device).type == "cuda"
+    DERIVED_ON["card" if on_card else "host"] += 1
+    if stats is not None:
+        stats["derived_on"] = "card" if on_card else "host"
     empty = np.zeros(0, np.int32)
     weighted = graph.weight is not None
     hybrid = None
@@ -285,7 +316,7 @@ def put_graph(
         hl = build_hybrid_layout(
             graph, coverage=head_coverage, row_width=head_row_width
         )
-        head_ptr = segment_pointers(hl.head_row_node, hl.head_ids.shape[0])
+        head_ptr = put(segment_pointers(hl.head_row_node, hl.head_ids.shape[0]))
         hybrid = HybridLayout(
             head_ids=put(hl.head_ids),
             head_src=put(hl.head_src),
@@ -295,39 +326,60 @@ def put_graph(
             tail_indptr=put(hl.tail_indptr),
             head_w=put(hl.head_w, dtype) if hl.head_w is not None else None,
             tail_w=put(hl.tail_w, dtype) if hl.tail_w is not None else None,
-            head_row_ptr=put(head_ptr),
-            head_row_plan=sk.segment_plan(head_ptr, device=device, stats=stats),
+            head_row_ptr=head_ptr,
+            head_row_plan=sk.segment_plan(head_ptr, e=hl.head_row_node.shape[0], stats=stats),
         )
     elif layout == "sort_shuffle":
         bucket_src, bucket_node, bucket_w = build_shuffle_layout(
             graph, bucket_width=bucket_width
         )
-        bucket_ptr = segment_pointers(bucket_node, graph.n_nodes)
+        bucket_ptr = put(segment_pointers(bucket_node, graph.n_nodes))
         shuffle = ShuffleLayout(
             bucket_src=put(bucket_src),
             bucket_node=put(bucket_node),
             bucket_w=put(bucket_w, dtype) if bucket_w is not None else None,
-            bucket_ptr=put(bucket_ptr),
-            bucket_plan=sk.segment_plan(bucket_ptr, device=device, stats=stats),
+            bucket_ptr=bucket_ptr,
+            bucket_plan=sk.segment_plan(bucket_ptr, e=bucket_node.shape[0], stats=stats),
         )
     elif layout is not None:
         raise ValueError(f"unknown graph layout {layout!r}")
-    indptr = graph.csr_indptr() if keep_edge_arrays else None
-    return DeviceGraph(
-        src=put(graph.src if keep_edge_arrays else empty),
-        dst=put(graph.dst if keep_edge_arrays else empty),
+    edge_weight = None
+    if on_card:
+        e = graph.n_edges
+        src = put(graph.src if keep_edge_arrays else empty)
+        ptr64 = put(graph.csr_indptr()) if keep_edge_arrays else None
+        norm = put(graph.out_strength() if weighted else graph.out_degree)
+        if weighted and keep_edge_arrays:
+            edge_weight = put(graph.weight, dtype)
+        # the copies above have ended; the derivation follows on the stream
+        inv_outdeg, dangling, has_outlinks = pt.node_vectors_kernel(norm, getattr(torch, dtype))
+        if ptr64 is None:  # zero-length placeholders, as src
+            dst = indptr = src
+            segment_plan = spmv_plan = None
+        else:
+            indptr = ptr64.to(torch.int32)  # every pointer is below 2^31
+            spmv_plan = pk.spmv_plan(indptr, e=e, stats=stats)
+            segment_plan = sk.segment_plan(indptr, e=e, stats=stats)
+            dst = pt.expand_dst_kernel(indptr, e, spmv_plan.rows, pk.TILE)
+    else:
+        host_ptr = graph.csr_indptr() if keep_edge_arrays else None
+        src = put(graph.src if keep_edge_arrays else empty)
+        dst = put(graph.dst if keep_edge_arrays else empty)
         # weighted graphs normalize by out-strength, unweighted by out-degree
-        inv_outdeg=put(graph.inv_out_strength(dtype)),
-        dangling=put(graph.out_degree == 0, "float64"),
-        has_outlinks=put(graph.out_degree > 0, dtype),
-        indptr=put(empty if indptr is None else indptr, "int32"),
-        hybrid=hybrid,
-        shuffle=shuffle,
-        edge_weight=(put(graph.weight, dtype)
-                     if weighted and keep_edge_arrays else None),
-        segment_plan=(None if indptr is None
-                      else sk.segment_plan(indptr, device=device, stats=stats)),
-        spmv_plan=None if indptr is None else pk.spmv_plan(indptr, device=device, stats=stats),
+        inv_outdeg = put(graph.inv_out_strength(dtype))
+        dangling = put(graph.out_degree == 0, "float64")
+        has_outlinks = put(graph.out_degree > 0, dtype)
+        indptr = put(empty if host_ptr is None else host_ptr, "int32")
+        if weighted and keep_edge_arrays:
+            edge_weight = put(graph.weight, dtype)
+        segment_plan = spmv_plan = None
+        if host_ptr is not None:
+            segment_plan = sk.segment_plan(host_ptr, device=device, stats=stats)
+            spmv_plan = pk.spmv_plan(host_ptr, device=device, stats=stats)
+    return DeviceGraph(
+        src=src, dst=dst, inv_outdeg=inv_outdeg, dangling=dangling,
+        has_outlinks=has_outlinks, indptr=indptr, hybrid=hybrid, shuffle=shuffle,
+        edge_weight=edge_weight, segment_plan=segment_plan, spmv_plan=spmv_plan,
     )
 
 

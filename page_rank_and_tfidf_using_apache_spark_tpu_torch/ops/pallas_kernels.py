@@ -170,22 +170,37 @@ def spmv_rows(indptr, tile: int = TILE) -> np.ndarray:
     return rows
 
 
-def spmv_plan(indptr, *, device: str | torch.device | None = None,
+def spmv_plan(indptr, *, device: str | torch.device | None = None, e: int | None = None,
               stats: dict | None = None) -> SpmvPlan:
     """The :class:`SpmvPlan` of the CSR pointers ``indptr`` (a numpy array
     or an int32 tensor), on ``device`` (default: the tensor's, else the
-    CPU).  A tensor on the card is read back to the host once.  The build,
-    its copies included, is an ``ops.spmv_plan`` span; with ``stats`` its
-    seconds are added to ``stats["plan_secs"]``."""
+    CPU).  A tensor on the card is planned there, by
+    ``put_kernels.spmv_rows_kernel`` on the current stream, to the numbers of
+    :func:`spmv_rows`; ``e`` is ``indptr[-1]``, which such a tensor reads
+    back when it is not given.  Anything else is planned on the host and
+    copied to ``device``.  The build, its copies included, is an
+    ``ops.spmv_plan`` span; with ``stats`` its seconds are added to
+    ``stats["plan_secs"]``.  On the card the span ends once the kernel is
+    enqueued: it times the host's part, and the kernel's device time falls
+    after it on the stream."""
+    from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import put_kernels
+
+    on_card = (isinstance(indptr, torch.Tensor) and indptr.device.type == "cuda"
+               and (device is None or torch.device(device) == indptr.device))
     if device is None:
         device = indptr.device if isinstance(indptr, torch.Tensor) else "cpu"
     with timed_span("ops.spmv_plan", stats, "plan_secs"):
-        host = indptr.cpu().numpy() if isinstance(indptr, torch.Tensor) else np.asarray(indptr)
-        rows = spmv_rows(host)
+        if on_card:
+            n = indptr.shape[0] - 1
+            e = int(indptr[-1]) if e is None else e
+            rows = put_kernels.spmv_rows_kernel(indptr, e, TILE)
+        else:
+            host = indptr.cpu().numpy() if isinstance(indptr, torch.Tensor) else np.asarray(indptr)
+            n, e = host.shape[0] - 1, int(host[-1])
+            rows = torch.from_numpy(spmv_rows(host).astype(np.int32)).to(device)
         PLANS_BUILT["spmv"] += 1
         return SpmvPlan(
-            n=host.shape[0] - 1, e=int(host[-1]),
-            rows=torch.from_numpy(rows.astype(np.int32)).to(device),
+            n=n, e=e, rows=rows,
             state=torch.zeros(_STATE_BYTES + _SLOTS_BYTES * (rows.shape[0] - 1),
                               dtype=torch.uint8, device=device))
 
@@ -268,9 +283,8 @@ def spmv_pallas(
       n: number of nodes.
       edge_weight: optional f[E] of ``w``'s type.
       plan: ``indptr``'s :class:`SpmvPlan` on ``w``'s device.  A call
-        without one on the card builds one, which reads ``indptr`` back to
-        the host and allocates: it stays right and costs more.  The CPU
-        ignores it.
+        without one on the card builds one there, which allocates: it
+        stays right and costs more.  The CPU ignores it.
     """
     _check_spmv(src, indptr, w, n, edge_weight, plan)
     if w.device.type == "cpu":
@@ -282,7 +296,7 @@ def spmv_pallas(
         return _op("spmv")(src, indptr, w, n, edge_weight)
     lib = _build.library("spmv")
     if plan is None:
-        plan = spmv_plan(indptr)
+        plan = spmv_plan(indptr, e=e)
     out = torch.empty(n, dtype=w.dtype, device=w.device)
     launch = lib.spmv_f32 if w.dtype == torch.float32 else lib.spmv_f64
     ew = None if edge_weight is None else edge_weight.data_ptr()

@@ -17,8 +17,9 @@ for a caller that adds rows summed on several slots and rounds once.  Two
 calls give the same bits, which the float64 ``index_add_`` of
 :func:`segment_sum_plain` does not promise on CUDA.  The split is a
 :class:`SegmentPlan`, built once per pointer array (``put_graph`` builds
-one for each of its three) and passed to every call.  On the CPU the
-wrapper runs :func:`segment_sum_plain` and ignores the plan.
+one for each of its three; a pointer tensor on the card is planned there,
+by ``csrc/put.cu``) and passed to every call.  On the CPU the wrapper runs
+:func:`segment_sum_plain` and ignores the plan.
 
 ``LAUNCHES`` counts kernel launches, so a run can show that it went
 through the kernel.  Under the static analyzer's trace (fake tensors on a
@@ -33,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import _build, traced
+from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops import _build, put_kernels, traced
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.ops.pallas_kernels import _check, _raise_on
 from page_rank_and_tfidf_using_apache_spark_tpu_torch.utils.metrics import timed_span
 
@@ -96,22 +97,35 @@ def segment_coords(ptr, block_items: int = BLOCK_ITEMS) -> np.ndarray:
     return np.searchsorted(ptr[1:] + np.arange(1, n + 1), d, side="right")
 
 
-def segment_plan(ptr, *, device: str | torch.device | None = None,
+def segment_plan(ptr, *, device: str | torch.device | None = None, e: int | None = None,
                  stats: dict | None = None) -> SegmentPlan:
     """The :class:`SegmentPlan` of the CSR pointers ``ptr`` (a numpy array
     or an int32 tensor), on ``device`` (default: the tensor's, else the
-    CPU).  A tensor on the card is read back to the host once.  The build,
-    its copies included, is an ``ops.segment_plan`` span; with ``stats``
-    its seconds are added to ``stats["plan_secs"]``."""
+    CPU).  A tensor on the card is planned there, by
+    ``put_kernels.segment_coords_kernel`` on the current stream, to the numbers
+    of :func:`segment_coords`; ``e`` is ``ptr[-1]``, which such a tensor
+    reads back when it is not given.  Anything else is planned on the host
+    and copied to ``device``.  The build, its copies included, is an
+    ``ops.segment_plan`` span; with ``stats`` its seconds are added to
+    ``stats["plan_secs"]``.  On the card the span ends once the kernel is
+    enqueued: it times the host's part, and the kernel's device time falls
+    after it on the stream."""
+    on_card = (isinstance(ptr, torch.Tensor) and ptr.device.type == "cuda"
+               and (device is None or torch.device(device) == ptr.device))
     if device is None:
         device = ptr.device if isinstance(ptr, torch.Tensor) else "cpu"
     with timed_span("ops.segment_plan", stats, "plan_secs"):
-        host = ptr.cpu().numpy() if isinstance(ptr, torch.Tensor) else np.asarray(ptr)
-        n, e = host.shape[0] - 1, int(host[-1])
-        coords = segment_coords(host)
+        if on_card:
+            n = ptr.shape[0] - 1
+            e = int(ptr[-1]) if e is None else e
+            coords = put_kernels.segment_coords_kernel(ptr, e, segment_tiles(n, e), BLOCK_ITEMS)
+        else:
+            host = ptr.cpu().numpy() if isinstance(ptr, torch.Tensor) else np.asarray(ptr)
+            n, e = host.shape[0] - 1, int(host[-1])
+            coords = torch.from_numpy(segment_coords(host).astype(np.int32)).to(device)
         PLANS_BUILT["segment"] += 1
         return SegmentPlan(
-            n=n, e=e, coords=torch.from_numpy(coords.astype(np.int32)).to(device),
+            n=n, e=e, coords=coords,
             state=torch.zeros(_STATE_BYTES + _SLOT_BYTES * segment_tiles(n, e),
                               dtype=torch.uint8, device=device))
 
@@ -232,9 +246,8 @@ def segment_sum_kernel(
         checked on the card).
       edge_weight: optional f[E] of ``values``' type, only with ``src``.
       plan: ``ptr``'s :class:`SegmentPlan` on the values' device.  A call
-        without one on the card builds one, which reads ``ptr`` back to the
-        host and allocates: it stays right and costs more.  The CPU
-        ignores it.
+        without one on the card builds one there, which allocates: it
+        stays right and costs more.  The CPU ignores it.
       out_dtype: the rows' dtype: the values' (default), or float64 for
         float32 values.
     """
@@ -250,7 +263,7 @@ def segment_sum_kernel(
     out = torch.empty(n, dtype=out_dtype, device=values.device)
     lib = _build.library("segment")  # it returns at once for n = 0, zeros out for E = 0
     if plan is None:
-        plan = segment_plan(ptr)
+        plan = segment_plan(ptr, e=e)
     types = {(torch.float32, torch.float32): "f32", (torch.float64, torch.float64): "f64",
              (torch.float32, torch.float64): "f32_f64"}[values.dtype, out_dtype]
     coords, state = plan.coords.data_ptr(), plan.state.data_ptr()
