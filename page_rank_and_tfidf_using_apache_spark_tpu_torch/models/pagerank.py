@@ -32,7 +32,8 @@ inside) and the restart vector and initial ranks with their uploads
 ``put_graph`` record carries their seconds (``preprocess_secs``,
 ``h2d_secs``, ``h2d_bytes``, ``plan_secs``, ``prep_secs``) and where the
 put built its derived fields and plans (``derived_on``: ``"card"`` on a
-CUDA device, else ``"host"``), and a ``result_pull`` record the pull's
+CUDA device, else ``"host"``) and the bytes of the tensors the put
+holds there (``device_bytes``), and a ``result_pull`` record the pull's
 ``secs`` and ``bytes``.
 """
 

@@ -259,6 +259,23 @@ def segment_pointers(ids: np.ndarray, n: int) -> np.ndarray:
     return np.searchsorted(ids, np.arange(n + 1)).astype(np.int32)
 
 
+# The device graph indexes edges, CSR pointers and the segmented sum's
+# merge path (a row end or an edge an item, n + E items) with 32-bit ints.
+INT32_LIMIT = 2 ** 31 - 1
+
+
+def check_int32_counts(n_nodes: int, n_edges: int) -> None:
+    """Raise ``ValueError`` where the merge-path length ``n_nodes +
+    n_edges``, and so any larger count of edges, passes
+    :data:`INT32_LIMIT`: the put's int32 pointers and the int32 tile
+    coordinates of ``segment_plan`` would overflow."""
+    if n_nodes + n_edges > INT32_LIMIT:
+        raise ValueError(
+            f"a graph of {n_nodes} nodes and {n_edges} edges (n + E = {n_nodes + n_edges}) "
+            f"passes the int32 limit {INT32_LIMIT} of the device graph's pointers and "
+            "merge-path tile coordinates")
+
+
 def put_graph(
     graph: Graph,
     dtype: str = "float32",
@@ -297,9 +314,15 @@ def put_graph(
     build an ``ops.segment_plan`` or ``ops.spmv_plan`` span; with
     ``stats`` (a dict) the copies' seconds and bytes are summed into its
     ``h2d_secs`` and ``h2d_bytes``, the plans' seconds into its
-    ``plan_secs``, and ``derived_on`` is ``"card"`` or ``"host"``."""
+    ``plan_secs``, ``derived_on`` is ``"card"`` or ``"host"``, and
+    ``device_bytes`` is what the put holds on ``device``
+    (:func:`device_graph_bytes` of the graph it returns).
+
+    A graph past the int32 limit (:func:`check_int32_counts`) raises
+    ``ValueError`` before any copy."""
     if not keep_edge_arrays and layout is None:
         raise ValueError("keep_edge_arrays=False requires a static layout")
+    check_int32_counts(graph.n_nodes, graph.n_edges)
 
     def put(a: np.ndarray, cast: str | None = None) -> torch.Tensor:
         return h2d(np.ascontiguousarray(a if cast is None else a.astype(cast)), device, stats)
@@ -357,7 +380,7 @@ def put_graph(
             dst = indptr = src
             segment_plan = spmv_plan = None
         else:
-            indptr = ptr64.to(torch.int32)  # every pointer is below 2^31
+            indptr = ptr64.to(torch.int32)  # below 2^31: check_int32_counts
             spmv_plan = pk.spmv_plan(indptr, e=e, stats=stats)
             segment_plan = sk.segment_plan(indptr, e=e, stats=stats)
             dst = pt.expand_dst_kernel(indptr, e, spmv_plan.rows, pk.TILE)
@@ -376,11 +399,30 @@ def put_graph(
         if host_ptr is not None:
             segment_plan = sk.segment_plan(host_ptr, device=device, stats=stats)
             spmv_plan = pk.spmv_plan(host_ptr, device=device, stats=stats)
-    return DeviceGraph(
+    dg = DeviceGraph(
         src=src, dst=dst, inv_outdeg=inv_outdeg, dangling=dangling,
         has_outlinks=has_outlinks, indptr=indptr, hybrid=hybrid, shuffle=shuffle,
         edge_weight=edge_weight, segment_plan=segment_plan, spmv_plan=spmv_plan,
     )
+    if stats is not None:
+        stats["device_bytes"] = device_graph_bytes(dg)
+    return dg
+
+
+def device_graph_bytes(dg: DeviceGraph) -> int:
+    """The bytes of every tensor ``dg`` holds, its layouts' and plans'
+    included, a tensor held under two fields counted once."""
+    held: dict[int, int] = {}
+
+    def walk(x) -> None:
+        if isinstance(x, torch.Tensor):
+            held[id(x)] = x.nbytes
+        elif isinstance(x, tuple):
+            for y in x:
+                walk(y)
+
+    walk(dg)
+    return sum(held.values())
 
 
 def layout_for_impl(impl: str) -> str | None:

@@ -55,5 +55,5 @@ def put_stats() -> dict:
     """A fresh stats dict for a put of a graph (``ops.put_graph``'s
     ``stats``): its copies' seconds and bytes (:func:`h2d`) and its plan
     builds' seconds, the fields a driver's ``put_graph`` record carries
-    (``ops.put_graph`` adds ``derived_on``)."""
+    (``ops.put_graph`` adds ``derived_on`` and ``device_bytes``)."""
     return {"h2d_secs": 0.0, "h2d_bytes": 0, "plan_secs": 0.0}

@@ -5,7 +5,8 @@ host preparation (``<p>.prep``), the put (``<p>.put_graph``), each
 host-to-device copy (``device.h2d``) and each kernel plan build
 (``ops.segment_plan``, ``ops.spmv_plan``); its ``put_graph`` record adds
 the put's copy and plan seconds, the bytes copied, where its derived
-fields were built (``derived_on``) and the prep's seconds,
+fields were built (``derived_on``), the bytes it holds on the device
+(``device_bytes``) and the prep's seconds,
 ``ppr_batch`` the prep's seconds, and a ``result_pull`` record times the
 pull.  The parity tests hold the port's records and spans, with exactly
 these taken away, to the reference's.
@@ -18,7 +19,8 @@ PORT_ONLY_SPANS = (
     "device.h2d", "ops.segment_plan", "ops.spmv_plan",
 )
 PORT_ONLY_FIELDS = {
-    "put_graph": ("h2d_secs", "h2d_bytes", "plan_secs", "derived_on", "prep_secs"),
+    "put_graph": ("h2d_secs", "h2d_bytes", "plan_secs", "derived_on", "prep_secs",
+                  "device_bytes"),
     "ppr_batch": ("prep_secs",),
 }
 PORT_ONLY_EVENTS = ("result_pull",)

@@ -254,7 +254,8 @@ def test_records_and_spans_match_reference_names(tmp_path):
     assert [r.get("event") for r in m.records] == [
         "put_graph", None, "checkpoint", None, "checkpoint", None, "result_pull"]
     assert sorted(m.records[0]) == sorted(["event", "spmv_impl", "preprocess_secs", "h2d_secs",
-                                           "h2d_bytes", "plan_secs", "derived_on", "prep_secs"])
+                                           "h2d_bytes", "plan_secs", "derived_on", "prep_secs",
+                                           "device_bytes"])
     assert m.records[0]["derived_on"] == "host"
     assert sorted(m.records[-1]) == ["bytes", "event", "secs"]
     spans = {e["name"] for e in sink.of_kind("span_end")}

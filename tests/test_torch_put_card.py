@@ -146,3 +146,24 @@ def test_ppr_ranks_equal_over_the_card_and_host_puts(card, monkeypatch):
                             graph, c.dtype, device))
     host_res = ppr_mod.run_ppr_batch(g, cfg, queries, device=card)
     assert np.array_equal(card_res.ranks.view(np.int32), host_res.ranks.view(np.int32))
+
+
+def test_a_card_put_records_what_it_holds(card):
+    """``device_bytes`` is the bytes of the returned graph's tensors, plans
+    included: what the put leaves allocated on the card, less the slack
+    of the allocator's blocks (it splits a block only where more than
+    1 MiB would be left over)."""
+    g = web_google()
+    stats = put_stats()
+    before = torch.cuda.memory_allocated(card)
+    dg = tops.put_graph(g, "float32", device=card, stats=stats)
+    held = torch.cuda.memory_allocated(card) - before
+    assert stats["device_bytes"] == tops.device_graph_bytes(dg)
+    fields = (dg.src, dg.dst, dg.indptr, dg.inv_outdeg, dg.dangling, dg.has_outlinks,
+              dg.segment_plan.coords, dg.segment_plan.state, dg.spmv_plan.rows,
+              dg.spmv_plan.state)
+    assert stats["device_bytes"] == sum(t.numel() * t.element_size() for t in fields)
+    assert stats["device_bytes"] <= held < stats["device_bytes"] + 2 ** 20 * len(fields)
+    res = api.pagerank(g, tcfg.PageRankConfig(iterations=2), device=card)
+    (put,) = [r for r in res.metrics.records if r.get("event") == "put_graph"]
+    assert put["device_bytes"] == stats["device_bytes"]

@@ -103,3 +103,76 @@ def test_a_run_records_where_its_put_derived():
     res = run_pagerank(g, tcfg.PageRankConfig(iterations=3), device="cpu")
     (put,) = [r for r in res.metrics.records if r.get("event") == "put_graph"]
     assert put["derived_on"] == "host"
+
+
+@pytest.mark.parametrize("n, e, raises", [
+    (10, tops.INT32_LIMIT - 10, False),  # the merge path at the limit
+    (11, tops.INT32_LIMIT - 10, True),  # one past it
+    (0, tops.INT32_LIMIT, False),
+    (0, tops.INT32_LIMIT + 1, True),  # the edges alone past it
+    (41_652_230, 1_468_365_182, False),  # LAW twitter-2010, n + E at 70% of the limit
+])
+def test_the_int32_limit_on_edges_and_the_merge_path(n, e, raises):
+    if raises:
+        with pytest.raises(ValueError, match=f"{n} nodes and {e} edges.*2147483647"):
+            tops.check_int32_counts(n, e)
+    else:
+        tops.check_int32_counts(n, e)
+
+
+class _CountsOnly:
+    """A graph that has counts and no arrays: a put that reads an array
+    raises AttributeError."""
+
+    weight = None
+
+    def __init__(self, n_nodes, n_edges):
+        self.n_nodes, self.n_edges = n_nodes, n_edges
+
+
+@pytest.mark.parametrize("layout", [None, "hybrid"])
+def test_a_put_past_the_int32_limit_raises_before_any_copy(layout):
+    tops.reset_launches()
+    stats = put_stats()
+    over = _CountsOnly(1000, tops.INT32_LIMIT - 999)
+    with pytest.raises(ValueError, match="int32 limit"):
+        tops.put_graph(over, device="cpu", layout=layout, stats=stats)
+    assert stats == put_stats() and tops.DERIVED_ON == {"card": 0, "host": 0}
+    # one under the limit passes the check and goes on to read the arrays
+    with pytest.raises(AttributeError):
+        tops.put_graph(_CountsOnly(1000, tops.INT32_LIMIT - 1000), device="cpu", layout=layout)
+
+
+def _held(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+@pytest.mark.parametrize("case", ["power law", "weighted"])
+def test_a_put_records_the_bytes_it_holds(case):
+    """``device_bytes`` is the bytes of every tensor of the returned graph,
+    its plans' coordinates and scratch included."""
+    g = GRAPHS[case]()
+    stats = put_stats()
+    dg = tops.put_graph(g, device="cpu", stats=stats)
+    plans = (dg.segment_plan.coords, dg.segment_plan.state, dg.spmv_plan.rows, dg.spmv_plan.state)
+    want = _held(dg.src, dg.dst, dg.inv_outdeg, dg.dangling, dg.has_outlinks, dg.indptr,
+                 dg.edge_weight, *plans)
+    assert stats["device_bytes"] == tops.device_graph_bytes(dg) == want
+    assert want >= 8 * g.n_edges + 4 * (g.n_nodes + 1)  # src, dst and indptr at least
+    res = run_pagerank(g, tcfg.PageRankConfig(iterations=2), device="cpu")
+    (put,) = [r for r in res.metrics.records if r.get("event") == "put_graph"]
+    assert put["device_bytes"] == want
+
+
+def test_the_bytes_of_a_layout_and_of_a_tensor_held_twice():
+    g = GRAPHS["power law"]()
+    dg = tops.put_graph(g, device="cpu", layout="hybrid")
+    hl = dg.hybrid
+    layout = _held(*(t for t in hl if isinstance(t, torch.Tensor)), hl.head_row_plan.coords,
+                   hl.head_row_plan.state)
+    assert layout > 0
+    base = tops.put_graph(g, device="cpu")
+    assert tops.device_graph_bytes(dg) == tops.device_graph_bytes(base) + layout
+    # a tensor under two fields, as the card's zero-length placeholders are
+    twice = base._replace(dst=base.src)
+    assert tops.device_graph_bytes(twice) == tops.device_graph_bytes(base) - _held(base.dst)
